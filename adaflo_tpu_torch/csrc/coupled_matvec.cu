@@ -39,10 +39,11 @@
 // HBM3, 34 TFLOP/s float64 outside the tensor cores). Per apply the kernel
 // must read u, u* and p once, read the int32 cell tables and masks once, and
 // write the output once: at the 48^3-cell Q2/Q1 lattice (2,855,668 dofs)
-// that is 85.9 MB in float64, 25.6 us at 3.35 TB/s. The sum factorization as
-// written costs 17,817 flops per cell (3D Q2/Q1), 1.97 GFLOP at 48^3, 58 us
-// at 34 TFLOP/s: the kernel is bound by operations, about twice over
-// (chip_smoke.py computes both bounds from each run's shapes). The design
+// that is 85.9 MB in float64, 25.6 us at 3.35 TB/s. The sum factorization
+// needs 14,482 flops per cell (3D Q2/Q1; 14,067 without the pressure stages
+// of the velocity-only entry), 1.60 GFLOP at 48^3, 47 us at 34 TFLOP/s: the
+// kernel is bound by operations, about 1.8 times over (chip_smoke.py counts
+// both bounds from each run's shapes). The design
 // keeps every intermediate in shared memory, so that the only device-memory
 // traffic is the gather, the atomic scatter and the epilogue's read, modify
 // and write. It does not reach the bound: the gather is uncoalesced (one
@@ -122,7 +123,9 @@ __device__ __forceinline__ void axis_op(T* __restrict__ out, const T* in,
   out[o] = acc;
 }
 
-template <int DIM, int N1, int Q1, int P1, typename T>
+// PRES: the pressure input and the pressure rows; the velocity-only entry
+// (no pressure) skips the pressure evaluation and integration stages
+template <int DIM, int N1, int Q1, int P1, bool PRES, typename T>
 __global__ void __launch_bounds__(kThreads)
 coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ us, const int32_t* __restrict__ cell_u,
@@ -156,9 +159,10 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   const int nc = (int)min((long long)cpb, n_cells - c0);
 
   // ---- gather: u (constrained entries read 0), u* (plain), p (masked) ----
-  for (int t = tid; t < nc * (NI * NL + NP); t += nth) {
-    const int cell = t / (NI * NL + NP);
-    const int k = t % (NI * NL + NP);
+  constexpr int per_g = NI * NL + (PRES ? NP : 0);
+  for (int t = tid; t < nc * per_g; t += nth) {
+    const int cell = t / per_g;
+    const int k = t % per_g;
     const long long e = c0 + cell;
     T* cb = buf + cell * CS;
     if (k < NI * NL) {
@@ -174,12 +178,8 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
       cb[(IN + item) * NB + l] = v;
     } else {
       const int l = k - NI * NL;
-      T v = T(0);
-      if (p != nullptr) {
-        const long long dof = cell_p[e * NP + l];
-        v = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
-      }
-      cb[(IN + NI) * NB + l] = v;
+      const long long dof = cell_p[e * NP + l];
+      cb[(IN + NI) * NB + l] = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
     }
   }
   __syncthreads();
@@ -188,7 +188,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   {
     constexpr int n1 = ipow(N1, DIM - 1) * Q1, np1 = ipow(P1, DIM - 1) * Q1;
     constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
-    constexpr int per = NI * 2 * n1 + np1;
+    constexpr int per = NI * 2 * n1 + (PRES ? np1 : 0);
     for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
@@ -212,7 +212,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     constexpr int n2 = ipow(Q1, 2) * (DIM == 3 ? N1 : 1);
     constexpr int np2 = ipow(Q1, 2) * (DIM == 3 ? P1 : 1);
     constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
-    constexpr int per = NI * 3 * n2 + np2;
+    constexpr int per = NI * 3 * n2 + (PRES ? np2 : 0);
     for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
@@ -244,7 +244,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   //      d/dy = Vz B01, d/dz = Dz B00 ---------------------------------------
   if constexpr (DIM == 3) {
     constexpr int n3 = NQ;
-    constexpr int per = NI * 4 * n3 + n3;
+    constexpr int per = NI * 4 * n3 + (PRES ? n3 : 0);
     for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
@@ -280,7 +280,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
         sg[c][d] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q] * tab.inv_h[d];
       }
     }
-    const T pq = cb[(F + FI * NI) * NB + q];
+    const T pq = PRES ? cb[(F + FI * NI) * NB + q] : T(0);
     T div = T(0), div_s = T(0);
     for (int a = 0; a < DIM; ++a) {
       div += ug[a][a];
@@ -305,7 +305,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
         cb[(S1 + DIM + DIM * c + d) * NB + q] = st * jxw * tab.inv_h[d];
       }
     }
-    cb[(S1 + DIM + DIM * DIM) * NB + q] = -div * jxw;
+    if (PRES) cb[(S1 + DIM + DIM * DIM) * NB + q] = -div * jxw;
   }
   __syncthreads();
 
@@ -316,7 +316,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     constexpr int TX = DIM == 3 ? S2 : F;
     constexpr int e2 = DIM == 3 ? Q1 : 1;
     constexpr int n1 = N1 * ipow(Q1, DIM - 1), np1 = P1 * ipow(Q1, DIM - 1);
-    constexpr int per = DIM * DIM * n1 + np1;
+    constexpr int per = DIM * DIM * n1 + (PRES ? np1 : 0);
     for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
@@ -348,7 +348,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     constexpr int n2 = N1 * N1 * (DIM == 3 ? Q1 : 1);
     constexpr int np2 = P1 * P1 * (DIM == 3 ? Q1 : 1);
     constexpr int NO = DIM == 3 ? 2 : 1;  // outputs per component
-    constexpr int per = DIM * NO * n2 + np2;
+    constexpr int per = DIM * NO * n2 + (PRES ? np2 : 0);
     for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
@@ -375,7 +375,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   // ---- integration, stage z (3D): out_c = Vz^T e_c + Dz^T f_c into S1 -----
   constexpr int OUT = DIM == 3 ? S1 : IN;
   if constexpr (DIM == 3) {
-    constexpr int per = DIM * NL + NP;
+    constexpr int per = DIM * NL + (PRES ? NP : 0);
     for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
@@ -394,15 +394,16 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   }
 
   // ---- scatter: atomic adds into the nodal output --------------------------
-  for (int t = tid; t < nc * (DIM * NL + NP); t += nth) {
-    const int cell = t / (DIM * NL + NP);
-    const int k = t % (DIM * NL + NP);
+  constexpr int per_s = DIM * NL + (PRES ? NP : 0);
+  for (int t = tid; t < nc * per_s; t += nth) {
+    const int cell = t / per_s;
+    const int k = t % per_s;
     const long long e = c0 + cell;
     const T* cb = buf + cell * CS;
     if (k < DIM * NL) {
       const int c = k / NL, l = k % NL;
       atomicAdd(out_u + c * n_u + cell_u[e * NL + l], cb[(OUT + c) * NB + l]);
-    } else if (out_p != nullptr) {
+    } else {
       const int l = k - DIM * NL;
       atomicAdd(out_p + cell_p[e * NP + l], cb[(OUT + DIM) * NB + l]);
     }
@@ -468,7 +469,9 @@ int launch_cells(const void* u, const void* p, const void* us,
   int cpb = (int)(32768 / cell_bytes);
   if (cpb < 1) cpb = 1;
   const size_t smem = 3 * kMaxTab * sizeof(T) + cpb * cell_bytes;
-  auto kern = coupled_cell_kernel<DIM, N1, Q1, P1, T>;
+  if ((p == nullptr) != (out_p == nullptr)) return (int)cudaErrorInvalidValue;
+  auto kern = p != nullptr ? coupled_cell_kernel<DIM, N1, Q1, P1, true, T>
+                           : coupled_cell_kernel<DIM, N1, Q1, P1, false, T>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -511,8 +514,8 @@ int launch_set(int dim, int degree, const void* u, const void* p,
 extern "C" {
 
 // Cell kernel: out_u/out_p (zeroed by the caller) += the coupled cell apply.
-// dtype: 0 float32, 1 float64. p/out_p null: velocity rows only (zero
-// pressure input). rho/mu/damp null each: that coefficient is the constant
+// dtype: 0 float32, 1 float64. p and out_p both null: velocity rows only,
+// without a pressure input. rho/mu/damp null each: that coefficient is the constant
 // scal value. tab: host doubles [V (Q1 x N1), D (Q1 x N1), Vp (Q1 x P1),
 // w (Q1), inv_h (dim), vol]. scal: host doubles
 // [beta, weight, tau1, rho0, mu0, damp0, tau_grad_div].

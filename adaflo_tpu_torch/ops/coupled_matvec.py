@@ -10,8 +10,8 @@ cell math with constant coefficients, used by ``vmult`` and
 (``csrc/coupled_matvec.cu``) with two entries:
 
 - ``coupled_apply`` (K1): (u, p) -> (r_u, r_p) with the extras;
-- ``coupled_apply_velocity`` (K2): u -> r_u, zero pressure input, pressure
-  rows dropped, constrained rows zeroed (condensed).
+- ``coupled_apply_velocity`` (K2): u -> r_u, no pressure input and no
+  pressure rows, constrained rows +u (identity).
 
 Vectors stay nodal: u (dim, n_u), p (n_p,), and the frozen Newton
 linearization point u* (dim, n_u). A wrapper given CUDA tensors launches the
@@ -213,6 +213,7 @@ class CoupledCells:
         self.cell_p = torch.as_tensor(
             np.ascontiguousarray(cell_p, np.int32), device=self.device
         )
+        self.device = self.cell_u.device  # with its index: "cuda" -> "cuda:0"
         self.mask_u = (
             None if mask_u is None
             else torch.as_tensor(np.asarray(mask_u, bool), device=self.device)
@@ -511,13 +512,12 @@ def coupled_apply(
 def coupled_apply_velocity(
     u, u_star, cells: CoupledCells, sc: ApplyScalars, *, coeffs=None
 ):
-    """K2: velocity-block apply r_u = A_uu(u*) u with a zero pressure input;
-    pressure rows dropped and constrained rows zeroed (condensed)."""
+    """K2: velocity-block apply r_u = A_uu(u*) u with no pressure input and
+    no pressure rows; constrained rows read +u (identity)."""
     _check(u, None, u_star, cells, coeffs)
     if u.device.type == "cpu":
         return coupled_apply_plain(
-            u, None, u_star, cells, sc, coeffs=coeffs, identity=False,
-            velocity_only=True,
+            u, None, u_star, cells, sc, coeffs=coeffs, velocity_only=True
         )
     if not u.is_cuda:
         raise RuntimeError(f"coupled apply: no kernel for device {u.device}")
@@ -525,6 +525,6 @@ def coupled_apply_velocity(
     _launch_cells(u, None, u_star, cells, sc, coeffs, out_u, None)
     launches["coupled_apply_velocity"] += 1
     if cells.mask_u is not None:
-        _launch_epilogue(u, None, cells, out_u, None, False, None, None)
+        _launch_epilogue(u, None, cells, out_u, None, True, None, None)
     return out_u
 

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from adaflo_tpu_torch.device import resolve_device
 from adaflo_tpu_torch.fe.constraints import Constraints
 from adaflo_tpu_torch.fe.space import ScalarSpace
 from adaflo_tpu_torch.ops.coupled_matvec import (
@@ -41,6 +42,7 @@ from adaflo_tpu_torch.ops.coupled_matvec import (
 from adaflo_tpu_torch.ops.lattice import LatticeOps
 from adaflo_tpu_torch.ops.tensor import CellEvaluator
 from adaflo_tpu_torch.parameters import FlowParameters, Linearization, PhysicalType
+from adaflo_tpu_torch.utils.timer import profiler_range
 
 
 class TimeWeights(NamedTuple):
@@ -109,7 +111,7 @@ class NavierStokesOperator:
         self.constraints_u = constraints_u
         self.constraints_p = constraints_p
         self.dtype = dtype
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         mesh = u_space.mesh
         if getattr(u_space, "is_forest", False) or getattr(u_space, "is_mapped", False):
             raise NotImplementedError(
@@ -313,6 +315,7 @@ class NavierStokesOperator:
         return submit_val, stress, div, new_lin
 
     # ------------------------------------------------------------------
+    @profiler_range
     def residual_assemble(
         self,
         u,
@@ -375,6 +378,7 @@ class NavierStokesOperator:
                 "(ROADMAP.md queue 1, item 9)"
             )
 
+    @profiler_range
     def vmult(
         self,
         du,
@@ -416,6 +420,7 @@ class NavierStokesOperator:
             r_u = r_u + self.ev_u.integrate_values(submit_val)
         return r_u
 
+    @profiler_range
     def velocity_vmult(
         self,
         du,
@@ -425,17 +430,13 @@ class NavierStokesOperator:
     ):
         """(0,0)-block mat-vec (navier_stokes_matrix.cc:337-382)."""
         self._require_cells(lin)
-        du = du.contiguous()
-        ru = coupled_apply_velocity(
-            du,
+        return coupled_apply_velocity(
+            du.contiguous(),
             lin.u.contiguous(),
             self.cells,
             self._apply_scalars(tw),
             coeffs=self._cell_coeffs(coeffs),
         )
-        if self.cells.mask_u is None:
-            return ru
-        return torch.where(self.cells.mask_u, du, ru)
 
     def velocity_block_diagonal(
         self,

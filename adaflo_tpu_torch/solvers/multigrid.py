@@ -27,10 +27,12 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from adaflo_tpu_torch.device import resolve_device
 from adaflo_tpu_torch.fe.basis import basis as make_basis
 from adaflo_tpu_torch.ops.lattice import LatticeOps
 from adaflo_tpu_torch.ops.tensor import CellEvaluator
 from adaflo_tpu_torch.solvers.krylov import cg
+from adaflo_tpu_torch.utils.timer import profiler_range
 
 
 class LevelState(NamedTuple):
@@ -130,7 +132,7 @@ class LatticeGMG:
         self.n_dofs_padded = n_dofs_padded
         self.smoother_degree = smoother_degree
         self.dtype = dtype
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         q1 = make_basis(1, "equidistant")
         levels: List[_LevelGeom] = []
         n_cells_axis = tuple(n - 1 for n in n_nodes_axis)
@@ -301,6 +303,7 @@ class LatticeGMG:
         x = x + self._prolong(lev, xc)
         return self._smooth(lev, st, x, b, self.smoother_degree)
 
+    @profiler_range
     def vmult(self, state: GMGState, b):
         n = int(np.prod(self.levels[0].n_nodes_axis))
         b_in = b[:n]

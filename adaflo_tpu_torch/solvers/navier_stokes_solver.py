@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from adaflo_tpu_torch.device import resolve_device
 from adaflo_tpu_torch.fe.constraints import Constraints
 from adaflo_tpu_torch.fe.space import ScalarSpace
 from adaflo_tpu_torch.flow_base import FlowBaseAlgorithm
@@ -46,23 +47,11 @@ from adaflo_tpu_torch.parameters import (
 from adaflo_tpu_torch.solvers.krylov import fgmres
 from adaflo_tpu_torch.solvers.preconditioner import NavierStokesPreconditioner, PrecState
 from adaflo_tpu_torch.time_stepping import TimeStepping
-from adaflo_tpu_torch.utils.timer import Statistics, TimerOutput
+from adaflo_tpu_torch.utils.timer import Statistics, TimerOutput, profiler_range
 
 
 class ExcNavierStokesNoConvergence(Exception):
     pass
-
-
-def resolve_device(device=None) -> torch.device:
-    """The solver's device: the card unless the caller asks for the CPU."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "adaflo_tpu_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' (drivers: --device cpu) to run on "
-            "the CPU"
-        )
-    return dev
 
 
 class NavierStokes(FlowBaseAlgorithm):
@@ -317,6 +306,7 @@ class NavierStokes(FlowBaseAlgorithm):
         return self.compute_residual(precomputed)
 
     # ------------------------------------------------------------------
+    @profiler_range
     def build_preconditioner(self) -> None:
         tw = TimeWeights.from_time_stepping(self.time_stepping)
         self._prec_state = self.preconditioner.compute(
@@ -339,6 +329,7 @@ class NavierStokes(FlowBaseAlgorithm):
         elif v >= 2:
             self._p(f"    {label}   ", end="")
 
+    @profiler_range
     def _linear_solve(self, rhs_u, rhs_p, tol: float, do_inner: bool, max_iter: int):
         """One FGMRES stage on the flat [u | p] vector, preconditioned by the
         block preconditioner frozen in the preconditioner state."""

@@ -37,6 +37,7 @@ from adaflo_tpu_torch.parameters import (
 )
 from adaflo_tpu_torch.solvers.krylov import bicgstab, cg, gmres
 from adaflo_tpu_torch.solvers.multigrid import LatticeGMG
+from adaflo_tpu_torch.utils.timer import profiler_range
 
 
 class DiagonalPreconditioner:
@@ -306,6 +307,7 @@ class NavierStokesPreconditioner:
         tol = 3e-2 * float(torch.sqrt(torch.sum(rp * rp)))
         return cg(pA, rp, None, tol, 30, M=M).x
 
+    @profiler_range
     def solve_pressure_mass(self, st: PrecState, rp):
         """CG on the scaled pressure mass, rel 1e-2, lumped-mass diagonal
         preconditioner (ns_prec.cc:741-773); 'p_mass_diag' applies the
@@ -321,6 +323,7 @@ class NavierStokesPreconditioner:
         ).x
 
     # -- application ----------------------------------------------------
+    @profiler_range
     def apply(
         self,
         st: PrecState,

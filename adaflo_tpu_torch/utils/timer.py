@@ -8,9 +8,27 @@ statistics block printed under `output memory` / verbosity 3
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+
+import torch
+
+
+def profiler_range(fn):
+    """Run the method `fn` inside a torch.profiler range named
+    "layer <Class.method>", so that a profile of a time step
+    (utils/profile_step.py) shows each layer's host and device time. When no
+    profiler runs, the range is one call into the profiler's record hook."""
+    name = f"layer {fn.__qualname__}"
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+
+    return wrapper
 
 
 class TimerOutput:

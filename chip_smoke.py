@@ -21,12 +21,11 @@ the nvidia-smi line come before it. Any failed phase raises and the script
 exits non-zero without that line. It needs one CUDA device and the
 repository checkout around it.
 
-Usage: python3 chip_smoke.py [--profile]
+Usage: python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
-import argparse
 import io
 import json
 import statistics
@@ -88,37 +87,59 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def cell_flops(dim: int, n1: int, q1: int, p1: int, variable: bool) -> int:
-    """Floating-point operations of the kernel for one cell (a multiply-add
-    counts 2), from the stages of coupled_cell_kernel."""
-    ni = 2 * dim
+def cell_flops(dim: int, n1: int, q1: int, p1: int, variable: bool,
+               velocity_only: bool) -> int:
+    """Floating-point operations one cell needs in the kernel's sum
+    factorization (coupled_cell_kernel). An output of a k-term contraction
+    costs k multiplies and k - 1 adds; Gauss weights, 1/h and the per-step
+    scalar products are tables or constants and cost nothing here. Without
+    a pressure (velocity_only) the pressure stages, the -p on the stress
+    diagonal and the pressure row are left out, as the kernel leaves them."""
+
+    def dots(n_out: int, terms: int) -> int:
+        return n_out * (2 * terms - 1)
+
+    ni = 2 * dim  # items evaluated: u_c and u*_c
     nq = q1**dim
-    macs = 0
-    # evaluation: per axis, the outputs of the stage times the input extent
+    f = 0
     if dim == 3:
-        macs += ni * 2 * (n1 * n1 * q1) * n1 + (p1 * p1 * q1) * p1
-        macs += ni * 3 * (n1 * q1 * q1) * n1 + (p1 * q1 * q1) * p1
-        macs += ni * 4 * nq * n1 + nq * p1
-        # integration (transposed): x, y, z stages
-        macs += dim * (dim + 1) * (n1 * q1 * q1) * q1 + p1 * q1 * q1 * q1
-        macs += dim * 3 * (n1 * n1 * q1) * q1 + p1 * p1 * q1 * q1
-        macs += dim * 2 * n1**3 * q1 + p1**3 * q1
+        # evaluation along x (V, D), y (V, D, V), z (V, V, V, D) per item
+        f += ni * (2 * dots(n1 * n1 * q1, n1) + 3 * dots(n1 * q1 * q1, n1)
+                   + 4 * dots(nq, n1))
+        # transposed integration per component: x (value + st_cx, st_cy,
+        # st_cz), y (two inputs, one), z (two inputs)
+        f += dim * (dots(n1 * q1 * q1, 2 * q1) + (dim - 1) * dots(n1 * q1 * q1, q1))
+        f += dim * (dots(n1 * n1 * q1, 2 * q1) + dots(n1 * n1 * q1, q1))
+        f += dim * dots(n1**3, 2 * q1)
+        if not velocity_only:
+            f += dots(p1 * p1 * q1, p1) + dots(p1 * q1 * q1, p1) + dots(nq, p1)
+            f += dots(p1 * q1 * q1, q1) + dots(p1 * p1 * q1, q1) + dots(p1**3, q1)
     else:
-        macs += ni * 2 * (n1 * q1) * n1 + (p1 * q1) * p1
-        macs += ni * 3 * (q1 * q1) * n1 + (q1 * q1) * p1
-        macs += dim * (dim + 1) * (n1 * q1) * q1 + p1 * q1 * q1
-        macs += dim * 2 * n1 * n1 * q1 + p1 * p1 * q1
-    # q-point terms: gradient scaling, divergences, convection, value rows,
-    # stress rows, pressure row
-    point = 4 * dim * dim + 2 * dim + dim * (3 + 4 * dim + (6 if variable else 4))
-    point += dim * dim * 6 + 4
-    return 2 * macs + point * nq
+        f += ni * (2 * dots(n1 * q1, n1) + 3 * dots(q1 * q1, n1))
+        f += dim * (dots(n1 * q1, 2 * q1) + (dim - 1) * dots(n1 * q1, q1))
+        f += dim * dots(n1 * n1, 2 * q1)
+        if not velocity_only:
+            f += dots(p1 * q1, p1) + dots(q1 * q1, p1)
+            f += dots(p1 * q1, q1) + dots(p1 * p1, q1)
+    # q-point terms (_q_point_terms, "vmult"), per point
+    point = 2 * dim * dim  # 1/h on the gradients of u and u*
+    point += 2 * (dim - 1)  # div u, div u*
+    point += dim * (4 + 4 * dim)  # convection: beta terms, then 2 dim products
+    # value row times JxW: a u + b conv (constant), or
+    # rho (w u + tau1 conv) - d u with tau1 mu formed per point (variable)
+    point += dim * 7 + 1 if variable else dim * 4
+    point += dim * dim + (1 if variable else 0)  # symmetric stress, 2 tau1 mu
+    point += 1 + dim  # tau_gd div, added on the diagonal
+    point += dim + dim * dim  # JxW / h_d, times every stress entry
+    if not velocity_only:
+        point += 2  # -p on the diagonal, the pressure row -div JxW
+    return f + point * nq
 
 
 def bound(cells, dtype: str, n_u: int, n_p: int, velocity_only: bool, variable: bool):
     """(bytes, flops, bound_ms, bound_by) of one apply: every input read
-    once, every output written once; the kernel's operations at the dtype's
-    peak rate."""
+    once, every output written once; the operations of cell_flops at the
+    dtype's peak rate."""
     s = 4 if dtype == "float32" else 8
     dim, E = cells.dim, cells.n_cells
     nl, npl = (cells.degree + 1) ** dim, cells.degree**dim
@@ -128,7 +149,9 @@ def bound(cells, dtype: str, n_u: int, n_p: int, velocity_only: bool, variable: 
         nbytes += n_p * s + E * npl * 4 + n_p + n_p * s
     if variable:
         nbytes += 3 * E * cells.n_q * s
-    flops = E * cell_flops(dim, cells.degree + 1, cells.degree + 1, cells.degree, variable)
+    flops = E * cell_flops(
+        dim, cells.degree + 1, cells.degree + 1, cells.degree, variable, velocity_only
+    )
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_flops = flops / PEAK_FLOPS[dtype]
     return nbytes, flops, 1e3 * max(t_bytes, t_flops), (
@@ -216,7 +239,7 @@ def check_kernels(device):
         if mode == "velocity":
             run = lambda: cm.coupled_apply_velocity(u, s, cells, scal, **kw)
             plain = lambda: cm.coupled_apply_plain(
-                u, None, s, cells, scal, identity=False, velocity_only=True, **kw
+                u, None, s, cells, scal, velocity_only=True, **kw
             )
             got, ref = [run()], [plain()]
         else:
@@ -251,83 +274,7 @@ def check_kernels(device):
     return records
 
 
-# layers of a time step, timed as profiler ranges around these methods
-LAYERS = (
-    ("adaflo_tpu_torch.solvers.navier_stokes_solver", "NavierStokes", "_linear_solve"),
-    ("adaflo_tpu_torch.solvers.navier_stokes_solver", "NavierStokes", "build_preconditioner"),
-    ("adaflo_tpu_torch.solvers.preconditioner", "NavierStokesPreconditioner", "apply"),
-    ("adaflo_tpu_torch.solvers.preconditioner", "NavierStokesPreconditioner",
-     "solve_pressure_mass"),
-    ("adaflo_tpu_torch.solvers.multigrid", "LatticeGMG", "vmult"),
-    ("adaflo_tpu_torch.ops.navier_stokes", "NavierStokesOperator", "vmult"),
-    ("adaflo_tpu_torch.ops.navier_stokes", "NavierStokesOperator", "residual_assemble"),
-)
-
-
-def profile_step(problem, top: int = 15):
-    """One time step under torch.profiler: the device's busy share of the
-    step's wall time, its kernel launches, the kernels with the most device
-    time, and the host time of each layer (a profiler range around each
-    method of LAYERS, nested ranges included in their parents). Returns the
-    step's (Newton, Krylov) iteration counts."""
-    import importlib
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    def ranged(label, fn):
-        def wrapper(*args, **kwargs):
-            with record_function(label):
-                return fn(*args, **kwargs)
-        return wrapper
-
-    saved = []
-    for mod, cls, meth in LAYERS:
-        klass = getattr(importlib.import_module(mod), cls)
-        saved.append((klass, meth, getattr(klass, meth)))
-        setattr(klass, meth, ranged(f"layer {cls}.{meth}", getattr(klass, meth)))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            nl, lin = problem.step()
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        for klass, meth, fn in saved:
-            setattr(klass, meth, fn)
-
-    events = prof.key_averages()
-    device = [
-        e for e in events
-        if e.device_type == DeviceType.CUDA and not e.key.startswith("layer ")
-    ]
-    busy_us = sum(e.self_device_time_total for e in device)
-    n_launches = sum(e.count for e in device)
-    print(
-        f"profile: step {wall:.3f} s under the profiler, Newton {nl}, Krylov {lin}, "
-        f"device busy {busy_us / 1e6:.4f} s ({100 * busy_us / 1e6 / wall:.3f} % of "
-        f"the step), {n_launches} device operations", flush=True,
-    )
-    for e in sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
-        print(
-            f"profile: {e.self_device_time_total / 1e3:10.3f} ms device, "
-            f"{e.count:7d} launches  {e.key[:100]}", flush=True,
-        )
-    for e in sorted(
-        (e for e in events
-         if e.key.startswith("layer ") and e.device_type == DeviceType.CPU),
-        key=lambda e: e.cpu_time_total, reverse=True,
-    ):
-        print(
-            f"profile: {e.cpu_time_total / 1e3:10.3f} ms host, {e.count:6d} calls, "
-            f"{e.device_time_total / 1e3:10.3f} ms device  {e.key}", flush=True,
-        )
-    return nl, lin
-
-
-def run_slice(device, profile: bool = False):
+def run_slice():
     """Phase 3: the Beltrami driver to t = 0.2, held to the anchors."""
     import torch
 
@@ -343,7 +290,7 @@ def run_slice(device, profile: bool = False):
     for k in cm.plain_calls:
         cm.plain_calls[k] = 0
     t0 = time.perf_counter()
-    problem = BeltramiProblem(par, out=out, device=device)
+    problem = BeltramiProblem(par, out=out)  # the default device, as a user runs it
     problem.setup()
     problem.output_results()
     torch.cuda.synchronize()
@@ -352,11 +299,7 @@ def run_slice(device, profile: bool = False):
     while not problem.navier_stokes.time_stepping.at_end():
         before = dict(cm.launches)
         t0 = time.perf_counter()
-        last = problem.navier_stokes.time_stepping.step_no() == 3
-        if profile and last:
-            nl, lin = profile_step(problem)
-        else:
-            nl, lin = problem.step()
+        nl, lin = problem.step()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         steps.append(dict(
@@ -399,13 +342,7 @@ def run_slice(device, profile: bool = False):
     return dict(setup_s=setup_s, steps=steps, launches=launches)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="GPU smoke run of adaflo_tpu_torch")
-    ap.add_argument(
-        "--profile", action="store_true",
-        help="run the slice's last time step under torch.profiler",
-    )
-    args = ap.parse_args(argv)
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -435,7 +372,7 @@ def main(argv=None) -> int:
     rec = check_kernels(device)
 
     # ---- phase 3: the slice --------------------------------------------------
-    slice_rec = run_slice(device, args.profile)
+    slice_rec = run_slice()
     launches = slice_rec["launches"]
 
     def entry(name, replaces, main_label, big_label):

@@ -116,6 +116,40 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
     assert NavierStokes(par, mesh, device="cpu").device.type == "cpu"
 
 
+def test_resolve_device_gives_cuda_its_index(monkeypatch):
+    from adaflo_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device() == torch.device("cuda", 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_operator_and_multigrid_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
+    from adaflo_tpu_torch.fe.constraints import Constraints
+    from adaflo_tpu_torch.fe.space import ScalarSpace
+    from adaflo_tpu_torch.mesh.structured import StructuredMesh
+    from adaflo_tpu_torch.ops.navier_stokes import NavierStokesOperator
+    from adaflo_tpu_torch.solvers.multigrid import LatticeGMG
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    par = tpar.FlowParameters.from_string("subsection Navier-Stokes\n set dimension = 2\nend\n")
+    mesh = StructuredMesh((2, 2), (0.0,) * 2, (1.0,) * 2)
+    us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
+    cu = [Constraints(us.n_dofs) for _ in range(2)]
+    cp = Constraints(ps.n_dofs)
+    for c in cu + [cp]:
+        c.close()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NavierStokesOperator(par, us, ps, cu, cp)
+    assert NavierStokesOperator(par, us, ps, cu, cp, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LatticeGMG((5, 5), (0.25, 0.25), np.arange(5), 25)
+    assert LatticeGMG((5, 5), (0.25, 0.25), np.arange(5), 25, device="cpu").device.type == "cpu"
+
+
 def _unit_cube_cells(mask_u=None, mask_p=None):
     """Coupled-apply tables of a 2x2x2 Q2/Q1 lattice, and its dof counts."""
     from adaflo_tpu_torch.fe.space import ScalarSpace

@@ -158,12 +158,10 @@ def test_emulated_kernel_matches_plain_version(emulated, dim, degree, mode, dtyp
     sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
     co = coeffs if mode == "variable" else None
     if mode == "velocity":
-        ref = [cm.coupled_apply_plain(
-            u, None, s, cells, sc, identity=False, velocity_only=True
-        )]
+        ref = [cm.coupled_apply_plain(u, None, s, cells, sc, velocity_only=True)]
         out_u = torch.zeros_like(u)
         cm._launch_cells(u, None, s, cells, sc, None, out_u, None)
-        cm._launch_epilogue(u, None, cells, out_u, None, False, None, None)
+        cm._launch_epilogue(u, None, cells, out_u, None, True, None, None)
         got = [out_u]
     else:
         kw = dict(identity=mode != "const", scale=0.37 if mode != "const" else None)

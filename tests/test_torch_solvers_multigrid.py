@@ -28,7 +28,7 @@ def test_lattice_gmg_vcycle():
     lat = np.arange(33 * 33).reshape(33, 33)
     dirichlet = np.unique(np.concatenate([lat[0], lat[-1], lat[:, 0], lat[:, -1]]))
     jg = jmg.LatticeGMG(nodes, h, dirichlet, 33 * 33 + 3)
-    tg = tmg.LatticeGMG(nodes, h, dirichlet, 33 * 33 + 3)
+    tg = tmg.LatticeGMG(nodes, h, dirichlet, 33 * 33 + 3, device="cpu")
     assert len(tg.levels) == len(jg.levels) == 2
     b = np.random.default_rng(5).standard_normal(33 * 33 + 3)
 

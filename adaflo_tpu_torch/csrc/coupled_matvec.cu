@@ -1,9 +1,16 @@
 // Coupled Navier-Stokes cell apply for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernels adaflo_tpu/ops/pallas_matvec.py:coupled_vmult_pr2
-// (K1, the resident apply inside the Krylov solve) and :coupled_vmult_pr (K2,
-// the plain apply of vmult / velocity_vmult). It computes, for every cell of a
-// uniform Cartesian lattice, the Newton-linearized Navier-Stokes operator
+// Replaces the TPU kernels of adaflo_tpu/ops/pallas_matvec.py:
+//   K1 coupled_vmult_pr2    the resident apply inside the Krylov solve,
+//   K2 coupled_vmult_pr     the plain apply of vmult / velocity_vmult,
+//   K3 coupled_vmult_cells  the same cell math on pre-gathered cell blocks
+//                           (_kernel_su: u* dof stream; _kernel: u* q-field
+//                           stream), unscattered output,
+//   K4 coupled_vmult_parity K1's gather inside the kernel, K3's unscattered
+//                           output (_kernel_pi).
+// All four are template instances of one cell kernel. It computes, for every
+// cell of a uniform Cartesian lattice, the Newton-linearized Navier-Stokes
+// operator
 //
 //   value_c  = (rho w - d) u_c + tau1 rho conv_c          (constant mode)
 //            = rho(q) (w u_c + tau1 conv_c) - d(q) u_c    (variable mode)
@@ -11,10 +18,22 @@
 //   stress_cd = tau1 mu (d_d u_c + d_c u_d) + (tau_gd div u - p) delta_cd
 //   prow     = -div u
 //
-// integrated against the test functions, and adds the cell results into the
-// nodal output with atomicAdd. A second small kernel (the epilogue) sets the
-// constrained rows (+x for velocity, -x for pressure, or 0), applies the output
-// scale and accumulates sum(out^2).
+// integrated against the test functions. Two compile-time switches select
+// where a cell's inputs come from and where its results go:
+//   gather source  kSrcTable: nodal u, p, u* through the int32 cell tables,
+//                  constrained entries of u and p read as zero (K1, K2, K4);
+//                  kSrcBlock: a cell-major (E, n_cols) block x that the caller
+//                  gathered, and a cell-major u* stream (K3);
+//   output         kOutScatter: atomicAdd into the nodal output (K1, K2);
+//                  kOutBlock: a plain store of the (E, n_cols) cell block,
+//                  for the caller's scatter (K3, K4).
+// A third switch selects K3's u* stream: the u* cell dofs (E, dim n_u),
+// evaluated in the kernel like u, or the u* values and physical gradients at
+// the q points (E, dim (dim+1), n_q), read as they are. n_cols is
+// dim n_u + n_p, or dim n_u for the velocity-only instances (PRES = false).
+// For K1 and K2 a second small kernel (the epilogue) sets the constrained
+// rows (+x for velocity, -x for pressure, or 0), applies the output scale and
+// accumulates sum(out^2); K3 and K4 leave the constrained rows to the caller.
 //
 // Design. The TPU kernel's parity packing, 128-lane blocks, 27->32 q-row
 // padding and ring DMA answer the TPU's vector memory and are not copied.
@@ -33,7 +52,8 @@
 // Scatter. atomicAdd into the zeroed output (native for float64 on sm_60 and
 // later). A dof on a vertex takes up to 8 cell contributions, so the sum order
 // changes from run to run by roundoff: results agree with the plain PyTorch
-// version to about 1e-15 relative, not bit for bit.
+// version to about 1e-15 relative, not bit for bit. K3 and K4 write each
+// output element once with a plain store, so they are deterministic.
 //
 // Bound on an H100 SXM at its 700 W limit (NVIDIA data sheet: 3.35 TB/s
 // HBM3, 34 TFLOP/s float64 outside the tensor cores). Per apply the kernel
@@ -50,7 +70,12 @@
 // cell's dofs are strided across the lattice), the 1D contraction loops are
 // 3 or 4 long, and the atomics serialize on shared vertices. Staging lattice
 // slabs through shared memory with TMA and moving the contractions onto DMMA
-// are later work.
+// are later work. K3 moves more bytes per cell than K1 and does the same
+// operations (the q-field stream: fewer, without the u* evaluation): it reads
+// the (E, n_cols) block and the stream and writes the (E, n_cols) block, about
+// (89 + 81 + 89) values per 3D Q2/Q1 cell with the dof stream and
+// (89 + 324 + 89) with the q-field stream, so it is bound by bytes. K4 reads
+// K1's nodal inputs and writes K3's block; it is bound by operations.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +87,11 @@ __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 constexpr int kThreads = 128;
 constexpr int kMaxTab = 16;
+
+// gather source, u* stream and output of a cell-kernel instance
+constexpr int kSrcTable = 0, kSrcBlock = 1;
+constexpr int kStreamDofs = 0, kStreamQFields = 1;
+constexpr int kOutScatter = 0, kOutBlock = 1;
 
 template <typename T>
 struct Tables {
@@ -124,8 +154,13 @@ __device__ __forceinline__ void axis_op(T* __restrict__ out, const T* in,
 }
 
 // PRES: the pressure input and the pressure rows; the velocity-only entry
-// (no pressure) skips the pressure evaluation and integration stages
-template <int DIM, int N1, int Q1, int P1, bool PRES, typename T>
+// (no pressure) skips the pressure evaluation and integration stages.
+// SRC, STREAM, DST: gather source, u* stream and output (see the top). With
+// SRC == kSrcBlock, u is the (E, LDX) cell block x and us the cell-major
+// stream (E, SLD); p, the cell tables and the masks are not read. With
+// DST == kOutBlock, out_u is the (E, LDX) output block and out_p is not used.
+template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM,
+          int DST, typename T>
 __global__ void __launch_bounds__(kThreads)
 coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ us, const int32_t* __restrict__ cell_u,
@@ -142,6 +177,11 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   constexpr int CS = S::SLOTS * NB;  // per-cell stride in elements
   constexpr int FI = DIM + 1;        // final fields per item: value + grads
   constexpr int NI = 2 * DIM;        // items: u_0.., u*_0..
+  constexpr bool QF = STREAM == kStreamQFields;
+  constexpr int NEV = QF ? DIM : NI;  // items evaluated (q-field u* is not)
+  constexpr int LDX = DIM * NL + (PRES ? NP : 0);     // block row length
+  constexpr int SLD = QF ? DIM * FI * NQ : DIM * NL;  // stream row length
+  static_assert(SRC == kSrcBlock || !QF, "the q-field stream is a block");
 
   extern __shared__ unsigned char smem_raw[];
   T* sV = reinterpret_cast<T*>(smem_raw);
@@ -158,28 +198,57 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   const long long c0 = (long long)blockIdx.x * cpb;
   const int nc = (int)min((long long)cpb, n_cells - c0);
 
-  // ---- gather: u (constrained entries read 0), u* (plain), p (masked) ----
-  constexpr int per_g = NI * NL + (PRES ? NP : 0);
-  for (int t = tid; t < nc * per_g; t += nth) {
-    const int cell = t / per_g;
-    const int k = t % per_g;
-    const long long e = c0 + cell;
-    T* cb = buf + cell * CS;
-    if (k < NI * NL) {
-      const int item = k / NL, l = k % NL;
-      const long long dof = cell_u[e * NL + l];
-      T v;
-      if (item < DIM) {
-        const long long g = item * n_u + dof;
-        v = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
+  if constexpr (SRC == kSrcTable) {
+    // ---- gather: u (constrained entries read 0), u* (plain), p (masked) --
+    constexpr int per_g = NI * NL + (PRES ? NP : 0);
+    for (int t = tid; t < nc * per_g; t += nth) {
+      const int cell = t / per_g;
+      const int k = t % per_g;
+      const long long e = c0 + cell;
+      T* cb = buf + cell * CS;
+      if (k < NI * NL) {
+        const int item = k / NL, l = k % NL;
+        const long long dof = cell_u[e * NL + l];
+        T v;
+        if (item < DIM) {
+          const long long g = item * n_u + dof;
+          v = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
+        } else {
+          v = us[(item - DIM) * n_u + dof];
+        }
+        cb[(IN + item) * NB + l] = v;
       } else {
-        v = us[(item - DIM) * n_u + dof];
+        const int l = k - NI * NL;
+        const long long dof = cell_p[e * NP + l];
+        cb[(IN + NI) * NB + l] = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
       }
-      cb[(IN + item) * NB + l] = v;
-    } else {
-      const int l = k - NI * NL;
-      const long long dof = cell_p[e * NP + l];
-      cb[(IN + NI) * NB + l] = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
+    }
+  } else {
+    // ---- load the cell blocks: x row = [u_0 .. u_(DIM-1) | p], stream row
+    //      = u* dofs [u*_0 ..] or u* q-fields [(value, d/dx_0 ..) of u*_0,
+    //      ...] with physical gradients, straight into the final fields ----
+    constexpr int per_g = LDX + SLD;
+    for (int t = tid; t < nc * per_g; t += nth) {
+      const int cell = t / per_g;
+      const int k = t % per_g;
+      const long long e = c0 + cell;
+      T* cb = buf + cell * CS;
+      if (k < LDX) {
+        const T v = u[e * LDX + k];
+        if (k < DIM * NL) {
+          cb[(IN + k / NL) * NB + k % NL] = v;
+        } else {
+          cb[(IN + NI) * NB + (k - DIM * NL)] = v;
+        }
+      } else {
+        const int j = k - LDX;
+        const T v = us[e * SLD + j];
+        if constexpr (QF) {
+          cb[(F + FI * DIM + j / NQ) * NB + j % NQ] = v;
+        } else {
+          cb[(IN + DIM + j / NL) * NB + j % NL] = v;
+        }
+      }
     }
   }
   __syncthreads();
@@ -188,17 +257,17 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   {
     constexpr int n1 = ipow(N1, DIM - 1) * Q1, np1 = ipow(P1, DIM - 1) * Q1;
     constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
-    constexpr int per = NI * 2 * n1 + (PRES ? np1 : 0);
+    constexpr int per = NEV * 2 * n1 + (PRES ? np1 : 0);
     for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
-      if (k < NI * 2 * n1) {
+      if (k < NEV * 2 * n1) {
         const int item = k / (2 * n1), which = (k / n1) % 2, o = k % n1;
         axis_op<T>(cb + (S1 + 2 * item + which) * NB, cb + (IN + item) * NB,
                    which ? sD : sV, nullptr, nullptr, N1, false, 0, N1, N1, e2,
                    Q1, o);
       } else {
-        k -= NI * 2 * n1;
+        k -= NEV * 2 * n1;
         axis_op<T>(cb + (S1 + 2 * NI) * NB, cb + (IN + NI) * NB, sVp, nullptr,
                    nullptr, P1, false, 0, P1, P1, pe2, Q1, k);
       }
@@ -212,11 +281,11 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     constexpr int n2 = ipow(Q1, 2) * (DIM == 3 ? N1 : 1);
     constexpr int np2 = ipow(Q1, 2) * (DIM == 3 ? P1 : 1);
     constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
-    constexpr int per = NI * 3 * n2 + (PRES ? np2 : 0);
+    constexpr int per = NEV * 3 * n2 + (PRES ? np2 : 0);
     for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
-      if (k < NI * 3 * n2) {
+      if (k < NEV * 3 * n2) {
         const int item = k / (3 * n2), which = (k / n2) % 3, o = k % n2;
         const T* src = cb + (S1 + 2 * item + (which == 2 ? 1 : 0)) * NB;
         const T* M = which == 1 ? sD : sV;
@@ -231,7 +300,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
         axis_op<T>(dst, src, M, nullptr, nullptr, N1, false, 1, Q1, N1, e2, Q1,
                    o);
       } else {
-        k -= NI * 3 * n2;
+        k -= NEV * 3 * n2;
         T* dst = DIM == 3 ? cb + (S2 + 3 * NI) * NB : cb + (F + FI * NI) * NB;
         axis_op<T>(dst, cb + (S1 + 2 * NI) * NB, sVp, nullptr, nullptr, P1,
                    false, 1, Q1, P1, pe2, Q1, k);
@@ -244,18 +313,18 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   //      d/dy = Vz B01, d/dz = Dz B00 ---------------------------------------
   if constexpr (DIM == 3) {
     constexpr int n3 = NQ;
-    constexpr int per = NI * 4 * n3 + (PRES ? n3 : 0);
+    constexpr int per = NEV * 4 * n3 + (PRES ? n3 : 0);
     for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
-      if (k < NI * 4 * n3) {
+      if (k < NEV * 4 * n3) {
         const int item = k / (4 * n3), which = (k / n3) % 4, o = k % n3;
         const int src_slot = which == 1 ? 2 : (which == 2 ? 1 : 0);
         axis_op<T>(cb + (F + FI * item + which) * NB,
                    cb + (S2 + 3 * item + src_slot) * NB, which == 3 ? sD : sV,
                    nullptr, nullptr, N1, false, 2, Q1, Q1, N1, Q1, o);
       } else {
-        k -= NI * 4 * n3;
+        k -= NEV * 4 * n3;
         axis_op<T>(cb + (F + FI * NI) * NB, cb + (S2 + 3 * NI) * NB, sVp,
                    nullptr, nullptr, P1, false, 2, Q1, Q1, P1, Q1, k);
       }
@@ -265,6 +334,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
 
   // ---- q-point terms (NavierStokesOperator._q_point_terms, "vmult") -------
   // outputs into S1: value_c at +c, stress_cd at +DIM+DIM c+d, prow at +DIM+DIM^2
+  // (the q-field stream's u* gradients are physical already)
   for (int t = tid; t < nc * NQ; t += nth) {
     const int cell = t / NQ, q = t % NQ;
     T* cb = buf + cell * CS;
@@ -277,7 +347,8 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
       sv[c] = cb[(F + FI * (DIM + c)) * NB + q];
       for (int d = 0; d < DIM; ++d) {
         ug[c][d] = cb[(F + FI * c + 1 + d) * NB + q] * tab.inv_h[d];
-        sg[c][d] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q] * tab.inv_h[d];
+        sg[c][d] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q] *
+                   (QF ? T(1) : tab.inv_h[d]);
       }
     }
     const T pq = PRES ? cb[(F + FI * NI) * NB + q] : T(0);
@@ -393,19 +464,28 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     __syncthreads();
   }
 
-  // ---- scatter: atomic adds into the nodal output --------------------------
-  constexpr int per_s = DIM * NL + (PRES ? NP : 0);
-  for (int t = tid; t < nc * per_s; t += nth) {
-    const int cell = t / per_s;
-    const int k = t % per_s;
+  // ---- output: atomic adds into the nodal output, or the cell block ------
+  for (int t = tid; t < nc * LDX; t += nth) {
+    const int cell = t / LDX;
+    const int k = t % LDX;
     const long long e = c0 + cell;
     const T* cb = buf + cell * CS;
     if (k < DIM * NL) {
       const int c = k / NL, l = k % NL;
-      atomicAdd(out_u + c * n_u + cell_u[e * NL + l], cb[(OUT + c) * NB + l]);
+      const T v = cb[(OUT + c) * NB + l];
+      if constexpr (DST == kOutBlock) {
+        out_u[e * LDX + k] = v;
+      } else {
+        atomicAdd(out_u + c * n_u + cell_u[e * NL + l], v);
+      }
     } else {
       const int l = k - DIM * NL;
-      atomicAdd(out_p + cell_p[e * NP + l], cb[(OUT + DIM) * NB + l]);
+      const T v = cb[(OUT + DIM) * NB + l];
+      if constexpr (DST == kOutBlock) {
+        out_u[e * LDX + k] = v;
+      } else {
+        atomicAdd(out_p + cell_p[e * NP + l], v);
+      }
     }
   }
 }
@@ -443,8 +523,16 @@ coupled_epilogue_kernel(T* __restrict__ out_u, T* __restrict__ out_p,
   if (threadIdx.x == 0) atomicAdd(norm, part[0]);
 }
 
+// The instance of the cell kernel for an entry (mode, see adaflo_coupled_cells)
+template <int DIM, int N1, int Q1, int P1, int SRC, int STREAM, int DST,
+          typename T>
+auto pick_kernel(bool pres) {
+  return pres ? coupled_cell_kernel<DIM, N1, Q1, P1, true, SRC, STREAM, DST, T>
+              : coupled_cell_kernel<DIM, N1, Q1, P1, false, SRC, STREAM, DST, T>;
+}
+
 template <int DIM, int N1, int Q1, int P1, typename T>
-int launch_cells(const void* u, const void* p, const void* us,
+int launch_cells(int mode, int pres, const void* u, const void* p, const void* us,
                  const int32_t* cell_u, const int32_t* cell_p,
                  const uint8_t* mask_u, const uint8_t* mask_p, const void* rho,
                  const void* mu, const void* damp, void* out_u, void* out_p,
@@ -469,9 +557,20 @@ int launch_cells(const void* u, const void* p, const void* us,
   int cpb = (int)(32768 / cell_bytes);
   if (cpb < 1) cpb = 1;
   const size_t smem = 3 * kMaxTab * sizeof(T) + cpb * cell_bytes;
-  if ((p == nullptr) != (out_p == nullptr)) return (int)cudaErrorInvalidValue;
-  auto kern = p != nullptr ? coupled_cell_kernel<DIM, N1, Q1, P1, true, T>
-                           : coupled_cell_kernel<DIM, N1, Q1, P1, false, T>;
+  // nodal pressure in and out exactly when the entry has pressure rows
+  const bool p_in = mode == 0 || mode == 3 ? (bool)pres : false;
+  const bool p_out = mode == 0 ? (bool)pres : false;
+  if ((p != nullptr) != p_in || (out_p != nullptr) != p_out || us == nullptr)
+    return (int)cudaErrorInvalidValue;
+  auto kern = pick_kernel<DIM, N1, Q1, P1, kSrcTable, kStreamDofs, kOutScatter, T>(pres);
+  if (mode == 1)
+    kern = pick_kernel<DIM, N1, Q1, P1, kSrcBlock, kStreamDofs, kOutBlock, T>(pres);
+  else if (mode == 2)
+    kern = pick_kernel<DIM, N1, Q1, P1, kSrcBlock, kStreamQFields, kOutBlock, T>(pres);
+  else if (mode == 3)
+    kern = pick_kernel<DIM, N1, Q1, P1, kSrcTable, kStreamDofs, kOutBlock, T>(pres);
+  else if (mode != 0)
+    return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -488,22 +587,22 @@ int launch_cells(const void* u, const void* p, const void* us,
 }
 
 template <typename T>
-int launch_set(int dim, int degree, const void* u, const void* p,
+int launch_set(int mode, int pres, int dim, int degree, const void* u, const void* p,
                const void* us, const int32_t* cell_u, const int32_t* cell_p,
                const uint8_t* mask_u, const uint8_t* mask_p, const void* rho,
                const void* mu, const void* damp, void* out_u, void* out_p,
                long long n_u, long long n_cells, const double* tab,
                const double* scal, cudaStream_t stream) {
   if (dim == 3 && degree == 2)
-    return launch_cells<3, 3, 3, 2, T>(u, p, us, cell_u, cell_p, mask_u, mask_p,
+    return launch_cells<3, 3, 3, 2, T>(mode, pres, u, p, us, cell_u, cell_p, mask_u, mask_p,
                                        rho, mu, damp, out_u, out_p, n_u, n_cells,
                                        tab, scal, stream);
   if (dim == 2 && degree == 2)
-    return launch_cells<2, 3, 3, 2, T>(u, p, us, cell_u, cell_p, mask_u, mask_p,
+    return launch_cells<2, 3, 3, 2, T>(mode, pres, u, p, us, cell_u, cell_p, mask_u, mask_p,
                                        rho, mu, damp, out_u, out_p, n_u, n_cells,
                                        tab, scal, stream);
   if (dim == 3 && degree == 3)
-    return launch_cells<3, 4, 4, 3, T>(u, p, us, cell_u, cell_p, mask_u, mask_p,
+    return launch_cells<3, 4, 4, 3, T>(mode, pres, u, p, us, cell_u, cell_p, mask_u, mask_p,
                                        rho, mu, damp, out_u, out_p, n_u, n_cells,
                                        tab, scal, stream);
   return (int)cudaErrorInvalidValue;
@@ -513,13 +612,20 @@ int launch_set(int dim, int degree, const void* u, const void* p,
 
 extern "C" {
 
-// Cell kernel: out_u/out_p (zeroed by the caller) += the coupled cell apply.
-// dtype: 0 float32, 1 float64. p and out_p both null: velocity rows only,
-// without a pressure input. rho/mu/damp null each: that coefficient is the constant
-// scal value. tab: host doubles [V (Q1 x N1), D (Q1 x N1), Vp (Q1 x P1),
-// w (Q1), inv_h (dim), vol]. scal: host doubles
+// Cell kernel. dtype: 0 float32, 1 float64. mode:
+//   0 K1/K2: out_u/out_p (nodal, zeroed by the caller) += the coupled apply of
+//     nodal u, p, u* (us) read through cell_u/cell_p, masked by mask_u/mask_p;
+//   1 K3, dof stream: out_u = the (E, n_cols) block of the apply of the cell
+//     block u (E, n_cols) with the u* cell dofs us (E, dim n_u);
+//   2 K3, q-field stream: as 1 with us the u* q-fields (E, dim (dim+1), n_q);
+//   3 K4: out_u = the (E, n_cols) block of the apply of nodal u, p, u* read
+//     as in mode 0.
+// pres 0: velocity rows only, without a pressure input (p, out_p null); the
+// blocks are then (E, dim n_u). rho/mu/damp null each: that coefficient is
+// the constant scal value. tab: host doubles [V (Q1 x N1), D (Q1 x N1),
+// Vp (Q1 x P1), w (Q1), inv_h (dim), vol]. scal: host doubles
 // [beta, weight, tau1, rho0, mu0, damp0, tau_grad_div].
-int adaflo_coupled_cells(int dtype, int dim, int degree, const void* u,
+int adaflo_coupled_cells(int dtype, int mode, int pres, int dim, int degree, const void* u,
                          const void* p, const void* us, const int32_t* cell_u,
                          const int32_t* cell_p, const uint8_t* mask_u,
                          const uint8_t* mask_p, const void* rho, const void* mu,
@@ -528,11 +634,11 @@ int adaflo_coupled_cells(int dtype, int dim, int degree, const void* u,
                          const double* scal, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch_set<double>(dim, degree, u, p, us, cell_u, cell_p, mask_u,
+    return launch_set<double>(mode, pres, dim, degree, u, p, us, cell_u, cell_p, mask_u,
                               mask_p, rho, mu, damp, out_u, out_p, n_u, n_cells,
                               tab, scal, st);
   if (dtype == 0)
-    return launch_set<float>(dim, degree, u, p, us, cell_u, cell_p, mask_u,
+    return launch_set<float>(mode, pres, dim, degree, u, p, us, cell_u, cell_p, mask_u,
                              mask_p, rho, mu, damp, out_u, out_p, n_u, n_cells,
                              tab, scal, st);
   return (int)cudaErrorInvalidValue;

@@ -1,25 +1,36 @@
-"""Coupled Navier-Stokes cell apply: the CUDA kernel, its wrapper and its
-plain PyTorch version.
+"""Coupled Navier-Stokes cell apply: the CUDA kernel, its wrappers and
+their plain PyTorch versions.
 
-Counterpart of ``adaflo_tpu/ops/pallas_matvec.py``. The TPU package has two
-Pallas entries on this path: ``coupled_vmult_pr2`` (K1, the resident apply
+Counterpart of ``adaflo_tpu/ops/pallas_matvec.py``. The TPU package has four
+Pallas kernels for this apply: ``coupled_vmult_pr2`` (K1, the resident apply
 inside the Krylov solve, with constraint-identity rows, output scale, a fused
-sum(out^2) and variable coefficients) and ``coupled_vmult_pr`` (K2, the same
+sum(out^2) and variable coefficients), ``coupled_vmult_pr`` (K2, the same
 cell math with constant coefficients, used by ``vmult`` and
-``velocity_vmult``). Here both are one CUDA kernel
-(``csrc/coupled_matvec.cu``) with two entries:
+``velocity_vmult``), ``coupled_vmult_cells`` (K3, the cell math on
+pre-gathered cell blocks, behind an outside gather and scatter: the path of
+periodic lattices) and ``coupled_vmult_parity`` (K4, K1's gather feeding
+K3's unscattered output). Here all four are instances of one CUDA cell
+kernel (``csrc/coupled_matvec.cu``), with these entries:
 
-- ``coupled_apply`` (K1): (u, p) -> (r_u, r_p) with the extras;
+- ``coupled_apply`` (K1): nodal (u, p) -> nodal (r_u, r_p) with the extras;
 - ``coupled_apply_velocity`` (K2): u -> r_u, no pressure input and no
-  pressure rows, constrained rows +u (identity).
+  pressure rows, constrained rows +u (identity);
+- ``coupled_apply_cells`` (K3): cell block x (E, n_cols) -> cell block
+  (E, n_cols), with the u* stream either the u* cell dofs (E, dim n_u) or
+  the u* values and gradients at the q points (E, dim (dim+1), n_q);
+  ``velocity_only=True`` takes and gives (E, dim n_u) velocity blocks;
+- ``coupled_apply_gather`` (K4): nodal (u, p) and u* -> cell block
+  (E, n_cols), constrained entries of u and p read as zero; p=None gives
+  the velocity block (E, dim n_u).
 
-Vectors stay nodal: u (dim, n_u), p (n_p,), and the frozen Newton
-linearization point u* (dim, n_u). A wrapper given CUDA tensors launches the
-kernel or raises; given CPU tensors it runs ``coupled_apply_plain``, the same
-function in plain PyTorch written in the dense-table form of the TPU
-package's ``build_tables`` (out = M89 x + A_ic n (+ A_ig st)), independent of
-the kernel's sum factorization. The kernel library is built with nvcc at
-first use into ``build/adaflo_tpu_torch/`` under the repository root.
+n_cols = dim n_u + n_p per cell, the velocity components first. Nodal
+vectors: u (dim, n_u), p (n_p,), the frozen Newton linearization point u*
+(dim, n_u). A wrapper given CUDA tensors launches the kernel or raises;
+given CPU tensors it runs its plain version, the same function in plain
+PyTorch written in the dense-table form of the TPU package's
+``build_tables`` (out = M89 x + A_ic n (+ A_ig st)), independent of the
+kernel's sum factorization. The kernel library is built with nvcc at first
+use into ``build/adaflo_tpu_torch/`` under the repository root.
 """
 
 from __future__ import annotations
@@ -36,10 +47,27 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-# launches of the CUDA kernel per entry, and calls of the plain version; plain
-# integers that a caller may reset (chip_smoke.py reads them around a run)
-launches = {"coupled_apply": 0, "coupled_apply_velocity": 0}
-plain_calls = {"coupled_apply_plain": 0}
+# launches of the CUDA kernel per entry, and calls of the plain versions;
+# plain integers that a caller may reset (chip_smoke.py reads them around a
+# run)
+launches = {
+    "coupled_apply": 0,
+    "coupled_apply_velocity": 0,
+    "coupled_apply_cells": 0,
+    "coupled_apply_cells_velocity": 0,
+    "coupled_apply_cells_qfields": 0,
+    "coupled_apply_cells_qfields_velocity": 0,
+    "coupled_apply_gather": 0,
+    "coupled_apply_gather_velocity": 0,
+}
+plain_calls = {
+    "coupled_apply_plain": 0,
+    "coupled_apply_cells_plain": 0,
+    "coupled_apply_gather_plain": 0,
+}
+
+# the kernel entry (mode of adaflo_coupled_cells in csrc/coupled_matvec.cu)
+MODE_NODAL, MODE_CELLS, MODE_CELLS_QFIELDS, MODE_GATHER = 0, 1, 2, 3
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "coupled_matvec.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adaflo_tpu_torch"
@@ -255,20 +283,14 @@ class CoupledCells:
 
 
 # ---------------------------------------------------------------------------
-# plain version
+# plain versions
 # ---------------------------------------------------------------------------
-def coupled_apply_plain(
-    u, p, u_star, cells: CoupledCells, sc: ApplyScalars, *,
-    coeffs=None, identity: bool = True, scale: Optional[float] = None,
-    want_norm: bool = False, velocity_only: bool = False,
-):
-    """The coupled apply in plain PyTorch (dense cell matrices, index
-    gather and index_add_ scatter). Same arguments and results as
-    coupled_apply (velocity_only=True: as coupled_apply_velocity)."""
-    plain_calls["coupled_apply_plain"] += 1
-    dim, E, n_q = cells.dim, cells.n_cells, cells.n_q
-    tabs, _, T = cells.dense(u.device, u.dtype)
-    nl, npl = tabs.n_u_loc, tabs.n_p_loc
+def _gather_plain(u, p, u_star, cells: CoupledCells):
+    """Index gather of the nodal vectors: x (E, n_cols) with the constrained
+    entries of u and p zero (zero pressure columns for p=None) and the u*
+    cell dofs (E, dim n_u)."""
+    dim, E = cells.dim, cells.n_cells
+    npl = cells.ev_p.n_local
     cu = cells.cell_u.to(u.device).long()
     cp = cells.cell_p.to(u.device).long()
     mask_u = None if cells.mask_u is None else cells.mask_u.to(u.device)
@@ -280,10 +302,21 @@ def coupled_apply_plain(
     else:
         pp = p if mask_p is None else p.masked_fill(mask_p, 0.0)
         cols.append(pp[cp])
-    x = torch.cat(cols, dim=1)  # (E, n_cols)
     s = torch.cat([u_star[c][cu] for c in range(dim)], dim=1)
+    return torch.cat(cols, dim=1), s
+
+
+def _block_plain(x, s, cells: CoupledCells, sc: ApplyScalars, coeffs=None):
+    """The cell math on a cell block: x (E, n_cols) -> (E, n_cols). s: the
+    u* cell dofs (E, dim n_u) or the u* q-fields (E, dim (dim+1), n_q)."""
+    dim, n_q = cells.dim, cells.n_q
+    tabs, _, T = cells.dense(x.device, x.dtype)
+    nl = tabs.n_u_loc
     r = x @ T["A_evg"].T
-    sq = s @ T["A_evg"][:, : dim * nl].T
+    if s.dim() == 3:
+        sq = s.reshape(s.shape[0], -1)  # the rows of A_evg, in its order
+    else:
+        sq = s @ T["A_evg"][:, : dim * nl].T
     parts = dim + 1
 
     def rows(block, part, c):
@@ -307,8 +340,8 @@ def coupled_apply_plain(
     rho, mu, damp = coeffs[0], coeffs[1], coeffs[2]
     if rho is None and mu is None and damp is None:
         M89, A_ics = combine_linear(tabs, sc)
-        M89 = torch.as_tensor(M89, dtype=u.dtype, device=u.device)
-        A_ics = torch.as_tensor(A_ics, dtype=u.dtype, device=u.device)
+        M89 = torch.as_tensor(M89, dtype=x.dtype, device=x.device)
+        A_ics = torch.as_tensor(A_ics, dtype=x.dtype, device=x.device)
         out = x @ M89.T + torch.cat(conv, dim=1) @ A_ics.T
     else:
         cr = rho if rho is not None else sc.rho
@@ -332,7 +365,25 @@ def coupled_apply_plain(
         )
         M = sc.tau_grad_div * T["M_gd"] + T["M_pdiv"]
         out = x @ M.T + n @ T["A_ic"].T + st @ T["A_ig"].T
+    return out
 
+
+def coupled_apply_plain(
+    u, p, u_star, cells: CoupledCells, sc: ApplyScalars, *,
+    coeffs=None, identity: bool = True, scale: Optional[float] = None,
+    want_norm: bool = False, velocity_only: bool = False,
+):
+    """The coupled apply in plain PyTorch (dense cell matrices, index
+    gather and index_add_ scatter). Same arguments and results as
+    coupled_apply (velocity_only=True: as coupled_apply_velocity)."""
+    plain_calls["coupled_apply_plain"] += 1
+    dim, nl = cells.dim, cells.ev_u.n_local
+    x, s = _gather_plain(u, p, u_star, cells)
+    out = _block_plain(x, s, cells, sc, coeffs)
+    cu = cells.cell_u.to(u.device).long()
+    cp = cells.cell_p.to(u.device).long()
+    mask_u = None if cells.mask_u is None else cells.mask_u.to(u.device)
+    mask_p = None if cells.mask_p is None else cells.mask_p.to(u.device)
     out_u = torch.zeros_like(u)
     for c in range(dim):
         out_u[c].index_add_(
@@ -356,6 +407,27 @@ def coupled_apply_plain(
         norm = (out_u * out_u).sum() + (out_p * out_p).sum()
         return out_u, out_p, norm
     return out_u, out_p
+
+
+def coupled_apply_cells_plain(
+    x, s, cells: CoupledCells, sc: ApplyScalars, *, velocity_only: bool = False
+):
+    """K3 in plain PyTorch: same arguments and results as
+    coupled_apply_cells."""
+    plain_calls["coupled_apply_cells_plain"] += 1
+    if velocity_only:
+        zp = x.new_zeros((x.shape[0], cells.ev_p.n_local))
+        return _block_plain(torch.cat([x, zp], dim=1), s, cells, sc)[:, : x.shape[1]]
+    return _block_plain(x, s, cells, sc)
+
+
+def coupled_apply_gather_plain(u, p, u_star, cells: CoupledCells, sc: ApplyScalars):
+    """K4 in plain PyTorch: same arguments and results as
+    coupled_apply_gather."""
+    plain_calls["coupled_apply_gather_plain"] += 1
+    x, s = _gather_plain(u, p, u_star, cells)
+    out = _block_plain(x, s, cells, sc)
+    return out if p is not None else out[:, : cells.dim * cells.ev_u.n_local]
 
 
 # ---------------------------------------------------------------------------
@@ -396,13 +468,18 @@ def load_library():
                 "nvcc failed to build coupled_matvec.cu:\n" + build_info["log"]
             )
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    _lib = bind(ctypes.CDLL(str(so)))
+    return _lib
+
+
+def bind(lib):
+    """Declare the C entries' argument and result types on a loaded
+    library of csrc/coupled_matvec.cu."""
     vp, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-    lib.adaflo_coupled_cells.argtypes = [i, i, i] + [vp] * 12 + [ll, ll, vp, vp, vp]
+    lib.adaflo_coupled_cells.argtypes = [i] * 5 + [vp] * 12 + [ll, ll, vp, vp, vp]
     lib.adaflo_coupled_cells.restype = i
     lib.adaflo_coupled_epilogue.argtypes = [i] + [vp] * 6 + [ll, ll, i, d, vp, vp]
     lib.adaflo_coupled_epilogue.restype = i
-    _lib = lib
     return lib
 
 
@@ -445,8 +522,12 @@ def _check(u, p, u_star, cells: CoupledCells, coeffs):
         raise ValueError("coupled apply: cell tables live on another device")
 
 
-def _launch_cells(u, p, u_star, cells, sc, coeffs, out_u, out_p):
+def _launch_cells(mode, pres, u, p, u_star, cells, sc, coeffs, out_u, out_p):
+    """One launch of the cell kernel. MODE_NODAL / MODE_GATHER: u, p, u_star
+    nodal, read through the cell tables; MODE_CELLS(_QFIELDS): u is the cell
+    block x, u_star the stream, p None. pres: the entry has a pressure."""
     lib = load_library()
+    nodal = mode in (MODE_NODAL, MODE_GATHER)
     coeffs = coeffs if coeffs is not None else (None, None, None)
     scal = np.asarray(
         [sc.beta, sc.weight, sc.tau1, sc.rho, sc.mu, sc.damping, sc.tau_grad_div],
@@ -454,11 +535,13 @@ def _launch_cells(u, p, u_star, cells, sc, coeffs, out_u, out_p):
     )
     stream = _stream(u.device)
     rc = lib.adaflo_coupled_cells(
-        1 if u.dtype == torch.float64 else 0, cells.dim, cells.degree,
-        _ptr(u), _ptr(p), _ptr(u_star), _ptr(cells.cell_u), _ptr(cells.cell_p),
-        _ptr(cells._mask_u8), _ptr(cells._mask_p8 if p is not None else None),
+        1 if u.dtype == torch.float64 else 0, mode, 1 if pres else 0,
+        cells.dim, cells.degree, _ptr(u), _ptr(p), _ptr(u_star),
+        _ptr(cells.cell_u if nodal else None), _ptr(cells.cell_p if nodal else None),
+        _ptr(cells._mask_u8 if nodal else None),
+        _ptr(cells._mask_p8 if nodal and p is not None else None),
         _ptr(coeffs[0]), _ptr(coeffs[1]), _ptr(coeffs[2]),
-        _ptr(out_u), _ptr(out_p), u.shape[1], cells.n_cells,
+        _ptr(out_u), _ptr(out_p), u.shape[1] if nodal else 0, cells.n_cells,
         cells.tab_host.ctypes.data, scal.ctypes.data, stream,
     )
     if rc != 0:
@@ -502,7 +585,7 @@ def coupled_apply(
         raise RuntimeError(f"coupled apply: no kernel for device {u.device}")
     out_u = torch.zeros_like(u)
     out_p = torch.zeros_like(p)
-    _launch_cells(u, p, u_star, cells, sc, coeffs, out_u, out_p)
+    _launch_cells(MODE_NODAL, True, u, p, u_star, cells, sc, coeffs, out_u, out_p)
     launches["coupled_apply"] += 1
     norm = torch.zeros((), dtype=u.dtype, device=u.device) if want_norm else None
     _launch_epilogue(u, p, cells, out_u, out_p, identity, scale, norm)
@@ -522,9 +605,72 @@ def coupled_apply_velocity(
     if not u.is_cuda:
         raise RuntimeError(f"coupled apply: no kernel for device {u.device}")
     out_u = torch.zeros_like(u)
-    _launch_cells(u, None, u_star, cells, sc, coeffs, out_u, None)
+    _launch_cells(MODE_NODAL, False, u, None, u_star, cells, sc, coeffs, out_u, None)
     launches["coupled_apply_velocity"] += 1
     if cells.mask_u is not None:
         _launch_epilogue(u, None, cells, out_u, None, True, None, None)
     return out_u
+
+
+def _check_cells(x, s, cells: CoupledCells, velocity_only: bool):
+    dim, E = cells.dim, cells.n_cells
+    nl, npl = cells.ev_u.n_local, cells.ev_p.n_local
+    n_cols = dim * nl + (0 if velocity_only else npl)
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"coupled apply: dtype {x.dtype} not supported")
+    if tuple(x.shape) != (E, n_cols):
+        raise ValueError(
+            f"coupled apply: the cell block must be {(E, n_cols)}, got {tuple(x.shape)}"
+        )
+    if tuple(s.shape) not in ((E, dim * nl), (E, dim * (dim + 1), cells.n_q)):
+        raise ValueError(
+            f"coupled apply: the u* stream must be the cell dofs {(E, dim * nl)} "
+            f"or the q-fields {(E, dim * (dim + 1), cells.n_q)}, got {tuple(s.shape)}"
+        )
+    if s.device != x.device or s.dtype != x.dtype:
+        raise ValueError("coupled apply: all tensors need one device and dtype")
+    if not (x.is_contiguous() and s.is_contiguous()):
+        raise ValueError("coupled apply: tensors must be contiguous")
+
+
+def coupled_apply_cells(
+    x, s, cells: CoupledCells, sc: ApplyScalars, *, velocity_only: bool = False
+):
+    """K3: the coupled apply of cell blocks, constant coefficients, no
+    scatter and no constraint rows (the caller gathers and scatters).
+
+    x: (E, n_cols) cell dofs [u_0 .. u_(dim-1) | p] (velocity_only: the
+    (E, dim n_u) velocity dofs, with a zero pressure). s: the u* cell dofs
+    (E, dim n_u) or the u* values and physical gradients at the q points
+    (E, dim (dim+1), n_q), [value, d/dx_0, ..] per component. Returns a
+    block shaped like x."""
+    _check_cells(x, s, cells, velocity_only)
+    if x.device.type == "cpu":
+        return coupled_apply_cells_plain(x, s, cells, sc, velocity_only=velocity_only)
+    if not x.is_cuda:
+        raise RuntimeError(f"coupled apply: no kernel for device {x.device}")
+    qfields = s.dim() == 3
+    out = torch.empty_like(x)
+    mode = MODE_CELLS_QFIELDS if qfields else MODE_CELLS
+    _launch_cells(mode, not velocity_only, x, None, s, cells, sc, None, out, None)
+    key = "coupled_apply_cells" + ("_qfields" if qfields else "")
+    launches[key + ("_velocity" if velocity_only else "")] += 1
+    return out
+
+
+def coupled_apply_gather(u, p, u_star, cells: CoupledCells, sc: ApplyScalars):
+    """K4: the coupled apply with K1's gather from the nodal u, p and u*
+    (constrained entries of u and p read as zero) and K3's unscattered
+    output: the (E, n_cols) cell block, or the (E, dim n_u) velocity block
+    for p=None. Constant coefficients."""
+    _check(u, p, u_star, cells, None)
+    if u.device.type == "cpu":
+        return coupled_apply_gather_plain(u, p, u_star, cells, sc)
+    if not u.is_cuda:
+        raise RuntimeError(f"coupled apply: no kernel for device {u.device}")
+    n_cols = cells.dim * cells.ev_u.n_local + (0 if p is None else cells.ev_p.n_local)
+    out = torch.empty((cells.n_cells, n_cols), dtype=u.dtype, device=u.device)
+    _launch_cells(MODE_GATHER, p is not None, u, p, u_star, cells, sc, None, out, None)
+    launches["coupled_apply_gather" + ("_velocity" if p is None else "")] += 1
+    return out
 

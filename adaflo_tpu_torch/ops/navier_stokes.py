@@ -18,6 +18,20 @@ with the sum-factorized ``CellEvaluator``; the coupled Newton mat-vec
 the coupled cell apply of ``ops/coupled_matvec.py``, which launches the CUDA
 kernel for CUDA tensors and runs its plain PyTorch version for CPU tensors.
 
+Which entry of the cell apply runs follows the JAX operator's layouts
+(``_pallas_coupled_apply``), chosen by the ``layout`` argument:
+
+- "pr": K1/K2 on the nodal vectors (the default on non-periodic lattices);
+- "t", "n", "pe": K3 on (E, n_cols) cell blocks behind the lattice gather
+  and scatter (the default on periodic lattices); the JAX package's three
+  HBM orders of the block are one cell-major block here;
+- "pi": K4, the in-kernel gather, behind the lattice scatter.
+
+Demotions, as in the JAX operator: on a periodic lattice "pr" and "pi" run
+as "t"; a linearization without the nodal u* runs "pr" and "pi" as K3; a
+linearization without the u* cell dofs runs K3 on the u* q-fields instead
+of the dofs. Variable coefficients run K1, the one entry that takes them.
+
 Only the lattice branch of the JAX operator is ported: adaptive forests,
 graded and mapped meshes and augmented Taylor-Hood raise NotImplementedError
 (ROADMAP.md queue 1, items 11, 12 and 15).
@@ -37,6 +51,8 @@ from adaflo_tpu_torch.ops.coupled_matvec import (
     ApplyScalars,
     CoupledCells,
     coupled_apply,
+    coupled_apply_cells,
+    coupled_apply_gather,
     coupled_apply_velocity,
 )
 from adaflo_tpu_torch.ops.lattice import LatticeOps
@@ -71,8 +87,10 @@ class Linearized(NamedTuple):
     val: torch.Tensor  # (E, dim, n_q) linearization velocity u*
     grad: Optional[torch.Tensor]  # (E, dim, dim, n_q) full gradient (Newton)
     div: torch.Tensor  # (E, n_q) divergence of u*
-    # nodal linearization point (dim, n_u), read by the coupled cell apply
+    # nodal linearization point (dim, n_u), read by K1/K2 and K4
     u: Optional[torch.Tensor] = None
+    # cell-local dofs of u* (E, dim, n_loc), K3's dof stream
+    dofs: Optional[torch.Tensor] = None
 
 
 class Coefficients(NamedTuple):
@@ -93,6 +111,10 @@ def _dot_dq(a, g):
     return torch.einsum("...dq,...cdq->...cq", a, g)
 
 
+# the JAX operator's layouts of the fused apply (ADAFLO_PALLAS_LAYOUT)
+LAYOUTS = ("pr", "t", "n", "pe", "pi")
+
+
 class NavierStokesOperator:
     def __init__(
         self,
@@ -103,7 +125,12 @@ class NavierStokesOperator:
         constraints_p: Constraints,
         dtype: torch.dtype = torch.float64,
         device=None,
+        layout: Optional[str] = None,
     ) -> None:
+        """layout: which entry of the coupled cell apply vmult and
+        velocity_vmult run (LAYOUTS, see the module docstring); None takes
+        the JAX operator's default, "pr" where K1 runs ("t" on periodic
+        lattices)."""
         self.parameters = parameters
         self.dim = u_space.dim
         self.u_space = u_space
@@ -168,6 +195,13 @@ class NavierStokesOperator:
                 mask_p if mask_p.any() else None,
                 self.device,
             )
+        # the JAX operator's _layout_default: "pr" where the resident apply
+        # runs, which excludes periodic lattices
+        if layout is None:
+            layout = "pr" if self.cells is not None and not any(mesh.periodic) else "t"
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout {layout!r} is not one of {LAYOUTS}")
+        self.layout = layout
 
     @staticmethod
     def _cell_table(lat: LatticeOps, space) -> np.ndarray:
@@ -341,8 +375,10 @@ class NavierStokesOperator:
         submit_val, stress, div, new_lin = self._q_point_terms(
             "residual", tw, val_u, grad_u, p_q, old_val, old_old_val, None, coeffs
         )
-        # the coupled cell apply reads the linearization point nodally
-        new_lin = new_lin._replace(u=u)
+        # the coupled cell apply reads the linearization point nodally (K1,
+        # K4) or as cell dofs (K3's stream, gathered here once per Newton
+        # step)
+        new_lin = new_lin._replace(u=u, dofs=uc)
         r_u = self.ev_u.integrate_gradients(stress)
         if submit_val is not None:
             r_u = r_u + self.ev_u.integrate_values(submit_val)
@@ -370,13 +406,114 @@ class NavierStokesOperator:
             for c in (coeffs.rho, coeffs.mu, coeffs.damping)
         )
 
-    def _require_cells(self, lin):
-        if self.cells is None or lin is None or lin.grad is None or lin.u is None:
+    def route(self, lin: Optional[Linearized], coeffs: Coefficients = Coefficients()) -> str:
+        """The entry of the coupled cell apply that vmult and velocity_vmult
+        run for this linearization: "nodal" (K1/K2), "gather" (K4), "cells"
+        (K3, u* dof stream) or "qfields" (K3, u* q-field stream). The
+        layout is demoted as the JAX operator's _pallas_coupled_apply
+        demotes it."""
+        if self.cells is None or lin is None or lin.grad is None:
             raise NotImplementedError(
                 "the mat-vec is ported for the coupled implicit Newton "
                 "linearization of the incompressible equations only "
                 "(ROADMAP.md queue 1, item 9)"
             )
+        if self._cell_coeffs(coeffs) is not None:
+            if lin.u is None:
+                raise NotImplementedError(
+                    "variable coefficients need the nodal linearization point "
+                    "of K1 (ROADMAP.md queue 1, item 10)"
+                )
+            return "nodal"
+        layout = self.layout
+        if layout in ("pr", "pi") and any(self.u_space.mesh.periodic):
+            layout = "t"
+        if layout in ("pr", "pi") and lin.u is None:
+            layout = "pe"
+        if layout == "pr":
+            return "nodal"
+        if layout == "pi":
+            return "gather"
+        return "cells" if lin.dofs is not None else "qfields"
+
+    @staticmethod
+    def qfields(lin: Linearized):
+        """K3's q-field stream: (E, dim (dim+1), n_q) with [value, d/dx_0,
+        ..] of each u* component at the q points (physical gradients), the
+        JAX package's qfields_t without its TPU row padding."""
+        E, dim, n_q = lin.val.shape
+        fields = torch.cat([lin.val[:, :, None, :], lin.grad], dim=2)
+        return fields.reshape(E, dim * (dim + 1), n_q).contiguous()
+
+    def cell_apply(
+        self,
+        du,
+        dp,
+        tw: TimeWeights,
+        lin: Linearized,
+        route: str,
+        coeffs: Coefficients = Coefficients(),
+    ):
+        """The coupled cell apply of vmult (dp given) or velocity_vmult
+        (dp None) through one entry (`route`, as route() names them), with
+        identity rows on the constrained dofs (+du, -dp) and without the
+        pressure-average projection. Returns (r_u, r_p or None)."""
+        sc = self._apply_scalars(tw)
+        cco = self._cell_coeffs(coeffs)
+        if cco is not None and route != "nodal":
+            raise ValueError("only the nodal entry (K1) takes variable coefficients")
+        du = du.contiguous()
+        dp = None if dp is None else dp.contiguous()
+        if route == "nodal":
+            if dp is None:
+                ru = coupled_apply_velocity(
+                    du, lin.u.contiguous(), self.cells, sc, coeffs=cco
+                )
+                return ru, None
+            return coupled_apply(
+                du, dp, lin.u.contiguous(), self.cells, sc, coeffs=cco,
+                identity=True,
+            )
+        if route == "gather":
+            out = coupled_apply_gather(du, dp, lin.u.contiguous(), self.cells, sc)
+        elif route in ("cells", "qfields"):
+            cols = [
+                self.lat_u.gather(self.constraints_u[c].resolve(du[c]))
+                for c in range(self.dim)
+            ]
+            if dp is not None:
+                cols.append(self.lat_p.gather(self.constraints_p.resolve(dp)))
+            x = torch.cat(cols, dim=1)
+            if route == "cells":
+                s = lin.dofs.reshape(lin.dofs.shape[0], -1).contiguous()
+            else:
+                s = self.qfields(lin)
+            out = coupled_apply_cells(
+                x, s, self.cells, sc, velocity_only=dp is None
+            )
+        else:
+            raise ValueError(f"unknown route {route!r}")
+        # scatter, condense, and the identity rows of vmult (cc:247-256)
+        nl = self.u_space.n_local
+        ru = torch.stack(
+            [
+                self.constraints_u[c].set_identity(
+                    self.constraints_u[c].condense(
+                        self.lat_u.scatter_add(out[:, c * nl : (c + 1) * nl])
+                    ),
+                    du[c],
+                )
+                for c in range(self.dim)
+            ]
+        )
+        if dp is None:
+            return ru, None
+        rp = self.constraints_p.condense(self.lat_p.scatter_add(out[:, self.dim * nl :]))
+        cp = self.constraints_p.constrained_dofs
+        if len(cp):
+            idx = torch.as_tensor(cp, device=rp.device)
+            rp[idx] = -dp[idx]
+        return ru, rp
 
     @profiler_range
     def vmult(
@@ -389,16 +526,7 @@ class NavierStokesOperator:
     ):
         """Coupled-system mat-vec (navier_stokes_matrix.cc:221-262) with
         identity on constrained rows (pressure with sign -1, cc:247-256)."""
-        self._require_cells(lin)
-        ru, rp = coupled_apply(
-            du.contiguous(),
-            dp.contiguous(),
-            lin.u.contiguous(),
-            self.cells,
-            self._apply_scalars(tw),
-            coeffs=self._cell_coeffs(coeffs),
-            identity=True,
-        )
+        ru, rp = self.cell_apply(du, dp, tw, lin, self.route(lin, coeffs), coeffs)
         return ru, self.apply_pressure_average_projection(rp)
 
     def local_velocity_apply(
@@ -429,14 +557,8 @@ class NavierStokesOperator:
         coeffs: Coefficients = Coefficients(),
     ):
         """(0,0)-block mat-vec (navier_stokes_matrix.cc:337-382)."""
-        self._require_cells(lin)
-        return coupled_apply_velocity(
-            du.contiguous(),
-            lin.u.contiguous(),
-            self.cells,
-            self._apply_scalars(tw),
-            coeffs=self._cell_coeffs(coeffs),
-        )
+        route = self.route(lin, coeffs)
+        return self.cell_apply(du, None, tw, lin, route, coeffs)[0]
 
     def velocity_block_diagonal(
         self,

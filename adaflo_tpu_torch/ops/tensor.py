@@ -19,6 +19,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from adaflo_tpu_torch.device import resolve_device
 from adaflo_tpu_torch.fe.basis import LagrangeBasis1D, gauss_quadrature
 
 
@@ -27,7 +28,9 @@ class CellEvaluator:
 
     Arrays: V (n_q_1d, n_1d) values and D (n_q_1d, n_1d) derivatives on
     [0, 1]; contractions map (..., n_1d**dim) to (..., n_q_1d**dim), and
-    gradients carry an extra axis of length dim right before the q axis."""
+    gradients carry an extra axis of length dim right before the q axis.
+    The tables live on `device`: the card unless the caller asks for the
+    CPU (device=None resolves as adaflo_tpu_torch.device.resolve_device)."""
 
     def __init__(
         self,
@@ -50,7 +53,7 @@ class CellEvaluator:
         self.V_np = np.asarray(V, np.float64)
         self.D_np = np.asarray(D, np.float64)
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None else None
+        self.device = device = resolve_device(device)
         self.V = torch.as_tensor(self.V_np, dtype=dtype, device=device)
         self.D = torch.as_tensor(self.D_np, dtype=dtype, device=device)
         h = np.asarray(h, dtype=np.float64)

@@ -13,10 +13,11 @@ solver's device, with the coupled mat-vec in the CUDA kernel of
 ops/coupled_matvec.py. The solver runs on the card unless the caller passes
 device="cpu".
 
-Ported: structured lattices with Dirichlet / no-slip velocity boundaries and
-a pressure-fix point, time-dependent incompressible flow, coupled implicit
-Newton. Everything else raises NotImplementedError with the ROADMAP.md
-queue that brings it.
+Ported: structured lattices with Dirichlet / no-slip velocity boundaries,
+periodic axes (the lattice wraps, as in the JAX package) and a pressure-fix
+point, time-dependent incompressible flow, coupled implicit Newton.
+Everything else raises NotImplementedError with the ROADMAP.md queue that
+brings it.
 """
 
 from __future__ import annotations
@@ -102,18 +103,23 @@ class NavierStokes(FlowBaseAlgorithm):
         print(*args, **kw, file=self.out or sys.stdout)
 
     # ------------------------------------------------------------------
-    def setup_problem(self) -> None:
+    def setup_problem(self, initial_velocity_fn=None) -> None:
+        """Refine, make the periodic axes wrap, build spaces, constraints,
+        operator and preconditioner, and set the initial velocity from
+        `initial_velocity_fn(coords, t)` where one is given."""
         par = self.parameters
         bd = self.boundary
-        if bd.periodic_axes or bd.symmetry or bd.normal_flux or bd.open_conditions_p:
+        if bd.symmetry or bd.normal_flux or bd.open_conditions_p:
             raise NotImplementedError(
-                "periodic, symmetry, normal-flux and open boundaries are not "
-                "ported (ROADMAP.md queue 1, item 9)"
+                "symmetry, normal-flux and open boundaries are not ported "
+                "(ROADMAP.md queue 1, item 9)"
             )
         if par.global_refinements < 15:
             self.mesh.refine_global(par.global_refinements)
+        for axis in sorted(bd.periodic_axes):
+            self.mesh.set_periodic(axis)
         self._setup_discretization()
-        self._allocate_vectors()
+        self._allocate_vectors(initial_velocity_fn)
         self.system_is_setup = True
         self._prec_state: Optional[PrecState] = None
         self._last_lin = None
@@ -141,7 +147,7 @@ class NavierStokes(FlowBaseAlgorithm):
     def _zeros(self, *shape):
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
-    def _allocate_vectors(self) -> None:
+    def _allocate_vectors(self, initial_velocity_fn=None) -> None:
         n_u = self.u_space.n_dofs_padded
         n_p = self.p_space.n_dofs_padded
         zu, zp = self._zeros(self.dim, n_u), self._zeros(n_p)
@@ -151,6 +157,13 @@ class NavierStokes(FlowBaseAlgorithm):
         self.solution_update = [zu, zp]
         self.const_rhs = [zu, zp]
         self.user_rhs = [zu, zp]
+        if initial_velocity_fn is not None and not self.time_stepping.at_end():
+            vals = np.asarray(
+                initial_velocity_fn(self.u_space.node_coords, self.time_stepping.now())
+            )
+            u = zu.clone()
+            u[:, : vals.shape[1]] = torch.as_tensor(vals, dtype=self.dtype, device=self.device)
+            self.solution[0] = u
 
     def _build_constraints(self) -> None:
         """Dirichlet and no-slip constrain all velocity components

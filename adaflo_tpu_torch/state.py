@@ -1,7 +1,8 @@
 """Solver state carried across between the JAX package and the port.
 
 The two packages keep the same state under the same names: the solution
-vectors (current, old, old-old), the time stepping's fields, the constrained
+vectors (current, old, old-old), the user right-hand side (a body force),
+the time stepping's fields, the periodic axes of the mesh, the constrained
 dof sets and the preconditioner bookkeeping. `state_arrays` reads them from
 either package's NavierStokes solver into a flat dict of numpy arrays (it
 imports neither JAX nor the JAX package: it only calls `np.asarray`);
@@ -10,9 +11,10 @@ imports neither JAX nor the JAX package: it only calls `np.asarray`);
 mesh and parameters, so that both packages can compute the same step.
 
 Keys: solution_u, solution_p, solution_old_u, solution_old_p,
-solution_old_old_u, solution_old_old_p; ts:<field> for each field of
-TimeStepping (the scheme excepted); constrained_u<c>, constrained_p,
-constrained_schur; and the four preconditioner bookkeeping scalars.
+solution_old_old_u, solution_old_old_p, user_rhs_u, user_rhs_p;
+ts:<field> for each field of TimeStepping (the scheme excepted); periodic;
+constrained_u<c>, constrained_p, constrained_schur; and the four
+preconditioner bookkeeping scalars.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-_VECTORS = ("solution", "solution_old", "solution_old_old")
+_VECTORS = ("solution", "solution_old", "solution_old_old", "user_rhs")
 _BOOKKEEPING = (
     "update_preconditioner",
     "update_preconditioner_frequency",
@@ -47,6 +49,7 @@ def state_arrays(ns) -> dict[str, np.ndarray]:
     for key, val in vars(ns.time_stepping).items():
         if isinstance(val, (bool, int, float, np.floating, np.integer)):
             out[f"ts:{key}"] = np.asarray(val)
+    out["periodic"] = np.asarray(ns.mesh.periodic, bool)
     for c, con in enumerate(ns.constraints_u):
         out[f"constrained_u{c}"] = np.asarray(con.constrained_dofs, np.int64)
     out["constrained_p"] = np.asarray(ns.constraints_p.constrained_dofs, np.int64)
@@ -63,7 +66,9 @@ class SolverState:
     solution: list
     solution_old: list
     solution_old_old: list
+    user_rhs: list
     time_stepping: dict
+    periodic: np.ndarray
     constrained: dict
     bookkeeping: dict
 
@@ -87,7 +92,8 @@ def from_jax_state(arrays: dict[str, np.ndarray], device) -> SolverState:
     bookkeeping = {k: np.asarray(arrays[k]).item() for k in _BOOKKEEPING}
     return SolverState(
         vecs["solution"], vecs["solution_old"], vecs["solution_old_old"],
-        ts, constrained, bookkeeping,
+        vecs["user_rhs"], ts, np.asarray(arrays["periodic"], bool), constrained,
+        bookkeeping,
     )
 
 
@@ -95,6 +101,8 @@ def load_state(ns, state: SolverState) -> None:
     """Install `state` into a port NavierStokes solver that is set up; its
     constraints must be the ones the state was taken with."""
     mine = state_arrays(ns)
+    if not np.array_equal(mine["periodic"], state.periodic):
+        raise ValueError("state mismatch: the periodic axes differ from this solver's")
     for key, dofs in state.constrained.items():
         if key not in mine or not np.array_equal(mine[key], dofs):
             raise ValueError(f"state mismatch: {key} differs from this solver's")

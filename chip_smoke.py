@@ -3,18 +3,32 @@
 
 Phases:
   1. device: nvidia-smi name and power limit, CUDA version, kernel build time;
-  2. kernels against their plain PyTorch versions, on the card: the coupled
-     cell apply (K1 entry coupled_apply, K2 entry coupled_apply_velocity) at
-     the main path's 16^3-cell lattice and at the 48^3-cell Q2/Q1 lattice
-     (2,855,668 dofs), with Dirichlet boundary rows and a pressure-fix dof;
-     every mode (constant coefficients in float64 and float32, variable
-     coefficients, identity rows + scale + norm, velocity-only, 2D Q2/Q1,
-     3D Q3/Q2); max-abs error over max-abs <= 1e-12 (float64) / 1e-5
-     (float32); time per apply (CUDA events, median of 20 after warm-up)
-     beside the plain version's time and the bound;
-  3. the slice: the port's Beltrami driver on tests/prms/beltrami_3d.prm in
-     float64 to t = 0.2 (4 steps), held to the reference anchors of
-     tests/golden/beltrami_3d.output, with the launch counts of the main path.
+  2. kernels against their plain PyTorch versions, on the card, max-abs error
+     over max-abs <= 1e-12 (float64) / 1e-5 (float32), with the time per
+     apply (CUDA events, median of 20 after warm-up) beside the plain
+     version's time and the bound:
+     - the nodal entries (K1 coupled_apply, K2 coupled_apply_velocity) at
+       the 16^3-cell lattice and at the 48^3-cell Q2/Q1 lattice (2,855,668
+       dofs), with Dirichlet boundary rows and a pressure-fix dof, in every
+       mode (constant coefficients in float64 and float32, variable
+       coefficients, identity rows + scale + norm, velocity-only, 2D Q2/Q1,
+       3D Q3/Q2);
+     - the cell-block entries (K3 coupled_apply_cells with the u* dof and
+       q-field streams, K4 coupled_apply_gather; coupled and velocity-only)
+       at the periodic channel's 16^3 lattice and the 48^3 box, 2D Q2/Q1
+       and 3D Q3/Q2, float64 and float32;
+     - the operator's routes on the same inputs: K3 behind the lattice
+       gather and scatter, and K4 behind the scatter, against K1 (which
+       reads the wrapped cell table on the periodic lattice);
+  3. the slice, each path driven with the launch counts set to 0 before it
+     and read after it:
+     - the port's Beltrami driver on tests/prms/beltrami_3d.prm in float64
+       to t = 0.2 (4 steps), held to the reference anchors of
+       tests/golden/beltrami_3d.output; it runs K1 and K2;
+     - the periodic channel application on the uniform 16^3 lattice
+       (4,096 cells, Q2/Q1, float64), 3 coupled-Newton BDF-2 steps of
+       dt = 0.1, held to Newton convergence in every step, exact no-slip
+       walls and a finite, bounded velocity; it runs K3.
 
 The last line is {"ok": true, "device": {...}}; a "kernels" JSON line and
 the nvidia-smi line come before it. Any failed phase raises and the script
@@ -28,6 +42,7 @@ from __future__ import annotations
 
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -43,6 +58,53 @@ TOL = {"float64": 1e-12, "float32": 1e-5}
 K1_SOURCE = "adaflo_tpu_torch/csrc/coupled_matvec.cu"
 K1_REPLACES = "adaflo_tpu/ops/pallas_matvec.py:1145"  # coupled_vmult_pr2
 K2_REPLACES = "adaflo_tpu/ops/pallas_matvec.py:685"  # coupled_vmult_pr
+K3_REPLACES = "adaflo_tpu/ops/pallas_matvec.py:491"  # coupled_vmult_cells
+K4_REPLACES = "adaflo_tpu/ops/pallas_matvec.py:1364"  # coupled_vmult_parity
+BLOCK_ENTRIES = (
+    "coupled_apply_cells",
+    "coupled_apply_cells_velocity",
+    "coupled_apply_cells_qfields",
+    "coupled_apply_cells_qfields_velocity",
+    "coupled_apply_gather",
+    "coupled_apply_gather_velocity",
+)
+# the periodic channel of the slice (adaflo_tpu/applications/periodic_channel.py
+# on the uniform lattice): the JAX package's graded-channel test parameters
+# with the coupled implicit Newton linearization, BDF-2, dt = 0.1 and 3 steps;
+# its tolerances (NL 1e-4, linear 1e-5) let Newton converge, and NL max
+# iterations is 10 instead of 3 so that "converged" is Newton's own verdict
+CHANNEL_PRM = """
+subsection Time stepping
+  set scheme    = bdf_2
+  set step size = 0.1
+  set end time  = 0.3
+end
+subsection Navier-Stokes
+  set physical type      = incompressible
+  set dimension          = 3
+  set global refinements = 16
+  set velocity degree    = 2
+  set viscosity          = 0.001472
+  subsection Solver
+    set linearization scheme         = coupled implicit Newton
+    set NL max iterations            = 10
+    set NL tolerance                 = 1.e-4
+    set lin max iterations           = 50
+    set lin tolerance                = 1.e-5
+    set tau grad div                 = 1
+  end
+end
+subsection Output options
+  set output verbosity = 3
+  set output vtk files = 0
+end
+"""
+CHANNEL_ANCHORS = {
+    "cells": " Number of active cells: 4096.",
+    # velocity 32 x 33 x 32 nodes per component (x and z wrap), pressure
+    # 16 x 17 x 16
+    "dofs": " Number of degrees of freedom (velocity/pressure): 105728 (101376 + 4352).",
+}
 # reference anchors (tests/golden/beltrami_3d.output)
 ANCHORS = {
     "cells": " Number of active cells: 4096.",
@@ -88,18 +150,20 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
 
 
 def cell_flops(dim: int, n1: int, q1: int, p1: int, variable: bool,
-               velocity_only: bool) -> int:
+               velocity_only: bool, qfields: bool = False) -> int:
     """Floating-point operations one cell needs in the kernel's sum
     factorization (coupled_cell_kernel). An output of a k-term contraction
     costs k multiplies and k - 1 adds; Gauss weights, 1/h and the per-step
     scalar products are tables or constants and cost nothing here. Without
     a pressure (velocity_only) the pressure stages, the -p on the stress
-    diagonal and the pressure row are left out, as the kernel leaves them."""
+    diagonal and the pressure row are left out, as the kernel leaves them.
+    With the u* q-field stream (qfields) u* is read at the q points, so its
+    evaluation stages and the 1/h on its gradients are left out."""
 
     def dots(n_out: int, terms: int) -> int:
         return n_out * (2 * terms - 1)
 
-    ni = 2 * dim  # items evaluated: u_c and u*_c
+    ni = dim if qfields else 2 * dim  # items evaluated: u_c (and u*_c)
     nq = q1**dim
     f = 0
     if dim == 3:
@@ -122,7 +186,7 @@ def cell_flops(dim: int, n1: int, q1: int, p1: int, variable: bool,
             f += dots(p1 * q1, p1) + dots(q1 * q1, p1)
             f += dots(p1 * q1, q1) + dots(p1 * p1, q1)
     # q-point terms (_q_point_terms, "vmult"), per point
-    point = 2 * dim * dim  # 1/h on the gradients of u and u*
+    point = (1 if qfields else 2) * dim * dim  # 1/h on the gradients of u, u*
     point += 2 * (dim - 1)  # div u, div u*
     point += dim * (4 + 4 * dim)  # convection: beta terms, then 2 dim products
     # value row times JxW: a u + b conv (constant), or
@@ -159,39 +223,80 @@ def bound(cells, dtype: str, n_u: int, n_p: int, velocity_only: bool, variable: 
     )
 
 
-def lattice_case(dim: int, degree: int, n_cells_axis: int, dtype, seed: int, device):
-    """Cell data of a Dirichlet-bounded lattice with one pressure-fix dof and
-    random vectors (numpy seed)."""
+def bound_block(name: str, cells, dtype: str, n_u: int, n_p: int):
+    """(bytes, flops, bound_ms, bound_by) of one apply of a cell-block entry:
+    K3 reads the (E, n_cols) block and the u* stream and writes the block;
+    K4 reads K1's nodal inputs (vectors, cell tables, masks) and writes the
+    block."""
+    s = 4 if dtype == "float32" else 8
+    dim, E, nq = cells.dim, cells.n_cells, cells.n_q
+    nl, npl = (cells.degree + 1) ** dim, cells.degree**dim
+    velocity = name.endswith("_velocity")
+    qfields = "_qfields" in name
+    ldx = dim * nl + (0 if velocity else npl)
+    if name.startswith("coupled_apply_cells"):
+        nbytes = E * (2 * ldx + (dim * (dim + 1) * nq if qfields else dim * nl)) * s
+    else:
+        nbytes = 2 * dim * n_u * s + E * nl * 4 + E * ldx * s
+        nbytes += 0 if cells.mask_u is None else dim * n_u
+        if not velocity:
+            nbytes += n_p * s + E * npl * 4 + (0 if cells.mask_p is None else n_p)
+    flops = E * cell_flops(
+        dim, cells.degree + 1, cells.degree + 1, cells.degree, False, velocity, qfields
+    )
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_flops = flops / PEAK_FLOPS[dtype]
+    return nbytes, flops, 1e3 * max(t_bytes, t_flops), (
+        "bytes" if t_bytes >= t_flops else "operations"
+    )
+
+
+def operator_case(dim: int, degree: int, n: int, dtype, device, periodic: bool, seed: int):
+    """The port's NavierStokesOperator on an n^dim lattice with random nodal
+    u, p, u* (numpy seed) and the linearization at u*: the periodic channel
+    pattern (x and z wrap, Dirichlet walls at y = +-1, anisotropic cells) or
+    the box [-1, 1]^dim with Dirichlet rows on every side and a pinned
+    pressure dof."""
     import torch
 
-    from adaflo_tpu_torch.mesh.structured import StructuredMesh
+    from adaflo_tpu_torch.fe.constraints import Constraints
     from adaflo_tpu_torch.fe.space import ScalarSpace
-    from adaflo_tpu_torch.ops.coupled_matvec import CoupledCells
-    from adaflo_tpu_torch.ops.lattice import LatticeOps
-    from adaflo_tpu_torch.ops.tensor import CellEvaluator
+    from adaflo_tpu_torch.mesh.structured import StructuredMesh
+    from adaflo_tpu_torch.ops.navier_stokes import NavierStokesOperator, TimeWeights
+    from adaflo_tpu_torch.parameters import FlowParameters
 
-    mesh = StructuredMesh((n_cells_axis,) * dim, (-1.0,) * dim, (1.0,) * dim)
+    if periodic:
+        lo, hi = (0.0, -1.0, 0.0)[:dim], (2 * np.pi, 1.0, 2 * np.pi / 3)[:dim]
+    else:
+        lo, hi = (-1.0,) * dim, (1.0,) * dim
+    mesh = StructuredMesh((n,) * dim, lo, hi)
+    if periodic:
+        for axis in (0, 2)[: dim - 1]:
+            mesh.set_periodic(axis)
     us, ps = ScalarSpace(mesh, degree), ScalarSpace(mesh, degree - 1)
-    ev_u = CellEvaluator(dim, us.basis, degree + 1, mesh.h)
-    ev_p = CellEvaluator(dim, ps.basis, degree + 1, mesh.h)
-    mask_u = np.zeros((dim, us.n_dofs), bool)
-    mask_u[:, us.boundary_dofs(0)] = True
-    mask_p = np.zeros(ps.n_dofs, bool)
-    mask_p[ps.boundary_dofs(0)[0]] = True
-    cells = CoupledCells(
-        ev_u, ev_p, LatticeOps.for_space(us).cell_dof_table(),
-        LatticeOps.for_space(ps).cell_dof_table(), mask_u, mask_p, device,
+    cu = [Constraints(us.n_dofs) for _ in range(dim)]
+    for c in cu:
+        c.add_dirichlet(us.boundary_dofs(0))
+    cp = Constraints(ps.n_dofs)
+    if not periodic:
+        cp.add_dirichlet(ps.boundary_dofs(0)[:1])
+    for c in cu + [cp]:
+        c.close()
+    par = FlowParameters.from_string(
+        f"subsection Navier-Stokes\n set dimension = {dim}\n"
+        f" set velocity degree = {degree}\n set viscosity = 0.05\n"
+        " set damping = 0.2\n subsection Solver\n  set tau grad div = 0.3\n"
+        " end\nend\n"
     )
+    op = NavierStokesOperator(par, us, ps, cu, cp, dtype=dtype, device=device)
     rng = np.random.default_rng(seed)
     kw = dict(dtype=dtype, device=device)
-    u = torch.as_tensor(rng.standard_normal((dim, us.n_dofs)), **kw)
-    p = torch.as_tensor(rng.standard_normal(ps.n_dofs), **kw)
-    s = torch.as_tensor(rng.standard_normal((dim, us.n_dofs)), **kw)
-    coeffs = tuple(
-        torch.as_tensor(rng.uniform(0.5, 2.0, (mesh.n_cells, cells.n_q)), **kw)
-        for _ in range(3)
-    )
-    return cells, u, p, s, coeffs
+    u = torch.as_tensor(rng.standard_normal((dim, us.n_dofs_padded)), **kw)
+    p = torch.as_tensor(rng.standard_normal(ps.n_dofs_padded), **kw)
+    s = torch.as_tensor(rng.standard_normal((dim, us.n_dofs_padded)), **kw)
+    tw = TimeWeights(1.5 / 0.1, -2.0 / 0.1, 0.5 / 0.1, 1.0)
+    lin = op.residual_assemble(s, p, s, s, tw)[2]
+    return op, u, p, s, tw, lin
 
 
 def rel_err(got, ref) -> float:
@@ -231,7 +336,15 @@ def check_kernels(device):
         ("3D Q3/Q2 16^3 f64 velocity", 3, 3, 16, torch.float64, "velocity"),
     ]
     for label, dim, degree, n, dtype, mode in cases:
-        cells, u, p, s, coeffs = lattice_case(dim, degree, n, dtype, 1000 + n, device)
+        op, u, p, s, _, _ = operator_case(dim, degree, n, dtype, device, False, 1000 + n)
+        cells = op.cells
+        rng = np.random.default_rng(n)
+        coeffs = tuple(
+            torch.as_tensor(
+                rng.uniform(0.5, 2.0, (cells.n_cells, cells.n_q)), dtype=dtype, device=device
+            )
+            for _ in range(3)
+        )
         dname = str(dtype).split(".")[-1]
         variable = mode in ("variable", "all")
         scal = sc_var if variable else sc
@@ -274,6 +387,185 @@ def check_kernels(device):
     return records
 
 
+def check_block_entries(device):
+    """Phase 2, cell-block entries: K3 (dof and q-field streams) and K4,
+    coupled and velocity-only, against their plain versions in every mode,
+    and the operator's K3/K4 routes against K1 on the same inputs. Returns
+    the timing records by (entry, case label)."""
+    import torch
+
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+
+    records = {}
+    cases = [
+        # (label, dim, degree, cells per axis, dtype, periodic)
+        ("3D Q2/Q1 16^3 periodic f64", 3, 2, 16, torch.float64, True),
+        ("3D Q2/Q1 16^3 periodic f32", 3, 2, 16, torch.float32, True),
+        ("3D Q2/Q1 48^3 f64", 3, 2, 48, torch.float64, False),
+        ("3D Q2/Q1 48^3 f32", 3, 2, 48, torch.float32, False),
+        ("2D Q2/Q1 256^2 periodic f64", 2, 2, 256, torch.float64, True),
+        ("2D Q2/Q1 256^2 f32", 2, 2, 256, torch.float32, False),
+        ("3D Q3/Q2 16^3 f64", 3, 3, 16, torch.float64, False),
+        ("3D Q3/Q2 16^3 periodic f32", 3, 3, 16, torch.float32, True),
+    ]
+    for label, dim, degree, n, dtype, periodic in cases:
+        op, u, p, s, tw, lin = operator_case(dim, degree, n, dtype, device, periodic, 2000 + n)
+        dname = str(dtype).split(".")[-1]
+        cells, sc = op.cells, op._apply_scalars(tw)
+        nl = cells.ev_u.n_local
+        x = torch.cat(
+            [op.lat_u.gather(u[c]) for c in range(dim)] + [op.lat_p.gather(p)], dim=1
+        )
+        xv = x[:, : dim * nl].contiguous()
+        dofs = lin.dofs.reshape(cells.n_cells, -1).contiguous()
+        qf = op.qfields(lin)
+        args = {
+            "coupled_apply_cells": ((x, dofs), {}),
+            "coupled_apply_cells_velocity": ((xv, dofs), {"velocity_only": True}),
+            "coupled_apply_cells_qfields": ((x, qf), {}),
+            "coupled_apply_cells_qfields_velocity": ((xv, qf), {"velocity_only": True}),
+            "coupled_apply_gather": ((u, p, s), {}),
+            "coupled_apply_gather_velocity": ((u, None, s), {}),
+        }
+        for name in BLOCK_ENTRIES:
+            a, kw = args[name]
+            fn = cm.coupled_apply_cells if "_cells" in name else cm.coupled_apply_gather
+            plain_fn = (
+                cm.coupled_apply_cells_plain if "_cells" in name
+                else cm.coupled_apply_gather_plain
+            )
+            run = lambda: fn(*a, cells, sc, **kw)
+            plain = lambda: plain_fn(*a, cells, sc, **kw)
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            err = rel_err([got], [ref])
+            max_abs = float((got - ref).abs().max())
+            ms = cuda_ms(run)
+            plain_ms = cuda_ms(plain, warmup=1, reps=5)
+            nbytes, flops, bms, by = bound_block(name, cells, dname, u.shape[1], p.shape[0])
+            print(
+                f"kernel {name} {label}: rel err {err:.3e} (max abs {max_abs:.3e}), "
+                f"{ms:.4f} ms/apply, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+                f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)",
+                flush=True,
+            )
+            if not err <= TOL[dname]:
+                raise AssertionError(f"{name} {label}: relative error {err:.3e} > {TOL[dname]}")
+            records[(name, label)] = dict(
+                max_abs_err=max_abs, rel_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
+            )
+        if dim == 3 and degree == 2 and dname == "float64":
+            check_routes(label, op, u, p, tw, lin)
+        del op, u, p, s, lin, x, xv, dofs, qf
+        torch.cuda.empty_cache()
+    return records
+
+
+def check_routes(label, op, u, p, tw, lin):
+    """The operator's apply through K1 (nodal), K3 behind the lattice gather
+    and scatter (dof and q-field streams) and K4 behind the scatter, on the
+    same inputs, identity rows included: each against K1, with its time per
+    apply (gather and scatter included)."""
+    import torch
+
+    for pres in (True, False):
+        ref = None
+        for route in ("nodal", "cells", "qfields", "gather"):
+            run = lambda: op.cell_apply(u, p if pres else None, tw, lin, route)
+            got = [r for r in run() if r is not None]
+            torch.cuda.synchronize()
+            ms = cuda_ms(run)
+            if ref is None:
+                ref = got
+            err = rel_err(got, ref)
+            print(
+                f"route {label} {'vmult' if pres else 'velocity_vmult'} {route}: "
+                f"rel err against K1 {err:.3e}, {ms:.4f} ms/apply",
+                flush=True,
+            )
+            if not err <= TOL["float64"]:
+                raise AssertionError(f"route {route} {label}: relative error {err:.3e}")
+
+
+def reset_counts(cm):
+    for k in cm.launches:
+        cm.launches[k] = 0
+    for k in cm.plain_calls:
+        cm.plain_calls[k] = 0
+
+
+def run_steps(problem, n_steps, cm):
+    """Time steps of a problem; per step: seconds, Newton and Krylov
+    iterations, kernel launches."""
+    import torch
+
+    steps = []
+    while len(steps) < n_steps and not problem.navier_stokes.time_stepping.at_end():
+        before = dict(cm.launches)
+        t0 = time.perf_counter()
+        nl, lin = problem.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps.append(dict(
+            seconds=dt, newton=nl, krylov=lin,
+            launches={k: cm.launches[k] - before[k] for k in cm.launches if cm.launches[k] > before[k]},
+        ))
+    for st in steps:
+        print(
+            f"step: {st['seconds']:.3f} s, Newton {st['newton']}, Krylov "
+            f"{st['krylov']}, launches {st['launches']}", flush=True,
+        )
+    return steps
+
+
+def run_channel():
+    """Phase 3, the periodic channel at 16^3 for 3 steps."""
+    import torch
+
+    from adaflo_tpu_torch.applications.periodic_channel import PeriodicChannelProblem
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.parameters import FlowParameters
+
+    par = FlowParameters.from_string(CHANNEL_PRM)
+    out = Tee()
+    reset_counts(cm)
+    t0 = time.perf_counter()
+    problem = PeriodicChannelProblem(par, out=out)  # the default device
+    problem.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps = run_steps(problem, 3, cm)
+    launches, plain = dict(cm.launches), dict(cm.plain_calls)
+    ns = problem.navier_stokes
+    u = ns.solution[0]
+    walls = torch.as_tensor(ns.u_space.boundary_dofs(0), device=u.device)
+    lines = out.getvalue().splitlines()
+    k3 = ("coupled_apply_cells", "coupled_apply_cells_velocity")
+    checks = {
+        "cells": CHANNEL_ANCHORS["cells"] in lines,
+        "dofs": CHANNEL_ANCHORS["dofs"] in lines,
+        "periodic": list(ns.mesh.periodic) == [True, False, True],
+        "converged": out.getvalue().count(" converged.") == 3 and len(steps) == 3,
+        "walls_zero": len(walls) > 0 and float(u[:, walls].abs().max()) == 0.0,
+        "finite": bool(torch.isfinite(u).all()) and bool(torch.isfinite(ns.solution[1]).all()),
+        "bounded": float(u.abs().max()) < 3.0,
+        "k3_every_step": all(st["launches"].get(k, 0) > 0 for st in steps for k in k3),
+        "no_other_entry": all(
+            v == 0 for k, v in launches.items() if k not in k3
+        ),
+        "no_plain_calls": all(v == 0 for v in plain.values()),
+    }
+    print(
+        f"channel: setup {setup_s:.3f} s, max |u| {float(u.abs().max()):.6f}, "
+        f"checks {checks}", flush=True,
+    )
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"periodic channel checks failed: {failed}")
+    return dict(setup_s=setup_s, steps=steps, launches=launches)
+
+
 def run_slice():
     """Phase 3: the Beltrami driver to t = 0.2, held to the anchors."""
     import torch
@@ -285,27 +577,14 @@ def run_slice():
     par = FlowParameters.from_file(str(ROOT / "tests" / "prms" / "beltrami_3d.prm"))
     par.end_time = 0.2
     out = Tee()
-    for k in cm.launches:
-        cm.launches[k] = 0
-    for k in cm.plain_calls:
-        cm.plain_calls[k] = 0
+    reset_counts(cm)
     t0 = time.perf_counter()
     problem = BeltramiProblem(par, out=out)  # the default device, as a user runs it
     problem.setup()
     problem.output_results()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    steps = []
-    while not problem.navier_stokes.time_stepping.at_end():
-        before = dict(cm.launches)
-        t0 = time.perf_counter()
-        nl, lin = problem.step()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        steps.append(dict(
-            seconds=dt, newton=nl, krylov=lin,
-            launches={k: cm.launches[k] - before[k] for k in cm.launches},
-        ))
+    steps = run_steps(problem, 4, cm)
     launches = dict(cm.launches)
     plain = dict(cm.plain_calls)
     text = out.getvalue()
@@ -328,13 +607,12 @@ def run_slice():
         "converged": text.count(" converged.") == 4 and len(steps) == 4,
         "kernel_launched": launches["coupled_apply"] > 0
         and launches["coupled_apply_velocity"] > 0,
+        "no_other_entry": all(
+            v == 0 for k, v in launches.items()
+            if k not in ("coupled_apply", "coupled_apply_velocity")
+        ),
         "no_plain_calls": all(v == 0 for v in plain.values()),
     }
-    for st in steps:
-        print(
-            f"step: {st['seconds']:.3f} s, Newton {st['newton']}, Krylov "
-            f"{st['krylov']}, launches {st['launches']}", flush=True,
-        )
     print(f"slice: setup {setup_s:.3f} s, checks {checks}", flush=True)
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -364,19 +642,29 @@ def main() -> int:
     t0 = time.perf_counter()
     cm.load_library()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
-    for ln in cm.build_info.get("log", "").splitlines():
-        if "registers" in ln or "spill" in ln:
-            print("ptxas:", ln.strip())
+    log = cm.build_info.get("log", "").splitlines()
+    regs = [int(ln.split("Used ")[1].split()[0]) for ln in log if "Used " in ln]
+    spills = [
+        ln.strip() for ln in log
+        if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))
+    ]
+    if regs:
+        print(
+            f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers per "
+            f"thread, {len(spills)} with spills"
+        )
+    for ln in spills:
+        print("ptxas:", ln)
 
-    # ---- phase 2: kernels against the plain version ------------------------
+    # ---- phase 2: kernels against the plain versions -------------------------
     rec = check_kernels(device)
+    block_rec = check_block_entries(device)
 
-    # ---- phase 3: the slice --------------------------------------------------
+    # ---- phase 3: the slice, each path with the counts from 0 ---------------
     slice_rec = run_slice()
-    launches = slice_rec["launches"]
+    channel_rec = run_channel()
 
-    def entry(name, replaces, main_label, big_label):
-        r, b = rec[main_label], rec[big_label]
+    def entry(name, replaces, r, b, main_label, launches):
         return {
             "name": name, "route": "cuda", "source": K1_SOURCE,
             "replaces": replaces, "launches": launches[name],
@@ -388,20 +676,31 @@ def main() -> int:
         }
 
     kernels = [
-        entry("coupled_apply", K1_REPLACES, "3D Q2/Q1 16^3 f64 const+ids",
-              "3D Q2/Q1 48^3 f64 const+ids"),
-        entry("coupled_apply_velocity", K2_REPLACES, "3D Q2/Q1 16^3 f64 velocity",
-              "3D Q2/Q1 48^3 f64 velocity"),
+        entry("coupled_apply", K1_REPLACES, rec["3D Q2/Q1 16^3 f64 const+ids"],
+              rec["3D Q2/Q1 48^3 f64 const+ids"], "3D Q2/Q1 16^3 f64 const+ids",
+              slice_rec["launches"]),
+        entry("coupled_apply_velocity", K2_REPLACES, rec["3D Q2/Q1 16^3 f64 velocity"],
+              rec["3D Q2/Q1 48^3 f64 velocity"], "3D Q2/Q1 16^3 f64 velocity",
+              slice_rec["launches"]),
     ]
-    steps = slice_rec["steps"]
-    n = len(steps)
-    print(
-        "slice summary: "
-        f"{statistics.mean(s['seconds'] for s in steps):.3f} s/step, "
-        f"Newton/step {sum(s['newton'] for s in steps) / n:.2f}, "
-        f"Krylov/step {sum(s['krylov'] for s in steps) / n:.2f}, "
-        f"launches/step " + json.dumps({k: v / n for k, v in launches.items()})
-    )
+    for name in BLOCK_ENTRIES:
+        main = "3D Q2/Q1 16^3 periodic f64"
+        kernels.append(entry(
+            name, K3_REPLACES if "_cells" in name else K4_REPLACES,
+            block_rec[(name, main)], block_rec[(name, "3D Q2/Q1 48^3 f64")],
+            main, channel_rec["launches"],
+        ))
+    for title, r in (("beltrami_3d", slice_rec), ("periodic channel 16^3", channel_rec)):
+        steps = r["steps"]
+        n = len(steps)
+        print(
+            f"{title} summary: "
+            f"{statistics.mean(s['seconds'] for s in steps):.3f} s/step, "
+            f"Newton/step {sum(s['newton'] for s in steps) / n:.2f}, "
+            f"Krylov/step {sum(s['krylov'] for s in steps) / n:.2f}, "
+            "launches/step "
+            + json.dumps({k: v / n for k, v in r["launches"].items() if v})
+        )
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

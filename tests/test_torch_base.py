@@ -132,6 +132,7 @@ def test_operator_and_multigrid_need_cuda_unless_the_cpu_is_asked_for(monkeypatc
     from adaflo_tpu_torch.fe.space import ScalarSpace
     from adaflo_tpu_torch.mesh.structured import StructuredMesh
     from adaflo_tpu_torch.ops.navier_stokes import NavierStokesOperator
+    from adaflo_tpu_torch.ops.tensor import CellEvaluator
     from adaflo_tpu_torch.solvers.multigrid import LatticeGMG
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -148,6 +149,10 @@ def test_operator_and_multigrid_need_cuda_unless_the_cpu_is_asked_for(monkeypatc
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LatticeGMG((5, 5), (0.25, 0.25), np.arange(5), 25)
     assert LatticeGMG((5, 5), (0.25, 0.25), np.arange(5), 25, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CellEvaluator(2, us.basis, 3, mesh.h)
+    ev = CellEvaluator(2, us.basis, 3, mesh.h, device="cpu")
+    assert ev.device.type == "cpu" and ev.V.device.type == "cpu"
 
 
 def _unit_cube_cells(mask_u=None, mask_p=None):
@@ -161,7 +166,8 @@ def _unit_cube_cells(mask_u=None, mask_p=None):
     mesh = StructuredMesh((2, 2, 2), (0.0,) * 3, (1.0,) * 3)
     us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
     cells = cm.CoupledCells(
-        CellEvaluator(3, us.basis, 3, mesh.h), CellEvaluator(3, ps.basis, 3, mesh.h),
+        CellEvaluator(3, us.basis, 3, mesh.h, device="cpu"),
+        CellEvaluator(3, ps.basis, 3, mesh.h, device="cpu"),
         LatticeOps.for_space(us).cell_dof_table(),
         LatticeOps.for_space(ps).cell_dof_table(), mask_u, mask_p, "cpu",
     )
@@ -205,3 +211,30 @@ def test_kernel_wrapper_never_falls_back_off_the_cpu():
     with pytest.raises(RuntimeError, match="no kernel"):
         cm.coupled_apply_velocity(u, u, cells, sc)
     assert cm.plain_calls["coupled_apply_plain"] == calls
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["box", "periodic"])
+def test_operator_layout_default_and_names(periodic):
+    """The operator takes the JAX package's layout names and defaults as its
+    _layout_default does: "pr" (K1) where the resident apply runs, "t" (K3)
+    on periodic lattices."""
+    from adaflo_tpu_torch.fe.constraints import Constraints
+    from adaflo_tpu_torch.fe.space import ScalarSpace
+    from adaflo_tpu_torch.mesh.structured import StructuredMesh
+    from adaflo_tpu_torch.ops.navier_stokes import LAYOUTS, NavierStokesOperator
+
+    par = tpar.FlowParameters.from_string("subsection Navier-Stokes\n set dimension = 2\nend\n")
+    mesh = StructuredMesh((2, 2), (0.0,) * 2, (1.0,) * 2)
+    if periodic:
+        mesh.set_periodic(0)
+    us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
+    cu = [Constraints(us.n_dofs) for _ in range(2)]
+    cp = Constraints(ps.n_dofs)
+    for c in cu + [cp]:
+        c.close()
+    op = NavierStokesOperator(par, us, ps, cu, cp, device="cpu")
+    assert op.layout == ("t" if periodic else "pr")
+    for layout in LAYOUTS:
+        assert NavierStokesOperator(par, us, ps, cu, cp, device="cpu", layout=layout).layout == layout
+    with pytest.raises(ValueError, match="layout"):
+        NavierStokesOperator(par, us, ps, cu, cp, device="cpu", layout="rows")

@@ -8,10 +8,14 @@ over its work items, so one thread does all of them), turns `__syncthreads`
 into a no-op and each `<<<...>>>` launch into a loop over the blocks. The
 library is driven through the port's own ctypes argument packing
 (`ops/coupled_matvec._launch_cells` / `_launch_epilogue`) on CPU tensors and
-compared with `coupled_apply_plain` in every mode, float64 (1e-12 relative)
-and float32 (1e-5). What this cannot show: that nvcc accepts the source,
-and what many threads do; `chip_smoke.py` checks both on the card. Skips
-where g++ is missing."""
+compared with the plain versions in every mode, float64 (1e-12 relative)
+and float32 (1e-5): the nodal entries (K1, K2) against
+`coupled_apply_plain`, the cell-block entries (K3 with the u* dof and
+q-field streams, K4's in-kernel gather; coupled and velocity-only) against
+`coupled_apply_cells_plain` and `coupled_apply_gather_plain`, on a box and
+on a periodic lattice (wrapped cell tables). What this cannot show: that
+nvcc accepts the source, and what many threads do; `chip_smoke.py` checks
+both on the card. Skips where g++ is missing."""
 
 import ctypes
 import re
@@ -99,12 +103,7 @@ def emulated(tmp_path_factory, monkeypatch_module):
         [gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-o", str(so), str(d / "emu.cpp")],
         check=True, capture_output=True, timeout=300,
     )
-    lib = ctypes.CDLL(str(so))
-    vp, i, ll, dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-    lib.adaflo_coupled_cells.argtypes = [i, i, i] + [vp] * 12 + [ll, ll, vp, vp, vp]
-    lib.adaflo_coupled_cells.restype = i
-    lib.adaflo_coupled_epilogue.argtypes = [i] + [vp] * 6 + [ll, ll, i, dbl, vp, vp]
-    lib.adaflo_coupled_epilogue.restype = i
+    lib = cm.bind(ctypes.CDLL(str(so)))
     # the wrapper's launch helpers, pointed at the emulated library and a
     # null stream, for this module only
     monkeypatch_module.setattr(cm, "load_library", lambda: lib)
@@ -118,15 +117,18 @@ def monkeypatch_module():
         yield mp
 
 
-def _case(dim, degree, dtype, constrained):
+def _case(dim, degree, dtype, constrained, periodic=False):
     rng = np.random.default_rng(dim * 10 + degree)
     if dim == 3:
         mesh = StructuredMesh((3, 4, 2), (0.0, 0.0, 0.0), (1.0, 1.3, 0.7))
     else:
         mesh = StructuredMesh((4, 3), (0.0, 0.0), (1.0, 1.3))
+    if periodic:
+        for axis in (0, 2)[: dim - 1]:
+            mesh.set_periodic(axis)
     us, ps = ScalarSpace(mesh, degree), ScalarSpace(mesh, degree - 1)
-    ev_u = CellEvaluator(dim, us.basis, degree + 1, mesh.h)
-    ev_p = CellEvaluator(dim, ps.basis, degree + 1, mesh.h)
+    ev_u = CellEvaluator(dim, us.basis, degree + 1, mesh.h, device="cpu")
+    ev_p = CellEvaluator(dim, ps.basis, degree + 1, mesh.h, device="cpu")
     mask_u = mask_p = None
     if constrained:
         mask_u = np.zeros((dim, us.n_dofs), bool)
@@ -160,7 +162,7 @@ def test_emulated_kernel_matches_plain_version(emulated, dim, degree, mode, dtyp
     if mode == "velocity":
         ref = [cm.coupled_apply_plain(u, None, s, cells, sc, velocity_only=True)]
         out_u = torch.zeros_like(u)
-        cm._launch_cells(u, None, s, cells, sc, None, out_u, None)
+        cm._launch_cells(cm.MODE_NODAL, False, u, None, s, cells, sc, None, out_u, None)
         cm._launch_epilogue(u, None, cells, out_u, None, True, None, None)
         got = [out_u]
     else:
@@ -168,9 +170,48 @@ def test_emulated_kernel_matches_plain_version(emulated, dim, degree, mode, dtyp
         ref = list(cm.coupled_apply_plain(u, p, s, cells, sc, coeffs=co, want_norm=True, **kw))
         out_u, out_p = torch.zeros_like(u), torch.zeros_like(p)
         norm = torch.zeros((), dtype=dtype)
-        cm._launch_cells(u, p, s, cells, sc, co, out_u, out_p)
+        cm._launch_cells(cm.MODE_NODAL, True, u, p, s, cells, sc, co, out_u, out_p)
         cm._launch_epilogue(u, p, cells, out_u, out_p, kw["identity"], kw["scale"], norm)
         got = [out_u, out_p, norm]
     err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
     scale = max(float(b.abs().max()) for b in ref)
     assert err <= (1e-12 if dtype == torch.float64 else 1e-5) * scale
+
+
+ENTRIES = [
+    "cells", "cells-velocity", "cells-qfields", "cells-qfields-velocity",
+    "gather", "gather-velocity",
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("lattice", ["box", "periodic"])
+@pytest.mark.parametrize("entry", ENTRIES)
+@pytest.mark.parametrize("dim,degree", SETS, ids=["3d-q2", "2d-q2", "3d-q3"])
+def test_emulated_block_entries_match_plain_versions(
+    emulated, dim, degree, entry, lattice, dtype
+):
+    """K3 (both streams) and K4, coupled and velocity-only, write the same
+    unscattered (E, n_cols) cell block as their plain versions."""
+    cells, u, p, s, _ = _case(dim, degree, dtype, True, lattice == "periodic")
+    sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
+    velocity = entry.endswith("velocity")
+    rng = np.random.default_rng(7)
+    E, nl, npl = cells.n_cells, cells.ev_u.n_local, cells.ev_p.n_local
+    t = lambda *shape: torch.tensor(rng.standard_normal(shape), dtype=dtype)
+    if entry.startswith("gather"):
+        pp = None if velocity else p
+        ref = cm.coupled_apply_gather_plain(u, pp, s, cells, sc)
+        got = torch.full_like(ref, float("nan"))
+        cm._launch_cells(cm.MODE_GATHER, not velocity, u, pp, s, cells, sc, None, got, None)
+    else:
+        x = t(E, dim * nl + (0 if velocity else npl))
+        qfields = "qfields" in entry
+        stream = t(E, dim * (dim + 1), cells.n_q) if qfields else t(E, dim * nl)
+        mode = cm.MODE_CELLS_QFIELDS if qfields else cm.MODE_CELLS
+        ref = cm.coupled_apply_cells_plain(x, stream, cells, sc, velocity_only=velocity)
+        got = torch.full_like(ref, float("nan"))
+        cm._launch_cells(mode, not velocity, x, None, stream, cells, sc, None, got, None)
+    assert got.shape == ref.shape
+    err = float((got - ref).abs().max())
+    assert err <= (1e-12 if dtype == torch.float64 else 1e-5) * float(ref.abs().max())

@@ -94,7 +94,7 @@ def test_evaluator_values_gradients_integration(dim, degree):
     h = (0.3, 0.45, 0.6)[:dim]
     n_q = degree + 1
     je = JEvaluator(dim, JSpace(_meshes(dim)[0], degree).basis, n_q, h)
-    te = TEvaluator(dim, TSpace(_meshes(dim)[1], degree).basis, n_q, h)
+    te = TEvaluator(dim, TSpace(_meshes(dim)[1], degree).basis, n_q, h, device="cpu")
     u = rng.standard_normal((5, dim, te.n_local))
     f = rng.standard_normal((5, dim, te.n_q))
     g = rng.standard_normal((5, dim, dim, te.n_q))

@@ -13,6 +13,7 @@ from torch_operator_cases import (
     check_residual_assemble,
     check_velocity_vmult_and_diagonals,
     check_vmult,
+    check_vmult_layout,
 )
 
 torch.set_num_threads(2)
@@ -44,6 +45,13 @@ def test_vmult(case, variable):
 @pytest.mark.parametrize("case", KEYS, ids=IDS, indirect=True)
 def test_velocity_vmult_and_diagonals(case):
     check_velocity_vmult_and_diagonals(case)
+
+
+@pytest.mark.parametrize("lin_kind", ["dofs", "qfields"])
+@pytest.mark.parametrize("layout", ["pr", "t", "n", "pe", "pi"])
+@pytest.mark.parametrize("case", KEYS, ids=IDS, indirect=True)
+def test_vmult_layouts(case, layout, lin_kind):
+    check_vmult_layout(case, layout, lin_kind)
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -4,7 +4,10 @@ cell apply against the JAX package's einsum operator, float64 on the CPU.
 
 A table set (3D Q2/Q1 on the (3, 4, 2) mesh of test_pallas_matvec.py, 2D
 Q2/Q1, 3D Q3/Q2) is built unconstrained and with Dirichlet velocity rows,
-one constrained pressure row and the pressure-fix projection. The JAX
+one constrained pressure row and the pressure-fix projection, and on the
+periodic channel pattern: (4, 3, 2) (or (4, 3)) anisotropic cells on
+[0, 2 pi] x [-1, 1] (x [0, 2 pi/3]), periodic in x (and z), Dirichlet
+walls, the constrained pressure row and the pressure fix. The JAX
 operator runs with ADAFLO_PALLAS_MATVEC=0 (its einsum path); its references
 are one compiled program per case. Tolerance: 1e-12 relative to the largest
 entry of the reference, the bar of test_pallas_matvec.py. One file per table
@@ -49,18 +52,25 @@ class Case:
     """One configuration built in both packages with the same random inputs.
     The JAX references are traced here and compiled by `build_cases`."""
 
-    def __init__(self, dim, degree, constrained):
+    def __init__(self, dim, degree, constrained, periodic=False):
         text = PRM.format(dim=dim, degree=degree)
-        if dim == 3:
+        if periodic:
+            args = ((4, 3, 2), (0.0, -1.0, 0.0), (2 * np.pi, 1.0, 2 * np.pi / 3))
+            args = tuple(a[:dim] for a in args)
+        elif dim == 3:
             args = ((3, 4, 2), (0.0, 0.0, 0.0), (1.0, 1.3, 0.7))
         else:
             args = ((4, 3), (0.0, 0.0), (1.0, 1.3))
         self.ops = []
+        self.port_spaces = None
         for Params, Mesh, Space, Cons, ns in (
             (JParams, JMesh, JSpace, JConstraints, jns),
             (TParams, TMesh, TSpace, TConstraints, tns),
         ):
             mesh = Mesh(*args)
+            if periodic:
+                for axis in (0, 2)[: dim - 1]:
+                    mesh.set_periodic(axis)
             us, ps = Space(mesh, degree), Space(mesh, degree - 1)
             cu = [Cons(us.n_dofs) for _ in range(dim)]
             cp = Cons(ps.n_dofs)
@@ -72,6 +82,8 @@ class Case:
                 c.close()
             extra = {} if ns is jns else {"device": "cpu"}
             op = ns.NavierStokesOperator(Params.from_string(text), us, ps, cu, cp, **extra)
+            if ns is tns:
+                self.port_spaces = (Params.from_string(text), us, ps, cu, cp)
             if constrained:
                 if ns is jns:
                     # compile the two heavy steps of the JAX setup as programs
@@ -84,7 +96,11 @@ class Case:
         self.dim, self.E = dim, mesh.n_cells
         self.n_u, self.n_p = us.n_dofs, ps.n_dofs
         self.n_q = self.top.n_q
-        rng = np.random.default_rng(100 * dim + 10 * degree + constrained)
+        self.constrained, self.periodic = constrained, periodic
+        self._layout_ops = {}
+        rng = np.random.default_rng(
+            100 * dim + 10 * degree + constrained + 1000 * periodic
+        )
         vec = lambda *s: rng.standard_normal(s)
         self.np = dict(
             u=vec(dim, self.n_u), p=vec(self.n_p), uo=vec(dim, self.n_u),
@@ -141,10 +157,25 @@ class Case:
         t = self.t
         return tns.Coefficients(t["rho"], t["mu"], t["damping"])
 
+    def port_op(self, layout):
+        """The port's operator on this case's spaces with the given layout."""
+        if layout not in self._layout_ops:
+            op = tns.NavierStokesOperator(
+                *self.port_spaces, device="cpu", layout=layout
+            )
+            if self.constrained:
+                op.enable_pressure_fix()
+            self._layout_ops[layout] = op
+        return self._layout_ops[layout]
+
 
 def case_keys(dim, degree):
-    keys = [(dim, degree, False), (dim, degree, True)]
-    ids = [f"{dim}d-q{degree}-{'con' if c else 'free'}" for _, _, c in keys]
+    """The unconstrained, constrained and periodic configurations."""
+    keys = [(dim, degree, False), (dim, degree, True), (dim, degree, True, True)]
+    ids = [
+        f"{dim}d-q{degree}-{'periodic' if len(k) > 3 else ('con' if k[2] else 'free')}"
+        for k in keys
+    ]
     return keys, ids
 
 
@@ -197,6 +228,41 @@ def check_velocity_vmult_and_diagonals(case):
     close(top.pressure_mass_vmult(t["dp"], 1.7), ref["mass"])
     close(top.pressure_lumped_mass(), ref["lumped"])
     close(top.divergence_vmult_add(t["dp"], t["du"]), ref["divergence"])
+
+
+# the entry each layout runs (the plain version a CPU apply calls): on a
+# periodic lattice "pr" and "pi" demote to "t"; without the nodal u* they
+# demote to K3, and without the u* cell dofs K3 reads the u* q-fields
+LAYOUT_ROUTE = {"pr": "nodal", "t": "cells", "n": "cells", "pe": "cells", "pi": "gather"}
+
+
+def check_vmult_layout(case, layout, lin_kind):
+    """vmult and velocity_vmult of the port's operator built with `layout`,
+    with the residual's linearization ("dofs") or one that carries only the
+    q-point fields ("qfields"), against the JAX einsum operator; and the
+    entry that ran."""
+    top = case.port_op(layout)
+    lin = case.tres[2]
+    if lin_kind == "qfields":
+        lin = tns.Linearized(lin.val, lin.grad, lin.div)
+    route = LAYOUT_ROUTE[layout]
+    if case.periodic and layout in ("pr", "pi"):
+        route = "cells"
+    if lin_kind == "qfields":
+        route = "qfields"
+    assert top.route(lin) == route
+    plain = "coupled_apply_plain" if route == "nodal" else (
+        "coupled_apply_gather_plain" if route == "gather" else "coupled_apply_cells_plain"
+    )
+    before = dict(cm.plain_calls)
+    tru, trp = top.vmult(case.t["du"], case.t["dp"], case.ttw, lin)
+    trv = top.velocity_vmult(case.t["du"], case.ttw, lin)
+    calls = {k: cm.plain_calls[k] - before[k] for k in before}
+    assert calls == {k: (2 if k == plain else 0) for k in calls}, calls
+    jru, jrp = case.ref["raw"]
+    close(tru, jru)
+    close(trp, case.project(jrp))
+    close(trv, case.ref["velocity"])
 
 
 MODES = ["ids", "condense", "scale-norm", "variable", "velocity"]

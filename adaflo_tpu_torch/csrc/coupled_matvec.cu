@@ -7,8 +7,16 @@
 //                           (_kernel_su: u* dof stream; _kernel: u* q-field
 //                           stream), unscattered output,
 //   K4 coupled_vmult_parity K1's gather inside the kernel, K3's unscattered
-//                           output (_kernel_pi).
-// All four are template instances of one cell kernel. It computes, for every
+//                           output (_kernel_pi);
+// and the measurement probes of scripts/ that ablate the resident apply:
+//   K12 probe_pr_phases.py  apply_fn (_kernel_ablate): minus one phase,
+//   K13 probe_pr_parts.py   run_variant (make_kernel): whole-apply ablations,
+//   K11 probe_pr_grouped.py build_call (make_kernel_grouped): the apply with
+//                           a gather that reads no per-dof table,
+//   K6  probe_pr.py         ring_scatter: the cell-block scatter alone.
+// K1-K4, K11, K12 and K13 are template instances of one cell kernel (K12 and
+// K13 through its phase mask, K11 through the lattice source); K6 is
+// scatter_cells_kernel. The cell kernel computes, for every
 // cell of a uniform Cartesian lattice, the Newton-linearized Navier-Stokes
 // operator
 //
@@ -27,7 +35,9 @@
 //   output         kOutScatter: atomicAdd into the nodal output (K1, K2);
 //                  kOutBlock: a plain store of the (E, n_cols) cell block,
 //                  for the caller's scatter (K3, K4).
-// A third switch selects K3's u* stream: the u* cell dofs (E, dim n_u),
+// kSrcLattice (K11) reads like kSrcTable with the addresses computed from
+// the cell's lattice coordinates. A third switch selects K3's u* stream: the
+// u* cell dofs (E, dim n_u),
 // evaluated in the kernel like u, or the u* values and physical gradients at
 // the q points (E, dim (dim+1), n_q), read as they are. n_cols is
 // dim n_u + n_p, or dim n_u for the velocity-only instances (PRES = false).
@@ -89,9 +99,26 @@ constexpr int kThreads = 128;
 constexpr int kMaxTab = 16;
 
 // gather source, u* stream and output of a cell-kernel instance
-constexpr int kSrcTable = 0, kSrcBlock = 1;
+constexpr int kSrcTable = 0, kSrcBlock = 1, kSrcLattice = 2;
 constexpr int kStreamDofs = 0, kStreamQFields = 1;
 constexpr int kOutScatter = 0, kOutBlock = 1;
+
+// Phases of the cell kernel (the PH template parameter, a bit mask). The
+// production instances run all six; the probe instances (K12, K13) drop some.
+// A dropped phase writes, in place of its results, plain copies of its
+// inputs where the next phase reads (the rule of each is at its place
+// below). Every phase leaves its results in shared memory, which the
+// compiler does not delete, so the phases before a dropped one still run.
+//   kPhContig  gather at contiguous addresses: cell e, local l reads entry
+//              (e n_loc + l) mod n of each vector, no table (K13 "noshift");
+//   kPhMDot    the dense per-cell product out = M89 x in place of the
+//              evaluation, q-point and integration phases (K13 "mdot").
+// Without kPhScatter the output is a plain store of the dofs that a cell
+// owns (local coordinates below the degree on every axis, one cell per
+// node): the output store without the accumulation.
+constexpr int kPhGather = 1, kPhEvalU = 2, kPhEvalUs = 4, kPhQPoint = 8,
+              kPhIntegrate = 16, kPhScatter = 32, kPhAll = 63, kPhContig = 64,
+              kPhMDot = 128;
 
 template <typename T>
 struct Tables {
@@ -107,6 +134,39 @@ template <typename T>
 struct Scalars {
   T beta, weight, tau1, rho0, mu0, damp0, tgd;
 };
+
+// Arguments that only the probe instances read: the (n_cols, n_cols) matrix
+// M89 of kPhMDot, the pressure length of kPhContig, and the cells per axis
+// of the lattice source (x, y).
+template <typename T>
+struct ProbeArgs {
+  const T* M;
+  long long n_p;
+  int ncx, ncy;
+};
+
+// Node index of local dof l (x fastest, n1 per axis) of cell e on the
+// uniform non-periodic 3D lattice of ncx x ncy x * cells (x fastest), whose
+// dofs are numbered lexicographically, x fastest: ScalarSpace's numbering,
+// so this equals LatticeOps.cell_dof_table()[e, l].
+template <int N1>
+__device__ __forceinline__ long long lattice_dof(long long e, int l, int ncx, int ncy) {
+  constexpr int deg = N1 - 1;
+  const long long cx = e % ncx, cy = (e / ncx) % ncy, cz = e / ((long long)ncx * ncy);
+  const long long nx = (long long)deg * ncx + 1, ny = (long long)deg * ncy + 1;
+  const int lx = l % N1, ly = (l / N1) % N1, lz = l / (N1 * N1);
+  return ((deg * cz + lz) * ny + deg * cy + ly) * nx + deg * cx + lx;
+}
+
+// The cell owns local dof l (n1 per axis, x fastest) when no local
+// coordinate is the cell's high face: each lattice node below the high
+// boundary has one owner.
+template <int DIM, int N1>
+__device__ __forceinline__ bool owned(int l) {
+  for (int a = 0; a < DIM; ++a, l /= N1)
+    if (l % N1 == N1 - 1) return false;
+  return true;
+}
 
 template <int DIM, int N1, int Q1, int P1>
 struct Shape {
@@ -159,8 +219,12 @@ __device__ __forceinline__ void axis_op(T* __restrict__ out, const T* in,
 // SRC == kSrcBlock, u is the (E, LDX) cell block x and us the cell-major
 // stream (E, SLD); p, the cell tables and the masks are not read. With
 // DST == kOutBlock, out_u is the (E, LDX) output block and out_p is not used.
+// SRC == kSrcLattice (K11) reads like kSrcTable, with each dof's address
+// computed from the cell's lattice coordinates (lattice_dof) in place of the
+// tables; its gather and scatter give consecutive threads one local dof of
+// consecutive cells. PH: the phases run (kPhAll for every production entry).
 template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM,
-          int DST, typename T>
+          int DST, typename T, int PH = kPhAll>
 __global__ void __launch_bounds__(kThreads)
 coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ us, const int32_t* __restrict__ cell_u,
@@ -170,7 +234,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ rho, const T* __restrict__ mu,
                     const T* __restrict__ damp, T* __restrict__ out_u,
                     T* __restrict__ out_p, long long n_u, long long n_cells,
-                    int cpb, Tables<T> tab, Scalars<T> sc) {
+                    int cpb, Tables<T> tab, Scalars<T> sc, ProbeArgs<T> pa) {
   using S = Shape<DIM, N1, Q1, P1>;
   constexpr int NL = S::NL, NQ = S::NQ, NP = S::NP, NB = S::NB;
   constexpr int IN = S::IN, S1 = S::S1, S2 = S::S2, F = S::F;
@@ -182,12 +246,25 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   constexpr int LDX = DIM * NL + (PRES ? NP : 0);     // block row length
   constexpr int SLD = QF ? DIM * FI * NQ : DIM * NL;  // stream row length
   static_assert(SRC == kSrcBlock || !QF, "the q-field stream is a block");
+  constexpr bool LAT = SRC == kSrcLattice;
+  constexpr bool MDOT = (PH & kPhMDot) != 0;
+  constexpr bool GATHER = (PH & (kPhGather | kPhContig)) != 0;
+  // the evaluated items [I0, I1) and whether the pressure is evaluated
+  constexpr int I0 = (PH & kPhEvalU) ? 0 : DIM;
+  constexpr int I1 = (PH & kPhEvalUs) ? NEV : DIM;
+  constexpr int NE = I1 - I0;
+  constexpr bool PE = PRES && (PH & kPhEvalU);
+  static_assert(PH == kPhAll || (DIM == 3 && N1 == 3 && Q1 == 3 && P1 == 2 &&
+                                 PRES && SRC == kSrcTable && !QF && DST == kOutScatter),
+                "probe phases: 3D Q2/Q1 with pressure, nodal in and out only");
+  static_assert(!LAT || (DIM == 3 && !QF), "the lattice source is 3D, u* dofs");
 
   extern __shared__ unsigned char smem_raw[];
   T* sV = reinterpret_cast<T*>(smem_raw);
   T* sD = sV + kMaxTab;
   T* sVp = sD + kMaxTab;
-  T* buf = sVp + kMaxTab;
+  T* sM = sVp + kMaxTab;  // kPhMDot: M89, (LDX, LDX) row-major
+  T* buf = sM + (MDOT ? LDX * LDX : 0);
 
   const int tid = threadIdx.x, nth = blockDim.x;
   for (int i = tid; i < kMaxTab; i += nth) {
@@ -195,20 +272,55 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     sD[i] = tab.D[i];
     sVp[i] = tab.Vp[i];
   }
+  if constexpr (MDOT) {
+    for (int i = tid; i < LDX * LDX; i += nth) sM[i] = pa.M[i];
+  }
   const long long c0 = (long long)blockIdx.x * cpb;
   const int nc = (int)min((long long)cpb, n_cells - c0);
 
-  if constexpr (SRC == kSrcTable) {
+  if constexpr (SRC != kSrcBlock && !GATHER) {
+    // ---- dropped gather: each item of a cell reads one value v, at the
+    //      cell's first dof, and spreads it as v (l + 1) over its local dofs l
+    //      (a field constant on each cell would leave the output at roundoff)
+    constexpr int NIP = NI + 1;
+    for (int t = tid; t < nc * NIP; t += nth) {
+      const int cell = t / NIP, item = t % NIP;
+      const long long e = c0 + cell;
+      T* cb = buf + cell * CS;
+      if (item < NI) {
+        const long long dof = cell_u[e * NL];
+        T v;
+        if (item < DIM) {
+          const long long g = item * n_u + dof;
+          v = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
+        } else {
+          v = us[(item - DIM) * n_u + dof];
+        }
+        for (int l = 0; l < NL; ++l) cb[(IN + item) * NB + l] = v * T(l + 1);
+      } else {
+        const long long dof = cell_p[e * NP];
+        const T v = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
+        for (int l = 0; l < NP; ++l) cb[(IN + NI) * NB + l] = v * T(l + 1);
+      }
+    }
+  } else if constexpr (SRC != kSrcBlock) {
     // ---- gather: u (constrained entries read 0), u* (plain), p (masked) --
     constexpr int per_g = NI * NL + (PRES ? NP : 0);
     for (int t = tid; t < nc * per_g; t += nth) {
-      const int cell = t / per_g;
-      const int k = t % per_g;
+      const int cell = LAT ? t % nc : t / per_g;
+      const int k = LAT ? t / nc : t % per_g;
       const long long e = c0 + cell;
       T* cb = buf + cell * CS;
       if (k < NI * NL) {
         const int item = k / NL, l = k % NL;
-        const long long dof = cell_u[e * NL + l];
+        long long dof;
+        if constexpr (LAT) {
+          dof = lattice_dof<N1>(e, l, pa.ncx, pa.ncy);
+        } else if constexpr ((PH & kPhContig) != 0) {
+          dof = (e * NL + l) % n_u;
+        } else {
+          dof = cell_u[e * NL + l];
+        }
         T v;
         if (item < DIM) {
           const long long g = item * n_u + dof;
@@ -219,7 +331,14 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
         cb[(IN + item) * NB + l] = v;
       } else {
         const int l = k - NI * NL;
-        const long long dof = cell_p[e * NP + l];
+        long long dof;
+        if constexpr (LAT) {
+          dof = lattice_dof<P1>(e, l, pa.ncx, pa.ncy);
+        } else if constexpr ((PH & kPhContig) != 0) {
+          dof = (e * NP + l) % pa.n_p;
+        } else {
+          dof = cell_p[e * NP + l];
+        }
         cb[(IN + NI) * NB + l] = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
       }
     }
@@ -257,17 +376,18 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   {
     constexpr int n1 = ipow(N1, DIM - 1) * Q1, np1 = ipow(P1, DIM - 1) * Q1;
     constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
-    constexpr int per = NEV * 2 * n1 + (PRES ? np1 : 0);
-    for (int t = tid; t < nc * per; t += nth) {
+    constexpr int per = NE * 2 * n1 + (PE ? np1 : 0);
+    // (no work when a probe drops every item of the stage)
+    if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
-      if (k < NEV * 2 * n1) {
-        const int item = k / (2 * n1), which = (k / n1) % 2, o = k % n1;
+      if (k < NE * 2 * n1) {
+        const int item = I0 + k / (2 * n1), which = (k / n1) % 2, o = k % n1;
         axis_op<T>(cb + (S1 + 2 * item + which) * NB, cb + (IN + item) * NB,
                    which ? sD : sV, nullptr, nullptr, N1, false, 0, N1, N1, e2,
                    Q1, o);
       } else {
-        k -= NEV * 2 * n1;
+        k -= NE * 2 * n1;
         axis_op<T>(cb + (S1 + 2 * NI) * NB, cb + (IN + NI) * NB, sVp, nullptr,
                    nullptr, P1, false, 0, P1, P1, pe2, Q1, k);
       }
@@ -281,12 +401,13 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     constexpr int n2 = ipow(Q1, 2) * (DIM == 3 ? N1 : 1);
     constexpr int np2 = ipow(Q1, 2) * (DIM == 3 ? P1 : 1);
     constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
-    constexpr int per = NEV * 3 * n2 + (PRES ? np2 : 0);
-    for (int t = tid; t < nc * per; t += nth) {
+    constexpr int per = NE * 3 * n2 + (PE ? np2 : 0);
+    // (no work when a probe drops every item of the stage)
+    if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
-      if (k < NEV * 3 * n2) {
-        const int item = k / (3 * n2), which = (k / n2) % 3, o = k % n2;
+      if (k < NE * 3 * n2) {
+        const int item = I0 + k / (3 * n2), which = (k / n2) % 3, o = k % n2;
         const T* src = cb + (S1 + 2 * item + (which == 2 ? 1 : 0)) * NB;
         const T* M = which == 1 ? sD : sV;
         T* dst;
@@ -300,7 +421,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
         axis_op<T>(dst, src, M, nullptr, nullptr, N1, false, 1, Q1, N1, e2, Q1,
                    o);
       } else {
-        k -= NEV * 3 * n2;
+        k -= NE * 3 * n2;
         T* dst = DIM == 3 ? cb + (S2 + 3 * NI) * NB : cb + (F + FI * NI) * NB;
         axis_op<T>(dst, cb + (S1 + 2 * NI) * NB, sVp, nullptr, nullptr, P1,
                    false, 1, Q1, P1, pe2, Q1, k);
@@ -313,18 +434,19 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   //      d/dy = Vz B01, d/dz = Dz B00 ---------------------------------------
   if constexpr (DIM == 3) {
     constexpr int n3 = NQ;
-    constexpr int per = NEV * 4 * n3 + (PRES ? n3 : 0);
-    for (int t = tid; t < nc * per; t += nth) {
+    constexpr int per = NE * 4 * n3 + (PE ? n3 : 0);
+    // (no work when a probe drops every item of the stage)
+    if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
       int k = t % per;
-      if (k < NEV * 4 * n3) {
-        const int item = k / (4 * n3), which = (k / n3) % 4, o = k % n3;
+      if (k < NE * 4 * n3) {
+        const int item = I0 + k / (4 * n3), which = (k / n3) % 4, o = k % n3;
         const int src_slot = which == 1 ? 2 : (which == 2 ? 1 : 0);
         axis_op<T>(cb + (F + FI * item + which) * NB,
                    cb + (S2 + 3 * item + src_slot) * NB, which == 3 ? sD : sV,
                    nullptr, nullptr, N1, false, 2, Q1, Q1, N1, Q1, o);
       } else {
-        k -= NEV * 4 * n3;
+        k -= NE * 4 * n3;
         axis_op<T>(cb + (F + FI * NI) * NB, cb + (S2 + 3 * NI) * NB, sVp,
                    nullptr, nullptr, P1, false, 2, Q1, Q1, P1, Q1, k);
       }
@@ -332,142 +454,204 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     __syncthreads();
   }
 
-  // ---- q-point terms (NavierStokesOperator._q_point_terms, "vmult") -------
-  // outputs into S1: value_c at +c, stress_cd at +DIM+DIM c+d, prow at +DIM+DIM^2
-  // (the q-field stream's u* gradients are physical already)
-  for (int t = tid; t < nc * NQ; t += nth) {
-    const int cell = t / NQ, q = t % NQ;
-    T* cb = buf + cell * CS;
-    const int qx = q % Q1, qy = (q / Q1) % Q1, qz = q / (Q1 * Q1);
-    T jxw = tab.w[qx] * tab.w[qy] * tab.vol;
-    if (DIM == 3) jxw *= tab.w[qz];
-    T uv[DIM], sv[DIM], ug[DIM][DIM], sg[DIM][DIM];
-    for (int c = 0; c < DIM; ++c) {
-      uv[c] = cb[(F + FI * c) * NB + q];
-      sv[c] = cb[(F + FI * (DIM + c)) * NB + q];
-      for (int d = 0; d < DIM; ++d) {
-        ug[c][d] = cb[(F + FI * c + 1 + d) * NB + q] * tab.inv_h[d];
-        sg[c][d] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q] *
-                   (QF ? T(1) : tab.inv_h[d]);
-      }
-    }
-    const T pq = PRES ? cb[(F + FI * NI) * NB + q] : T(0);
-    T div = T(0), div_s = T(0);
-    for (int a = 0; a < DIM; ++a) {
-      div += ug[a][a];
-      div_s += sg[a][a];
-    }
-    const bool variable = rho != nullptr || mu != nullptr || damp != nullptr;
-    const long long qi = (c0 + cell) * NQ + q;
-    const T r_q = rho != nullptr ? rho[qi] : sc.rho0;
-    const T m_q = mu != nullptr ? mu[qi] : sc.mu0;
-    const T d_q = damp != nullptr ? damp[qi] : sc.damp0;
-    const T tmu = sc.tau1 * m_q;
-    for (int c = 0; c < DIM; ++c) {
-      T conv = sc.beta * (div * sv[c] + div_s * uv[c]);
-      for (int e = 0; e < DIM; ++e) conv += sv[e] * ug[c][e] + uv[e] * sg[c][e];
-      const T value = variable
-          ? r_q * (sc.weight * uv[c] + sc.tau1 * conv) - d_q * uv[c]
-          : (sc.rho0 * sc.weight - sc.damp0) * uv[c] + sc.tau1 * sc.rho0 * conv;
-      cb[(S1 + c) * NB + q] = value * jxw;
-      for (int d = 0; d < DIM; ++d) {
-        T st = tmu * (ug[c][d] + ug[d][c]);
-        if (c == d) st += sc.tgd * div - pq;
-        cb[(S1 + DIM + DIM * c + d) * NB + q] = st * jxw * tab.inv_h[d];
-      }
-    }
-    if (PRES) cb[(S1 + DIM + DIM * DIM) * NB + q] = -div * jxw;
-  }
-  __syncthreads();
-
-  // ---- integration, stage x (transposed): a_c = Vx^T value_c + Dx^T st_cx,
-  //      b_c = Vx^T st_cy (, cz_c = Vx^T st_cz); pressure Vpx^T prow --------
-  // outputs: 3D into S2 (3 per component), 2D into F (2 per component)
-  {
-    constexpr int TX = DIM == 3 ? S2 : F;
-    constexpr int e2 = DIM == 3 ? Q1 : 1;
-    constexpr int n1 = N1 * ipow(Q1, DIM - 1), np1 = P1 * ipow(Q1, DIM - 1);
-    constexpr int per = DIM * DIM * n1 + (PRES ? np1 : 0);
+  // ---- dropped evaluation: each final field of an item not evaluated holds
+  //      the item's dofs (q < NQ = NL), the pressure field its dofs (q mod NP)
+  if constexpr (!MDOT && (PH & (kPhEvalU | kPhEvalUs)) != (kPhEvalU | kPhEvalUs)) {
+    constexpr int NU = (PH & kPhEvalU) ? 0 : DIM;   // u items copied
+    constexpr int NS = (PH & kPhEvalUs) ? 0 : DIM;  // u* items copied
+    constexpr int per = (NU + NS) * FI * NQ + (PE ? 0 : NQ);
     for (int t = tid; t < nc * per; t += nth) {
       T* cb = buf + (t / per) * CS;
-      int k = t % per;
-      if (k < DIM * DIM * n1) {
-        const int c = k / (DIM * n1), j = (k / n1) % DIM, o = k % n1;
-        const T* st = cb + (S1 + DIM + DIM * c) * NB;  // st_c0 .. st_c(DIM-1)
-        T* dst = cb + (TX + DIM * c + j) * NB;
-        if (j == 0) {
-          axis_op<T>(dst, cb + (S1 + c) * NB, sV, st, sD, N1, true, 0, Q1, Q1,
-                     e2, N1, o);
-        } else {
-          axis_op<T>(dst, st + j * NB, sV, nullptr, nullptr, N1, true, 0, Q1,
-                     Q1, e2, N1, o);
-        }
+      const int k = t % per;
+      if (k < (NU + NS) * FI * NQ) {
+        const int j = k / (FI * NQ), f = (k / NQ) % FI, q = k % NQ;
+        const int item = j < NU ? j : DIM + (j - NU);
+        cb[(F + FI * item + f) * NB + q] = cb[(IN + item) * NB + q];
       } else {
-        k -= DIM * DIM * n1;
-        axis_op<T>(cb + (TX + DIM * DIM) * NB, cb + (S1 + DIM + DIM * DIM) * NB,
-                   sVp, nullptr, nullptr, P1, true, 0, Q1, Q1, e2, P1, k);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- integration, stage y: 3D e_c = Vy^T a_c + Dy^T b_c, f_c = Vy^T cz_c
-  //      into IN; 2D out_c = Vy^T a_c + Dy^T b_c into IN -------------------
-  {
-    constexpr int TX = DIM == 3 ? S2 : F;
-    constexpr int e2 = DIM == 3 ? Q1 : 1;
-    constexpr int n2 = N1 * N1 * (DIM == 3 ? Q1 : 1);
-    constexpr int np2 = P1 * P1 * (DIM == 3 ? Q1 : 1);
-    constexpr int NO = DIM == 3 ? 2 : 1;  // outputs per component
-    constexpr int per = DIM * NO * n2 + (PRES ? np2 : 0);
-    for (int t = tid; t < nc * per; t += nth) {
-      T* cb = buf + (t / per) * CS;
-      int k = t % per;
-      if (k < DIM * NO * n2) {
-        const int c = k / (NO * n2), j = (k / n2) % NO, o = k % n2;
-        const T* src = cb + (TX + DIM * c) * NB;
-        T* dst = cb + (IN + NO * c + j) * NB;
-        if (j == 0) {
-          axis_op<T>(dst, src, sV, src + NB, sD, N1, true, 1, N1, Q1, e2, N1,
-                     o);
-        } else {
-          axis_op<T>(dst, src + 2 * NB, sV, nullptr, nullptr, N1, true, 1, N1,
-                     Q1, e2, N1, o);
-        }
-      } else {
-        k -= DIM * NO * n2;
-        axis_op<T>(cb + (IN + NO * DIM) * NB, cb + (TX + DIM * DIM) * NB, sVp,
-                   nullptr, nullptr, P1, true, 1, P1, Q1, e2, P1, k);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- integration, stage z (3D): out_c = Vz^T e_c + Dz^T f_c into S1 -----
-  constexpr int OUT = DIM == 3 ? S1 : IN;
-  if constexpr (DIM == 3) {
-    constexpr int per = DIM * NL + (PRES ? NP : 0);
-    for (int t = tid; t < nc * per; t += nth) {
-      T* cb = buf + (t / per) * CS;
-      int k = t % per;
-      if (k < DIM * NL) {
-        const int c = k / NL, o = k % NL;
-        axis_op<T>(cb + (S1 + c) * NB, cb + (IN + 2 * c) * NB, sV,
-                   cb + (IN + 2 * c + 1) * NB, sD, N1, true, 2, N1, N1, Q1, N1,
-                   o);
-      } else {
-        k -= DIM * NL;
-        axis_op<T>(cb + (S1 + DIM) * NB, cb + (IN + 2 * DIM) * NB, sVp, nullptr,
-                   nullptr, P1, true, 2, P1, P1, Q1, P1, k);
+        const int q = k - (NU + NS) * FI * NQ;
+        cb[(F + FI * NI) * NB + q] = cb[(IN + NI) * NB + q % NP];
       }
     }
     __syncthreads();
   }
 
-  // ---- output: atomic adds into the nodal output, or the cell block ------
+  if constexpr (!MDOT && (PH & kPhQPoint) != 0) {
+    // ---- q-point terms (NavierStokesOperator._q_point_terms, "vmult") -------
+    // outputs into S1: value_c at +c, stress_cd at +DIM+DIM c+d, prow at +DIM+DIM^2
+    // (the q-field stream's u* gradients are physical already)
+    for (int t = tid; t < nc * NQ; t += nth) {
+      const int cell = t / NQ, q = t % NQ;
+      T* cb = buf + cell * CS;
+      const int qx = q % Q1, qy = (q / Q1) % Q1, qz = q / (Q1 * Q1);
+      T jxw = tab.w[qx] * tab.w[qy] * tab.vol;
+      if (DIM == 3) jxw *= tab.w[qz];
+      T uv[DIM], sv[DIM], ug[DIM][DIM], sg[DIM][DIM];
+      for (int c = 0; c < DIM; ++c) {
+        uv[c] = cb[(F + FI * c) * NB + q];
+        sv[c] = cb[(F + FI * (DIM + c)) * NB + q];
+        for (int d = 0; d < DIM; ++d) {
+          ug[c][d] = cb[(F + FI * c + 1 + d) * NB + q] * tab.inv_h[d];
+          sg[c][d] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q] *
+                     (QF ? T(1) : tab.inv_h[d]);
+        }
+      }
+      const T pq = PRES ? cb[(F + FI * NI) * NB + q] : T(0);
+      T div = T(0), div_s = T(0);
+      for (int a = 0; a < DIM; ++a) {
+        div += ug[a][a];
+        div_s += sg[a][a];
+      }
+      const bool variable = rho != nullptr || mu != nullptr || damp != nullptr;
+      const long long qi = (c0 + cell) * NQ + q;
+      const T r_q = rho != nullptr ? rho[qi] : sc.rho0;
+      const T m_q = mu != nullptr ? mu[qi] : sc.mu0;
+      const T d_q = damp != nullptr ? damp[qi] : sc.damp0;
+      const T tmu = sc.tau1 * m_q;
+      for (int c = 0; c < DIM; ++c) {
+        T conv = sc.beta * (div * sv[c] + div_s * uv[c]);
+        for (int e = 0; e < DIM; ++e) conv += sv[e] * ug[c][e] + uv[e] * sg[c][e];
+        const T value = variable
+            ? r_q * (sc.weight * uv[c] + sc.tau1 * conv) - d_q * uv[c]
+            : (sc.rho0 * sc.weight - sc.damp0) * uv[c] + sc.tau1 * sc.rho0 * conv;
+        cb[(S1 + c) * NB + q] = value * jxw;
+        for (int d = 0; d < DIM; ++d) {
+          T st = tmu * (ug[c][d] + ug[d][c]);
+          if (c == d) st += sc.tgd * div - pq;
+          cb[(S1 + DIM + DIM * c + d) * NB + q] = st * jxw * tab.inv_h[d];
+        }
+      }
+      if (PRES) cb[(S1 + DIM + DIM * DIM) * NB + q] = -div * jxw;
+    }
+    __syncthreads();
+  } else if constexpr (!MDOT) {
+    // ---- dropped q-point terms: value_c = u_c, stress_cd = d_d u*_c,
+    //      prow = p (the final fields, copied) -----------------------------
+    for (int t = tid; t < nc * NQ; t += nth) {
+      T* cb = buf + (t / NQ) * CS;
+      const int q = t % NQ;
+      for (int c = 0; c < DIM; ++c) {
+        cb[(S1 + c) * NB + q] = cb[(F + FI * c) * NB + q];
+        for (int d = 0; d < DIM; ++d)
+          cb[(S1 + DIM + DIM * c + d) * NB + q] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q];
+      }
+      cb[(S1 + DIM + DIM * DIM) * NB + q] = cb[(F + FI * NI) * NB + q];
+    }
+    __syncthreads();
+  }
+
+  constexpr int OUT = DIM == 3 ? S1 : IN;
+  if constexpr (!MDOT && (PH & kPhIntegrate) != 0) {
+    // ---- integration, stage x (transposed): a_c = Vx^T value_c + Dx^T st_cx,
+    //      b_c = Vx^T st_cy (, cz_c = Vx^T st_cz); pressure Vpx^T prow --------
+    // outputs: 3D into S2 (3 per component), 2D into F (2 per component)
+    {
+      constexpr int TX = DIM == 3 ? S2 : F;
+      constexpr int e2 = DIM == 3 ? Q1 : 1;
+      constexpr int n1 = N1 * ipow(Q1, DIM - 1), np1 = P1 * ipow(Q1, DIM - 1);
+      constexpr int per = DIM * DIM * n1 + (PRES ? np1 : 0);
+      for (int t = tid; t < nc * per; t += nth) {
+        T* cb = buf + (t / per) * CS;
+        int k = t % per;
+        if (k < DIM * DIM * n1) {
+          const int c = k / (DIM * n1), j = (k / n1) % DIM, o = k % n1;
+          const T* st = cb + (S1 + DIM + DIM * c) * NB;  // st_c0 .. st_c(DIM-1)
+          T* dst = cb + (TX + DIM * c + j) * NB;
+          if (j == 0) {
+            axis_op<T>(dst, cb + (S1 + c) * NB, sV, st, sD, N1, true, 0, Q1, Q1,
+                       e2, N1, o);
+          } else {
+            axis_op<T>(dst, st + j * NB, sV, nullptr, nullptr, N1, true, 0, Q1,
+                       Q1, e2, N1, o);
+          }
+        } else {
+          k -= DIM * DIM * n1;
+          axis_op<T>(cb + (TX + DIM * DIM) * NB, cb + (S1 + DIM + DIM * DIM) * NB,
+                     sVp, nullptr, nullptr, P1, true, 0, Q1, Q1, e2, P1, k);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- integration, stage y: 3D e_c = Vy^T a_c + Dy^T b_c, f_c = Vy^T cz_c
+    //      into IN; 2D out_c = Vy^T a_c + Dy^T b_c into IN -------------------
+    {
+      constexpr int TX = DIM == 3 ? S2 : F;
+      constexpr int e2 = DIM == 3 ? Q1 : 1;
+      constexpr int n2 = N1 * N1 * (DIM == 3 ? Q1 : 1);
+      constexpr int np2 = P1 * P1 * (DIM == 3 ? Q1 : 1);
+      constexpr int NO = DIM == 3 ? 2 : 1;  // outputs per component
+      constexpr int per = DIM * NO * n2 + (PRES ? np2 : 0);
+      for (int t = tid; t < nc * per; t += nth) {
+        T* cb = buf + (t / per) * CS;
+        int k = t % per;
+        if (k < DIM * NO * n2) {
+          const int c = k / (NO * n2), j = (k / n2) % NO, o = k % n2;
+          const T* src = cb + (TX + DIM * c) * NB;
+          T* dst = cb + (IN + NO * c + j) * NB;
+          if (j == 0) {
+            axis_op<T>(dst, src, sV, src + NB, sD, N1, true, 1, N1, Q1, e2, N1,
+                       o);
+          } else {
+            axis_op<T>(dst, src + 2 * NB, sV, nullptr, nullptr, N1, true, 1, N1,
+                       Q1, e2, N1, o);
+          }
+        } else {
+          k -= DIM * NO * n2;
+          axis_op<T>(cb + (IN + NO * DIM) * NB, cb + (TX + DIM * DIM) * NB, sVp,
+                     nullptr, nullptr, P1, true, 1, P1, Q1, e2, P1, k);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- integration, stage z (3D): out_c = Vz^T e_c + Dz^T f_c into S1 -----
+    if constexpr (DIM == 3) {
+      constexpr int per = DIM * NL + (PRES ? NP : 0);
+      for (int t = tid; t < nc * per; t += nth) {
+        T* cb = buf + (t / per) * CS;
+        int k = t % per;
+        if (k < DIM * NL) {
+          const int c = k / NL, o = k % NL;
+          axis_op<T>(cb + (S1 + c) * NB, cb + (IN + 2 * c) * NB, sV,
+                     cb + (IN + 2 * c + 1) * NB, sD, N1, true, 2, N1, N1, Q1, N1,
+                     o);
+        } else {
+          k -= DIM * NL;
+          axis_op<T>(cb + (S1 + DIM) * NB, cb + (IN + 2 * DIM) * NB, sVp, nullptr,
+                     nullptr, P1, true, 2, P1, P1, Q1, P1, k);
+        }
+      }
+      __syncthreads();
+    }
+  } else if constexpr (!MDOT) {
+    // ---- dropped integration: out_c = value_c, already in place at S1 + c
+    //      (NL = NQ); out_p = prow ------------------------------------------
+    for (int t = tid; t < nc * NP; t += nth) {
+      T* cb = buf + (t / NP) * CS;
+      cb[(OUT + DIM) * NB + t % NP] = cb[(S1 + DIM + DIM * DIM) * NB + t % NP];
+    }
+    __syncthreads();
+  } else {
+    // ---- dense cell matrix: out = M89 x, x = [u_0 .. u_(DIM-1) | p] ------
+    for (int t = tid; t < nc * LDX; t += nth) {
+      T* cb = buf + (t / LDX) * CS;
+      const int k = t % LDX;
+      T acc = T(0);
+      for (int j = 0; j < DIM * NL; ++j)
+        acc += sM[k * LDX + j] * cb[(IN + j / NL) * NB + j % NL];
+      for (int j = 0; j < NP; ++j)
+        acc += sM[k * LDX + DIM * NL + j] * cb[(IN + NI) * NB + j];
+      cb[(OUT + (k < DIM * NL ? k / NL : DIM)) * NB + (k < DIM * NL ? k % NL : k - DIM * NL)] = acc;
+    }
+    __syncthreads();
+  }
+
+  // ---- output: atomic adds into the nodal output, or the cell block (or,
+  //      without kPhScatter, plain stores of the owned dofs) ----------------
+  constexpr bool SCATTER = (PH & kPhScatter) != 0;
   for (int t = tid; t < nc * LDX; t += nth) {
-    const int cell = t / LDX;
-    const int k = t % LDX;
+    const int cell = LAT ? t % nc : t / LDX;
+    const int k = LAT ? t / nc : t % LDX;
     const long long e = c0 + cell;
     const T* cb = buf + cell * CS;
     if (k < DIM * NL) {
@@ -475,17 +659,48 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
       const T v = cb[(OUT + c) * NB + l];
       if constexpr (DST == kOutBlock) {
         out_u[e * LDX + k] = v;
-      } else {
+      } else if constexpr (LAT) {
+        atomicAdd(out_u + c * n_u + lattice_dof<N1>(e, l, pa.ncx, pa.ncy), v);
+      } else if constexpr (SCATTER) {
         atomicAdd(out_u + c * n_u + cell_u[e * NL + l], v);
+      } else {
+        if (owned<DIM, N1>(l)) out_u[c * n_u + cell_u[e * NL + l]] = v;
       }
     } else {
       const int l = k - DIM * NL;
       const T v = cb[(OUT + DIM) * NB + l];
       if constexpr (DST == kOutBlock) {
         out_u[e * LDX + k] = v;
-      } else {
+      } else if constexpr (LAT) {
+        atomicAdd(out_p + lattice_dof<P1>(e, l, pa.ncx, pa.ncy), v);
+      } else if constexpr (SCATTER) {
         atomicAdd(out_p + cell_p[e * NP + l], v);
+      } else {
+        if (owned<DIM, P1>(l)) out_p[cell_p[e * NP + l]] = v;
       }
+    }
+  }
+}
+
+// K6: add a cell-major (E, LDX) block, LDX = DIM NL + NP, into the nodal
+// output through the cell tables, one thread per block entry (consecutive
+// threads read consecutive entries).
+template <int DIM, int NL, int NP, typename T>
+__global__ void __launch_bounds__(256)
+scatter_cells_kernel(const T* __restrict__ block, const int32_t* __restrict__ cell_u,
+                     const int32_t* __restrict__ cell_p, T* __restrict__ out_u,
+                     T* __restrict__ out_p, long long n_u, long long n_cells) {
+  constexpr int LDX = DIM * NL + NP;
+  const long long n = n_cells * LDX;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long e = i / LDX;
+    const int k = (int)(i % LDX);
+    const T v = block[i];
+    if (k < DIM * NL) {
+      atomicAdd(out_u + (k / NL) * n_u + cell_u[e * NL + k % NL], v);
+    } else {
+      atomicAdd(out_p + cell_p[e * NP + k - DIM * NL], v);
     }
   }
 }
@@ -531,14 +746,9 @@ auto pick_kernel(bool pres) {
               : coupled_cell_kernel<DIM, N1, Q1, P1, false, SRC, STREAM, DST, T>;
 }
 
+// The kernel's 1D tables and per-step scalars from the host doubles.
 template <int DIM, int N1, int Q1, int P1, typename T>
-int launch_cells(int mode, int pres, const void* u, const void* p, const void* us,
-                 const int32_t* cell_u, const int32_t* cell_p,
-                 const uint8_t* mask_u, const uint8_t* mask_p, const void* rho,
-                 const void* mu, const void* damp, void* out_u, void* out_p,
-                 long long n_u, long long n_cells, const double* tab,
-                 const double* scal, cudaStream_t stream) {
-  using S = Shape<DIM, N1, Q1, P1>;
+Tables<T> make_tables(const double* tab) {
   Tables<T> t{};
   for (int q = 0; q < Q1; ++q) {
     for (int i = 0; i < N1; ++i) {
@@ -551,12 +761,51 @@ int launch_cells(int mode, int pres, const void* u, const void* p, const void* u
   const int off = 2 * Q1 * N1 + Q1 * P1 + Q1;
   for (int a = 0; a < DIM; ++a) t.inv_h[a] = (T)tab[off + a];
   t.vol = (T)tab[off + DIM];
-  Scalars<T> s{(T)scal[0], (T)scal[1], (T)scal[2], (T)scal[3],
-               (T)scal[4], (T)scal[5], (T)scal[6]};
+  return t;
+}
+
+template <typename T>
+Scalars<T> make_scalars(const double* scal) {
+  return Scalars<T>{(T)scal[0], (T)scal[1], (T)scal[2], (T)scal[3],
+                    (T)scal[4], (T)scal[5], (T)scal[6]};
+}
+
+// Launch one instance of the cell kernel: CPB cells per block in 32 KB of
+// cell buffers, plus the staged tables and `extra` elements (M89).
+template <int DIM, int N1, int Q1, int P1, typename T, typename K>
+int launch_instance(K kern, int extra, const void* u, const void* p, const void* us,
+                    const int32_t* cell_u, const int32_t* cell_p,
+                    const uint8_t* mask_u, const uint8_t* mask_p, const void* rho,
+                    const void* mu, const void* damp, void* out_u, void* out_p,
+                    long long n_u, long long n_cells, const double* tab,
+                    const double* scal, ProbeArgs<T> pa, cudaStream_t stream) {
+  using S = Shape<DIM, N1, Q1, P1>;
   const size_t cell_bytes = (size_t)S::SLOTS * S::NB * sizeof(T);
   int cpb = (int)(32768 / cell_bytes);
   if (cpb < 1) cpb = 1;
-  const size_t smem = 3 * kMaxTab * sizeof(T) + cpb * cell_bytes;
+  const size_t smem = (3 * kMaxTab + extra) * sizeof(T) + cpb * cell_bytes;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n_cells > 0) {
+    const long long grid = (n_cells + cpb - 1) / cpb;
+    kern<<<(unsigned)grid, kThreads, smem, stream>>>(
+        (const T*)u, (const T*)p, (const T*)us, cell_u, cell_p, mask_u, mask_p,
+        (const T*)rho, (const T*)mu, (const T*)damp, (T*)out_u, (T*)out_p, n_u,
+        n_cells, cpb, make_tables<DIM, N1, Q1, P1, T>(tab), make_scalars<T>(scal), pa);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int DIM, int N1, int Q1, int P1, typename T>
+int launch_cells(int mode, int pres, const void* u, const void* p, const void* us,
+                 const int32_t* cell_u, const int32_t* cell_p,
+                 const uint8_t* mask_u, const uint8_t* mask_p, const void* rho,
+                 const void* mu, const void* damp, void* out_u, void* out_p,
+                 long long n_u, long long n_cells, const double* tab,
+                 const double* scal, cudaStream_t stream) {
   // nodal pressure in and out exactly when the entry has pressure rows
   const bool p_in = mode == 0 || mode == 3 ? (bool)pres : false;
   const bool p_out = mode == 0 ? (bool)pres : false;
@@ -571,18 +820,63 @@ int launch_cells(int mode, int pres, const void* u, const void* p, const void* u
     kern = pick_kernel<DIM, N1, Q1, P1, kSrcTable, kStreamDofs, kOutBlock, T>(pres);
   else if (mode != 0)
     return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  return launch_instance<DIM, N1, Q1, P1, T>(
+      kern, 0, u, p, us, cell_u, cell_p, mask_u, mask_p, rho, mu, damp, out_u,
+      out_p, n_u, n_cells, tab, scal, ProbeArgs<T>{nullptr, 0, 0, 0}, stream);
+}
+
+// K12/K13 and K11: 3D Q2/Q1 with pressure, nodal in and out, constant
+// coefficients; a phase mask PH (table source) or the lattice source.
+template <typename T>
+int launch_variant(int phases, int lattice, const void* u, const void* p,
+                   const void* us, const int32_t* cell_u, const int32_t* cell_p,
+                   const uint8_t* mask_u, const uint8_t* mask_p, void* out_u,
+                   void* out_p, long long n_u, long long n_cells, const double* tab,
+                   const double* scal, ProbeArgs<T> pa, cudaStream_t stream) {
+  auto go = [&](auto kern, int extra) {
+    return launch_instance<3, 3, 3, 2, T>(kern, extra, u, p, us, cell_u, cell_p, mask_u,
+                                          mask_p, nullptr, nullptr, nullptr, out_u,
+                                          out_p, n_u, n_cells, tab, scal, pa, stream);
+  };
+#define ADAFLO_PH(ph) coupled_cell_kernel<3, 3, 3, 2, true, kSrcTable, kStreamDofs, kOutScatter, T, ph>
+  if (p == nullptr || out_p == nullptr || us == nullptr) return (int)cudaErrorInvalidValue;
+  if (lattice) {
+    if (phases != kPhAll) return (int)cudaErrorInvalidValue;
+    return go(coupled_cell_kernel<3, 3, 3, 2, true, kSrcLattice, kStreamDofs, kOutScatter, T>, 0);
   }
-  if (n_cells > 0) {
-    const long long grid = (n_cells + cpb - 1) / cpb;
-    kern<<<(unsigned)grid, kThreads, smem, stream>>>(
-        (const T*)u, (const T*)p, (const T*)us, cell_u, cell_p, mask_u, mask_p,
-        (const T*)rho, (const T*)mu, (const T*)damp, (T*)out_u, (T*)out_p, n_u,
-        n_cells, cpb, t, s);
+  if (phases != kPhAll && (cell_u == nullptr || cell_p == nullptr)) return (int)cudaErrorInvalidValue;
+  switch (phases) {
+    case kPhAll: return go(ADAFLO_PH(kPhAll), 0);
+    case kPhAll & ~kPhGather: return go(ADAFLO_PH(kPhAll & ~kPhGather), 0);
+    case kPhAll & ~kPhEvalU: return go(ADAFLO_PH(kPhAll & ~kPhEvalU), 0);
+    case kPhAll & ~kPhEvalUs: return go(ADAFLO_PH(kPhAll & ~kPhEvalUs), 0);
+    case kPhAll & ~kPhQPoint: return go(ADAFLO_PH(kPhAll & ~kPhQPoint), 0);
+    case kPhAll & ~kPhIntegrate: return go(ADAFLO_PH(kPhAll & ~kPhIntegrate), 0);
+    case kPhAll & ~kPhScatter: return go(ADAFLO_PH(kPhAll & ~kPhScatter), 0);
+    case kPhGather: return go(ADAFLO_PH(kPhGather), 0);
+    case kPhGather | kPhScatter: return go(ADAFLO_PH(kPhGather | kPhScatter), 0);
+    case kPhContig | kPhScatter: return go(ADAFLO_PH(kPhContig | kPhScatter), 0);
+    case kPhGather | kPhMDot | kPhScatter:
+      if (pa.M == nullptr) return (int)cudaErrorInvalidValue;
+      return go(ADAFLO_PH(kPhGather | kPhMDot | kPhScatter), 89 * 89);
+    case kPhGather | kPhEvalU | kPhEvalUs | kPhScatter:
+      return go(ADAFLO_PH(kPhGather | kPhEvalU | kPhEvalUs | kPhScatter), 0);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef ADAFLO_PH
+}
+
+template <typename T>
+int launch_scatter(const void* block, const int32_t* cell_u, const int32_t* cell_p,
+                   void* out_u, void* out_p, long long n_u, long long n_cells,
+                   cudaStream_t stream) {
+  const long long n = n_cells * (27 * 3 + 8);
+  if (n == 0) return 0;
+  long long blocks = (n + 255) / 256;
+  if (blocks > (1 << 20)) blocks = 1 << 20;
+  auto kern = scatter_cells_kernel<3, 27, 8, T>;
+  kern<<<(unsigned)blocks, 256, 0, stream>>>((const T*)block, cell_u, cell_p, (T*)out_u,
+                                             (T*)out_p, n_u, n_cells);
   return (int)cudaGetLastError();
 }
 
@@ -668,6 +962,45 @@ int adaflo_coupled_epilogue(int dtype, void* out_u, void* out_p,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// K12/K13 (lattice 0) and K11 (lattice 1): 3D Q2/Q1, out_u/out_p (nodal,
+// zeroed by the caller) += the apply of nodal u, p, u* with constant
+// coefficients, its phases the mask `phases` (kPh* bits; one of the probe
+// variants). K11 takes phases = kPhAll and reads no cell table: its
+// addresses come from the cells per axis ncx, ncy of the uniform,
+// non-periodic lattice. M: M89 (89 x 89, row-major) for kPhMDot, else null.
+// n_p: pressure length (read by kPhContig). tab, scal: as adaflo_coupled_cells.
+int adaflo_coupled_variant(int dtype, int phases, int lattice, const void* u,
+                           const void* p, const void* us, const int32_t* cell_u,
+                           const int32_t* cell_p, const uint8_t* mask_u,
+                           const uint8_t* mask_p, const void* M, void* out_u,
+                           void* out_p, long long n_u, long long n_p,
+                           long long n_cells, int ncx, int ncy, const double* tab,
+                           const double* scal, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return launch_variant<double>(phases, lattice, u, p, us, cell_u, cell_p, mask_u,
+                                  mask_p, out_u, out_p, n_u, n_cells, tab, scal,
+                                  ProbeArgs<double>{(const double*)M, n_p, ncx, ncy}, st);
+  if (dtype == 0)
+    return launch_variant<float>(phases, lattice, u, p, us, cell_u, cell_p, mask_u,
+                                 mask_p, out_u, out_p, n_u, n_cells, tab, scal,
+                                 ProbeArgs<float>{(const float*)M, n_p, ncx, ncy}, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6, 3D Q2/Q1: out_u (3, n_u) and out_p += the cell-major block (E, 89)
+// through the cell tables.
+int adaflo_scatter_cells(int dtype, const void* block, const int32_t* cell_u,
+                         const int32_t* cell_p, void* out_u, void* out_p, long long n_u,
+                         long long n_cells, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return launch_scatter<double>(block, cell_u, cell_p, out_u, out_p, n_u, n_cells, st);
+  if (dtype == 0)
+    return launch_scatter<float>(block, cell_u, cell_p, out_u, out_p, n_u, n_cells, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

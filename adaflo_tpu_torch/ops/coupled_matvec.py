@@ -23,6 +23,19 @@ kernel (``csrc/coupled_matvec.cu``), with these entries:
   (E, n_cols), constrained entries of u and p read as zero; p=None gives
   the velocity block (E, dim n_u).
 
+The measurement probes of the JAX package's ``scripts/`` have entries of
+their own, 3D Q2/Q1 only (the probes' configuration), driven by
+``adaflo_tpu_torch/scripts/``:
+
+- ``coupled_apply_ablated`` (K12 ``probe_pr_phases.py``, K13
+  ``probe_pr_parts.py``): nodal in and out with the phases of a variant
+  (``VARIANTS``), a compile-time phase mask of the cell kernel;
+- ``coupled_apply_lattice`` (K11 ``probe_pr_grouped.py``): K1's function with
+  constant coefficients, its addresses computed from the lattice
+  coordinates in place of the cell tables;
+- ``scatter_cells`` (K6 ``probe_pr.py``): a cell block added into the nodal
+  vectors through the cell tables with atomicAdd.
+
 n_cols = dim n_u + n_p per cell, the velocity components first. Nodal
 vectors: u (dim, n_u), p (n_p,), the frozen Newton linearization point u*
 (dim, n_u). A wrapper given CUDA tensors launches the kernel or raises;
@@ -59,15 +72,46 @@ launches = {
     "coupled_apply_cells_qfields_velocity": 0,
     "coupled_apply_gather": 0,
     "coupled_apply_gather_velocity": 0,
+    "coupled_apply_lattice": 0,
+    "scatter_cells": 0,
 }
 plain_calls = {
     "coupled_apply_plain": 0,
     "coupled_apply_cells_plain": 0,
     "coupled_apply_gather_plain": 0,
+    "coupled_apply_ablated_plain": 0,
+    "scatter_cells_plain": 0,
 }
 
 # the kernel entry (mode of adaflo_coupled_cells in csrc/coupled_matvec.cu)
 MODE_NODAL, MODE_CELLS, MODE_CELLS_QFIELDS, MODE_GATHER = 0, 1, 2, 3
+
+# phases of the cell kernel (kPh* in csrc/coupled_matvec.cu) and the probe
+# variants built from them: K12's minus-one-phase ablations
+# (scripts/probe_pr_phases.py) and K13's whole-apply ablations
+# (scripts/probe_pr_parts.py); "noscatter" is K12's "minus_scatter"
+PH_GATHER, PH_EVAL_U, PH_EVAL_USTAR, PH_QPOINT, PH_INTEGRATE, PH_SCATTER = (
+    1, 2, 4, 8, 16, 32,
+)
+PH_ALL, PH_CONTIG, PH_MDOT = 63, 64, 128
+PHASE_NAMES = {
+    "gather": PH_GATHER, "eval_u": PH_EVAL_U, "eval_ustar": PH_EVAL_USTAR,
+    "qpoint": PH_QPOINT, "integrate": PH_INTEGRATE, "scatter": PH_SCATTER,
+}
+K12_VARIANTS = {"full": PH_ALL} | {
+    f"minus_{name}": PH_ALL & ~bit for name, bit in PHASE_NAMES.items()
+} | {"dma_only": PH_GATHER}
+K13_VARIANTS = {
+    "datapath": PH_GATHER | PH_SCATTER,
+    "noshift": PH_CONTIG | PH_SCATTER,
+    "mdot": PH_GATHER | PH_MDOT | PH_SCATTER,
+    "evdots": PH_GATHER | PH_EVAL_U | PH_EVAL_USTAR | PH_SCATTER,
+    "full": PH_ALL,
+    "noscatter": PH_ALL & ~PH_SCATTER,
+}
+VARIANTS = K12_VARIANTS | K13_VARIANTS
+for _name in VARIANTS:
+    launches[f"coupled_apply_ablated[{_name}]"] = 0
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "coupled_matvec.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adaflo_tpu_torch"
@@ -218,8 +262,13 @@ class CoupledCells:
     (E, n_loc_p): int32 tables. mask_u (dim, n_u) / mask_p (n_p,): bool,
     True on constrained (Dirichlet) dofs, or None."""
 
-    def __init__(self, ev_u, ev_p, cell_u, cell_p, mask_u, mask_p, device):
+    def __init__(self, ev_u, ev_p, cell_u, cell_p, mask_u, mask_p, device,
+                 lattice=None):
+        """lattice: (cells per axis, periodic per axis) of the uniform
+        lattice the tables number, for the table-free entry (K11), or
+        None."""
         self.dim = ev_u.dim
+        self.lattice = lattice
         self.degree = ev_u.n_1d - 1
         if (self.dim, self.degree) not in ((3, 2), (2, 2), (3, 3)):
             raise NotImplementedError(
@@ -268,6 +317,42 @@ class CoupledCells:
             np.float64,
         )
         self._dense = {}
+        self._probe = {}
+        self._m89 = {}
+
+    def probe_tables(self, device, dtype, sc: Optional[ApplyScalars] = None):
+        """The per-axis-product matrices of the probe variants' plain
+        version as tensors on (device, dtype): Vq (n_q, n_u), Gref (dim, n_q,
+        n_u) reference derivatives on the unit cell, Vpq (n_q, n_p), JxW
+        (n_q,), 1/h (dim,); and with sc, M89 (n_cols, n_cols) of
+        combine_linear, contiguous (the kernel's kPhMDot reads it)."""
+        key = (device, dtype)
+        if key not in self._probe:
+            ev_u, ev_p, dim = self.ev_u, self.ev_p, self.dim
+            Vu, Du = ev_u.V_np, ev_u.D_np
+            mats = {
+                "Vq": _tensor_nd([Vu] * dim),
+                "Gref": np.stack([
+                    _tensor_nd([Du if dim - 1 - ax == a else Vu for ax in range(dim)])
+                    for a in range(dim)
+                ]),
+                "Vpq": _tensor_nd([ev_p.V_np] * dim),
+                "jxw": np.asarray(ev_u.jxw_np, np.float64),
+                "inv_h": 1.0 / np.asarray(ev_u.h, np.float64),
+            }
+            self._probe[key] = {
+                k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in mats.items()
+            }
+        out = dict(self._probe[key])
+        if sc is not None:
+            mkey = (device, dtype, sc)
+            if mkey not in self._m89:
+                M89 = combine_linear(build_tables(self.ev_u, self.ev_p), sc)[0]
+                self._m89[mkey] = torch.as_tensor(
+                    np.ascontiguousarray(M89), dtype=dtype, device=device
+                )
+            out["M89"] = self._m89[mkey]
+        return out
 
     def dense(self, device, dtype):
         """Dense tables of the plain version as tensors on (device, dtype)."""
@@ -430,6 +515,150 @@ def coupled_apply_gather_plain(u, p, u_star, cells: CoupledCells, sc: ApplyScala
     return out if p is not None else out[:, : cells.dim * cells.ev_u.n_local]
 
 
+def _owned(n1: int, dim: int) -> np.ndarray:
+    """Local dofs (n1 per axis, x fastest) that a cell owns: no local
+    coordinate on the cell's high face (the kernel's owned())."""
+    loc = np.arange(n1**dim)
+    own = np.ones(n1**dim, bool)
+    for a in range(dim):
+        own &= (loc // n1**a) % n1 != n1 - 1
+    return own
+
+
+def coupled_apply_ablated_plain(u, p, u_star, cells: CoupledCells, sc: ApplyScalars,
+                                phases: str):
+    """K12/K13 in plain PyTorch: the cell kernel with the phases of VARIANTS
+    [phases], each dropped phase replaced as the kernel replaces it, step by
+    step on the kernel's own intermediates (final fields with reference
+    gradients, the q-point rows with JxW and 1/h folded in) from the dense
+    per-axis-product tables. Nodal (out_u, out_p), no constraint rows."""
+    plain_calls["coupled_apply_ablated_plain"] += 1
+    ph = VARIANTS[phases]
+    dim, E = cells.dim, cells.n_cells
+    nl, npl, nq = cells.ev_u.n_local, cells.ev_p.n_local, cells.n_q
+    T = cells.probe_tables(u.device, u.dtype, sc if ph & PH_MDOT else None)
+    cu = cells.cell_u.to(u.device).long()
+    cp = cells.cell_p.to(u.device).long()
+    mask_u = None if cells.mask_u is None else cells.mask_u.to(u.device)
+    mask_p = None if cells.mask_p is None else cells.mask_p.to(u.device)
+    uu = u if mask_u is None else u.masked_fill(mask_u, 0.0)
+    pp = p if mask_p is None else p.masked_fill(mask_p, 0.0)
+
+    # gather: through the tables, at contiguous addresses, or (dropped) the
+    # cell's first dof spread as v (l + 1) over its local dofs l
+    ramp_u = ramp_p = 1.0
+    if ph & PH_CONTIG:
+        e = torch.arange(E, device=u.device)[:, None]
+        iu = (e * nl + torch.arange(nl, device=u.device)) % u.shape[1]
+        ip = (e * npl + torch.arange(npl, device=u.device)) % p.shape[0]
+    elif ph & PH_GATHER:
+        iu, ip = cu, cp
+    else:
+        iu = cu[:, :1].expand(E, nl)
+        ip = cp[:, :1].expand(E, npl)
+        ramp_u = torch.arange(1, nl + 1, dtype=u.dtype, device=u.device)
+        ramp_p = torch.arange(1, npl + 1, dtype=u.dtype, device=u.device)
+    xu = torch.stack([uu[c][iu] * ramp_u for c in range(dim)], dim=1)  # (E, dim, nl)
+    xs = torch.stack([u_star[c][iu] * ramp_u for c in range(dim)], dim=1)
+    xp = pp[ip] * ramp_p  # (E, npl)
+
+    if ph & PH_MDOT:
+        x = torch.cat([xu.reshape(E, -1), xp], dim=1)
+        out = x @ T["M89"].T
+        ou, op = out[:, : dim * nl].reshape(E, dim, nl), out[:, dim * nl :]
+    else:
+        # final fields (E, dim, dim + 1, n_q): value, reference derivatives
+        def evaluate(xc):
+            return torch.stack(
+                [xc @ T["Vq"].T] + [xc @ T["Gref"][d].T for d in range(dim)], dim=2
+            )
+
+        def copied(xc):
+            return xc[:, :, None, :nq].expand(E, dim, dim + 1, nq)
+
+        Fu = evaluate(xu) if ph & PH_EVAL_U else copied(xu)
+        Fs = evaluate(xs) if ph & PH_EVAL_USTAR else copied(xs)
+        if ph & PH_EVAL_U:
+            Fp = xp @ T["Vpq"].T
+        else:
+            Fp = xp[:, torch.arange(nq, device=u.device) % npl]
+        inv_h, jxw = T["inv_h"], T["jxw"]
+        if ph & PH_QPOINT:
+            uv, sv = Fu[:, :, 0], Fs[:, :, 0]
+            ug = Fu[:, :, 1:] * inv_h[None, None, :, None]
+            sg = Fs[:, :, 1:] * inv_h[None, None, :, None]
+            div = sum(ug[:, a, a] for a in range(dim))
+            div_s = sum(sg[:, a, a] for a in range(dim))
+            value, stress = [], []
+            for c in range(dim):
+                conv = sc.beta * (div * sv[:, c] + div_s * uv[:, c])
+                for e_ in range(dim):
+                    conv = conv + sv[:, e_] * ug[:, c, e_] + uv[:, e_] * sg[:, c, e_]
+                v = (sc.rho * sc.weight - sc.damping) * uv[:, c] + sc.tau1 * sc.rho * conv
+                value.append(v * jxw)
+                row = []
+                for d in range(dim):
+                    st = sc.tau1 * sc.mu * (ug[:, c, d] + ug[:, d, c])
+                    if c == d:
+                        st = st + sc.tau_grad_div * div - Fp
+                    row.append(st * jxw * inv_h[d])
+                stress.append(torch.stack(row, dim=1))
+            value = torch.stack(value, dim=1)  # (E, dim, n_q)
+            stress = torch.stack(stress, dim=1)  # (E, dim, dim, n_q)
+            prow = -div * jxw
+        else:
+            value, stress, prow = Fu[:, :, 0], Fs[:, :, 1:], Fp
+        if ph & PH_INTEGRATE:
+            ou = value @ T["Vq"] + sum(
+                stress[:, :, d] @ T["Gref"][d] for d in range(dim)
+            )
+            op = prow @ T["Vpq"]
+        else:
+            ou, op = value[:, :, :nl], prow[:, :npl]
+
+    out_u, out_p = torch.zeros_like(u), torch.zeros_like(p)
+    if ph & PH_SCATTER:
+        for c in range(dim):
+            out_u[c].index_add_(0, cu.reshape(-1), ou[:, c].reshape(-1))
+        out_p.index_add_(0, cp.reshape(-1), op.reshape(-1))
+    else:
+        n1 = cells.degree + 1
+        own_u = torch.as_tensor(_owned(n1, dim), device=u.device)
+        own_p = torch.as_tensor(_owned(n1 - 1, dim), device=u.device)
+        for c in range(dim):
+            out_u[c][cu[:, own_u].reshape(-1)] = ou[:, c][:, own_u].reshape(-1)
+        out_p[cp[:, own_p].reshape(-1)] = op[:, own_p].reshape(-1)
+    return out_u, out_p
+
+
+def scatter_cells_plain(block, cells: CoupledCells, out_u, out_p):
+    """K6 in plain PyTorch: index_add_ of the (E, n_cols) block into out_u
+    and out_p (in place) through the cell tables; returns (out_u, out_p)."""
+    plain_calls["scatter_cells_plain"] += 1
+    dim, nl = cells.dim, cells.ev_u.n_local
+    cu = cells.cell_u.to(block.device).long().reshape(-1)
+    cp = cells.cell_p.to(block.device).long().reshape(-1)
+    for c in range(dim):
+        out_u[c].index_add_(0, cu, block[:, c * nl : (c + 1) * nl].reshape(-1))
+    out_p.index_add_(0, cp, block[:, dim * nl :].reshape(-1))
+    return out_u, out_p
+
+
+def lattice_cell_dofs(n_cells_axis, degree: int) -> np.ndarray:
+    """(E, (degree+1)^3) int64: the dof of each cell's local dof on the
+    uniform non-periodic 3D lattice, from the cell's lattice coordinates,
+    as the K11 kernel computes it (lattice_dof in csrc/coupled_matvec.cu);
+    equals LatticeOps.cell_dof_table() there."""
+    ncx, ncy, ncz = n_cells_axis
+    n1 = degree + 1
+    e = np.arange(ncx * ncy * ncz)[:, None]
+    cx, cy, cz = e % ncx, (e // ncx) % ncy, e // (ncx * ncy)
+    loc = np.arange(n1**3)[None, :]
+    lx, ly, lz = loc % n1, (loc // n1) % n1, loc // (n1 * n1)
+    nx, ny = degree * ncx + 1, degree * ncy + 1
+    return ((degree * cz + lz) * ny + degree * cy + ly) * nx + degree * cx + lx
+
+
 # ---------------------------------------------------------------------------
 # the CUDA library
 # ---------------------------------------------------------------------------
@@ -480,6 +709,10 @@ def bind(lib):
     lib.adaflo_coupled_cells.restype = i
     lib.adaflo_coupled_epilogue.argtypes = [i] + [vp] * 6 + [ll, ll, i, d, vp, vp]
     lib.adaflo_coupled_epilogue.restype = i
+    lib.adaflo_coupled_variant.argtypes = [i, i, i] + [vp] * 10 + [ll, ll, ll, i, i, vp, vp, vp]
+    lib.adaflo_coupled_variant.restype = i
+    lib.adaflo_scatter_cells.argtypes = [i] + [vp] * 5 + [ll, ll, vp]
+    lib.adaflo_scatter_cells.restype = i
     return lib
 
 
@@ -674,3 +907,122 @@ def coupled_apply_gather(u, p, u_star, cells: CoupledCells, sc: ApplyScalars):
     launches["coupled_apply_gather" + ("_velocity" if p is None else "")] += 1
     return out
 
+
+def _probe_cells(cells: CoupledCells, what: str):
+    if (cells.dim, cells.degree) != (3, 2):
+        raise NotImplementedError(
+            f"{what}: instanced for 3D Q2/Q1 only (the probes' configuration), "
+            f"got dim={cells.dim}, degree={cells.degree}"
+        )
+
+
+def _launch_variant(phases: int, lattice, u, p, u_star, cells, sc, M, out_u, out_p):
+    """One launch of a probe instance of the cell kernel (K12/K13 by phase
+    mask, or K11 with lattice = (ncx, ncy) and no cell tables)."""
+    lib = load_library()
+    scal = np.asarray(
+        [sc.beta, sc.weight, sc.tau1, sc.rho, sc.mu, sc.damping, sc.tau_grad_div],
+        np.float64,
+    )
+    ncx, ncy = lattice if lattice is not None else (0, 0)
+    rc = lib.adaflo_coupled_variant(
+        1 if u.dtype == torch.float64 else 0, phases, 0 if lattice is None else 1,
+        _ptr(u), _ptr(p), _ptr(u_star),
+        None if lattice is not None else _ptr(cells.cell_u),
+        None if lattice is not None else _ptr(cells.cell_p),
+        _ptr(cells._mask_u8), _ptr(cells._mask_p8), _ptr(M), _ptr(out_u), _ptr(out_p),
+        u.shape[1], p.shape[0], cells.n_cells, ncx, ncy,
+        cells.tab_host.ctypes.data, scal.ctypes.data, _stream(u.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"coupled apply probe kernel launch failed (CUDA error {rc})")
+
+
+def coupled_apply_ablated(u, p, u_star, cells: CoupledCells, sc: ApplyScalars, phases: str):
+    """K12/K13: the coupled apply (nodal in and out, constant coefficients,
+    no constraint rows) with the phases of VARIANTS[phases]; a dropped
+    phase is replaced by copies of its inputs (csrc/coupled_matvec.cu,
+    kPh*). 3D Q2/Q1. Returns (out_u, out_p)."""
+    if phases not in VARIANTS:
+        raise ValueError(f"unknown probe variant {phases!r}: one of {sorted(VARIANTS)}")
+    _probe_cells(cells, "coupled_apply_ablated")
+    _check(u, p, u_star, cells, None)
+    if p is None:
+        raise ValueError("coupled_apply_ablated needs a pressure vector")
+    if u.device.type == "cpu":
+        return coupled_apply_ablated_plain(u, p, u_star, cells, sc, phases)
+    if not u.is_cuda:
+        raise RuntimeError(f"coupled apply: no kernel for device {u.device}")
+    ph = VARIANTS[phases]
+    M = cells.probe_tables(u.device, u.dtype, sc)["M89"] if ph & PH_MDOT else None
+    out_u, out_p = torch.zeros_like(u), torch.zeros_like(p)
+    _launch_variant(ph, None, u, p, u_star, cells, sc, M, out_u, out_p)
+    launches[f"coupled_apply_ablated[{phases}]"] += 1
+    return out_u, out_p
+
+
+def coupled_apply_lattice(u, p, u_star, cells: CoupledCells, sc: ApplyScalars):
+    """K11: coupled_apply with constant coefficients and identity rows (+u /
+    -p on the constrained dofs) whose kernel reads no cell table: each dof's
+    address comes from the cell's lattice coordinates. The uniform,
+    non-periodic 3D Q2/Q1 lattice only (cells.lattice). Returns (r_u, r_p)."""
+    _probe_cells(cells, "coupled_apply_lattice")
+    if cells.lattice is None:
+        raise ValueError("coupled_apply_lattice: the cells carry no lattice shape")
+    n_cells_axis, periodic = cells.lattice
+    if any(periodic):
+        raise NotImplementedError(
+            "coupled_apply_lattice computes addresses on a non-periodic lattice; "
+            "periodic lattices wrap their cell tables, use coupled_apply"
+        )
+    _check(u, p, u_star, cells, None)
+    if p is None:
+        raise ValueError("coupled_apply_lattice needs a pressure vector")
+    if u.device.type == "cpu":
+        return coupled_apply_plain(u, p, u_star, cells, sc)
+    if not u.is_cuda:
+        raise RuntimeError(f"coupled apply: no kernel for device {u.device}")
+    out_u, out_p = torch.zeros_like(u), torch.zeros_like(p)
+    _launch_variant(PH_ALL, tuple(n_cells_axis[:2]), u, p, u_star, cells, sc, None,
+                    out_u, out_p)
+    launches["coupled_apply_lattice"] += 1
+    _launch_epilogue(u, p, cells, out_u, out_p, True, None, None)
+    return out_u, out_p
+
+
+def scatter_cells(block, cells: CoupledCells, out_u, out_p):
+    """K6: add the cell-major block (E, n_cols) [u_0 .. u_2 | p] into the
+    nodal out_u (dim, n_u) and out_p (n_p,) in place through the cell tables
+    (atomicAdd). 3D Q2/Q1. Returns (out_u, out_p)."""
+    _probe_cells(cells, "scatter_cells")
+    n_cols = cells.dim * cells.ev_u.n_local + cells.ev_p.n_local
+    if block.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"scatter_cells: dtype {block.dtype} not supported")
+    if tuple(block.shape) != (cells.n_cells, n_cols):
+        raise ValueError(
+            f"scatter_cells: the block must be {(cells.n_cells, n_cols)}, got {tuple(block.shape)}"
+        )
+    if out_u.dim() != 2 or out_u.shape[0] != cells.dim or out_u.shape[1] < cells.min_n_u:
+        raise ValueError(f"scatter_cells: out_u must be (dim, n_u), got {tuple(out_u.shape)}")
+    if out_p.dim() != 1 or out_p.shape[0] < cells.min_n_p:
+        raise ValueError("scatter_cells: out_p must be (n_p,) covering the pressure table")
+    for t in (out_u, out_p):
+        if t.device != block.device or t.dtype != block.dtype:
+            raise ValueError("scatter_cells: all tensors need one device and dtype")
+    if not all(t.is_contiguous() for t in (block, out_u, out_p)):
+        raise ValueError("scatter_cells: tensors must be contiguous")
+    if block.device.type == "cpu":
+        return scatter_cells_plain(block, cells, out_u, out_p)
+    if not block.is_cuda:
+        raise RuntimeError(f"scatter_cells: no kernel for device {block.device}")
+    if cells.device != block.device:
+        raise ValueError("scatter_cells: cell tables live on another device")
+    rc = load_library().adaflo_scatter_cells(
+        1 if block.dtype == torch.float64 else 0, _ptr(block), _ptr(cells.cell_u),
+        _ptr(cells.cell_p), _ptr(out_u), _ptr(out_p), out_u.shape[1], cells.n_cells,
+        _stream(block.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"scatter_cells kernel launch failed (CUDA error {rc})")
+    launches["scatter_cells"] += 1
+    return out_u, out_p

@@ -194,6 +194,7 @@ class NavierStokesOperator:
                 mask_u if mask_u.any() else None,
                 mask_p if mask_p.any() else None,
                 self.device,
+                lattice=(tuple(mesh.n_cells_axis), tuple(mesh.periodic)),
             )
         # the JAX operator's _layout_default: "pr" where the resident apply
         # runs, which excludes periodic lattices

@@ -5,8 +5,11 @@ Phases:
   1. device: nvidia-smi name and power limit, CUDA version, kernel build time;
   2. kernels against their plain PyTorch versions, on the card, max-abs error
      over max-abs <= 1e-12 (float64) / 1e-5 (float32), with the time per
-     apply (CUDA events, median of 20 after warm-up) beside the plain
-     version's time and the bound:
+     apply beside the plain version's time and the bound (bytes over the
+     HBM rate against operations over the peak rate of the number type,
+     adaflo_tpu_torch.scripts.PEAK_FLOPS): CUDA events around 20 applies
+     issued back to back, and the median of 20 single applies each waited
+     for (adaflo_tpu_torch.scripts.time_ms);
      - the nodal entries (K1 coupled_apply, K2 coupled_apply_velocity) at
        the 16^3-cell lattice and at the 48^3-cell Q2/Q1 lattice (2,855,668
        dofs), with Dirichlet boundary rows and a pressure-fix dof, in every
@@ -20,6 +23,12 @@ Phases:
      - the operator's routes on the same inputs: K3 behind the lattice
        gather and scatter, and K4 behind the scatter, against K1 (which
        reads the wrapped cell table on the periodic lattice);
+     - the probe instances at 16^3 and 48^3 (3D Q2/Q1 box with Dirichlet
+       rows, float64 and float32), max-abs error over max-abs of the whole
+       output [u | p]: K12's and K13's phase-masked instances
+       (coupled_apply_ablated) against coupled_apply_ablated_plain, K11
+       (coupled_apply_lattice, no cell table) against coupled_apply_plain,
+       K6 (scatter_cells) against scatter_cells_plain;
   3. the slice, each path driven with the launch counts set to 0 before it
      and read after it:
      - the port's Beltrami driver on tests/prms/beltrami_3d.prm in float64
@@ -28,7 +37,13 @@ Phases:
      - the periodic channel application on the uniform 16^3 lattice
        (4,096 cells, Q2/Q1, float64), 3 coupled-Newton BDF-2 steps of
        dt = 0.1, held to Newton convergence in every step, exact no-slip
-       walls and a finite, bounded velocity; it runs K3.
+       walls and a finite, bounded velocity; it runs K3;
+  4. the probes, their path driven with the launch counts set to 0 before it
+     and read after it: each probe driver of adaflo_tpu_torch/scripts
+     (probe_pr_phases K12, probe_pr_parts K13, probe_pr K6 with K3 and K4
+     alone, probe_pr_grouped K11) at the probes' 48^3-cell Q2/Q1 box in
+     float64 and float32: per variant ms/apply, bound and plain ms, K12's
+     phase attribution, K6's index_add_ and lattice-scatter times.
 
 The last line is {"ok": true, "device": {...}}; a "kernels" JSON line and
 the nvidia-smi line come before it. Any failed phase raises and the script
@@ -52,14 +67,16 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}  # outside the tensor cores
 TOL = {"float64": 1e-12, "float32": 1e-5}
 K1_SOURCE = "adaflo_tpu_torch/csrc/coupled_matvec.cu"
 K1_REPLACES = "adaflo_tpu/ops/pallas_matvec.py:1145"  # coupled_vmult_pr2
 K2_REPLACES = "adaflo_tpu/ops/pallas_matvec.py:685"  # coupled_vmult_pr
 K3_REPLACES = "adaflo_tpu/ops/pallas_matvec.py:491"  # coupled_vmult_cells
 K4_REPLACES = "adaflo_tpu/ops/pallas_matvec.py:1364"  # coupled_vmult_parity
+K6_REPLACES = "scripts/probe_pr.py:144"  # ring_scatter
+K11_REPLACES = "scripts/probe_pr_grouped.py:213"  # build_call
+K12_REPLACES = "scripts/probe_pr_phases.py:164"  # apply_fn
+K13_REPLACES = "scripts/probe_pr_parts.py:363"  # run_variant
 BLOCK_ENTRIES = (
     "coupled_apply_cells",
     "coupled_apply_cells_velocity",
@@ -131,79 +148,22 @@ def smi_line() -> str:
     return out.splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
+def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> dict:
+    """{"ms": mean of `reps` back-to-back applies, "call_ms": median of
+    `reps` waited single applies}, CUDA events (scripts.time_ms)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    from adaflo_tpu_torch.scripts import time_ms
 
-
-def cell_flops(dim: int, n1: int, q1: int, p1: int, variable: bool,
-               velocity_only: bool, qfields: bool = False) -> int:
-    """Floating-point operations one cell needs in the kernel's sum
-    factorization (coupled_cell_kernel). An output of a k-term contraction
-    costs k multiplies and k - 1 adds; Gauss weights, 1/h and the per-step
-    scalar products are tables or constants and cost nothing here. Without
-    a pressure (velocity_only) the pressure stages, the -p on the stress
-    diagonal and the pressure row are left out, as the kernel leaves them.
-    With the u* q-field stream (qfields) u* is read at the q points, so its
-    evaluation stages and the 1/h on its gradients are left out."""
-
-    def dots(n_out: int, terms: int) -> int:
-        return n_out * (2 * terms - 1)
-
-    ni = dim if qfields else 2 * dim  # items evaluated: u_c (and u*_c)
-    nq = q1**dim
-    f = 0
-    if dim == 3:
-        # evaluation along x (V, D), y (V, D, V), z (V, V, V, D) per item
-        f += ni * (2 * dots(n1 * n1 * q1, n1) + 3 * dots(n1 * q1 * q1, n1)
-                   + 4 * dots(nq, n1))
-        # transposed integration per component: x (value + st_cx, st_cy,
-        # st_cz), y (two inputs, one), z (two inputs)
-        f += dim * (dots(n1 * q1 * q1, 2 * q1) + (dim - 1) * dots(n1 * q1 * q1, q1))
-        f += dim * (dots(n1 * n1 * q1, 2 * q1) + dots(n1 * n1 * q1, q1))
-        f += dim * dots(n1**3, 2 * q1)
-        if not velocity_only:
-            f += dots(p1 * p1 * q1, p1) + dots(p1 * q1 * q1, p1) + dots(nq, p1)
-            f += dots(p1 * q1 * q1, q1) + dots(p1 * p1 * q1, q1) + dots(p1**3, q1)
-    else:
-        f += ni * (2 * dots(n1 * q1, n1) + 3 * dots(q1 * q1, n1))
-        f += dim * (dots(n1 * q1, 2 * q1) + (dim - 1) * dots(n1 * q1, q1))
-        f += dim * dots(n1 * n1, 2 * q1)
-        if not velocity_only:
-            f += dots(p1 * q1, p1) + dots(q1 * q1, p1)
-            f += dots(p1 * q1, q1) + dots(p1 * p1, q1)
-    # q-point terms (_q_point_terms, "vmult"), per point
-    point = (1 if qfields else 2) * dim * dim  # 1/h on the gradients of u, u*
-    point += 2 * (dim - 1)  # div u, div u*
-    point += dim * (4 + 4 * dim)  # convection: beta terms, then 2 dim products
-    # value row times JxW: a u + b conv (constant), or
-    # rho (w u + tau1 conv) - d u with tau1 mu formed per point (variable)
-    point += dim * 7 + 1 if variable else dim * 4
-    point += dim * dim + (1 if variable else 0)  # symmetric stress, 2 tau1 mu
-    point += 1 + dim  # tau_gd div, added on the diagonal
-    point += dim + dim * dim  # JxW / h_d, times every stress entry
-    if not velocity_only:
-        point += 2  # -p on the diagonal, the pressure row -div JxW
-    return f + point * nq
+    return time_ms(fn, torch.device("cuda", 0), reps, warmup)
 
 
 def bound(cells, dtype: str, n_u: int, n_p: int, velocity_only: bool, variable: bool):
     """(bytes, flops, bound_ms, bound_by) of one apply: every input read
-    once, every output written once; the operations of cell_flops at the
-    dtype's peak rate."""
+    once, every output written once; the operations of scripts.cell_flops
+    at the dtype's peak rate."""
+    from adaflo_tpu_torch.scripts import cell_flops, roofline
+
     s = 4 if dtype == "float32" else 8
     dim, E = cells.dim, cells.n_cells
     nl, npl = (cells.degree + 1) ** dim, cells.degree**dim
@@ -213,14 +173,11 @@ def bound(cells, dtype: str, n_u: int, n_p: int, velocity_only: bool, variable: 
         nbytes += n_p * s + E * npl * 4 + n_p + n_p * s
     if variable:
         nbytes += 3 * E * cells.n_q * s
-    flops = E * cell_flops(
+    flops = E * sum(cell_flops(
         dim, cells.degree + 1, cells.degree + 1, cells.degree, variable, velocity_only
-    )
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_flops = flops / PEAK_FLOPS[dtype]
-    return nbytes, flops, 1e3 * max(t_bytes, t_flops), (
-        "bytes" if t_bytes >= t_flops else "operations"
-    )
+    ).values())
+    r = roofline(nbytes, flops, dtype)
+    return nbytes, flops, r["bound_ms"], r["bound_by"]
 
 
 def bound_block(name: str, cells, dtype: str, n_u: int, n_p: int):
@@ -228,6 +185,8 @@ def bound_block(name: str, cells, dtype: str, n_u: int, n_p: int):
     K3 reads the (E, n_cols) block and the u* stream and writes the block;
     K4 reads K1's nodal inputs (vectors, cell tables, masks) and writes the
     block."""
+    from adaflo_tpu_torch.scripts import cell_flops, roofline
+
     s = 4 if dtype == "float32" else 8
     dim, E, nq = cells.dim, cells.n_cells, cells.n_q
     nl, npl = (cells.degree + 1) ** dim, cells.degree**dim
@@ -241,14 +200,11 @@ def bound_block(name: str, cells, dtype: str, n_u: int, n_p: int):
         nbytes += 0 if cells.mask_u is None else dim * n_u
         if not velocity:
             nbytes += n_p * s + E * npl * 4 + (0 if cells.mask_p is None else n_p)
-    flops = E * cell_flops(
+    flops = E * sum(cell_flops(
         dim, cells.degree + 1, cells.degree + 1, cells.degree, False, velocity, qfields
-    )
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_flops = flops / PEAK_FLOPS[dtype]
-    return nbytes, flops, 1e3 * max(t_bytes, t_flops), (
-        "bytes" if t_bytes >= t_flops else "operations"
-    )
+    ).values())
+    r = roofline(nbytes, flops, dtype)
+    return nbytes, flops, r["bound_ms"], r["bound_by"]
 
 
 def operator_case(dim: int, degree: int, n: int, dtype, device, periodic: bool, seed: int):
@@ -367,21 +323,23 @@ def check_kernels(device):
         torch.cuda.synchronize()
         err = rel_err(got, ref)
         max_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        ms = cuda_ms(run)
-        plain_ms = cuda_ms(plain, warmup=1, reps=5)
+        t = cuda_ms(run)
+        ms = t["ms"]
+        plain_ms = cuda_ms(plain, warmup=1, reps=5)["ms"]
         nbytes, flops, bms, by = bound(
             cells, dname, u.shape[1], p.shape[0], mode == "velocity", variable
         )
         print(
             f"kernel {label}: rel err {err:.3e} (max abs {max_abs:.3e}), "
-            f"{ms:.4f} ms/apply, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"{ms:.4f} ms/apply (one waited call {t['call_ms']:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms "
             f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)",
             flush=True,
         )
         if not err <= TOL[dname]:
             raise AssertionError(f"{label}: relative error {err:.3e} > {TOL[dname]}")
         records[label] = dict(
-            max_abs_err=max_abs, rel_err=err, ms=ms, plain_ms=plain_ms,
+            max_abs_err=max_abs, rel_err=err, ms=ms, call_ms=t["call_ms"], plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
         )
     return records
@@ -440,19 +398,21 @@ def check_block_entries(device):
             torch.cuda.synchronize()
             err = rel_err([got], [ref])
             max_abs = float((got - ref).abs().max())
-            ms = cuda_ms(run)
-            plain_ms = cuda_ms(plain, warmup=1, reps=5)
+            t = cuda_ms(run)
+            ms = t["ms"]
+            plain_ms = cuda_ms(plain, warmup=1, reps=5)["ms"]
             nbytes, flops, bms, by = bound_block(name, cells, dname, u.shape[1], p.shape[0])
             print(
                 f"kernel {name} {label}: rel err {err:.3e} (max abs {max_abs:.3e}), "
-                f"{ms:.4f} ms/apply, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+                f"{ms:.4f} ms/apply (one waited call {t['call_ms']:.4f} ms), plain "
+                f"{plain_ms:.4f} ms, bound {bms:.4f} ms "
                 f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)",
                 flush=True,
             )
             if not err <= TOL[dname]:
                 raise AssertionError(f"{name} {label}: relative error {err:.3e} > {TOL[dname]}")
             records[(name, label)] = dict(
-                max_abs_err=max_abs, rel_err=err, ms=ms, plain_ms=plain_ms,
+                max_abs_err=max_abs, rel_err=err, ms=ms, call_ms=t["call_ms"], plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
             )
         if dim == 3 and degree == 2 and dname == "float64":
@@ -475,17 +435,120 @@ def check_routes(label, op, u, p, tw, lin):
             run = lambda: op.cell_apply(u, p if pres else None, tw, lin, route)
             got = [r for r in run() if r is not None]
             torch.cuda.synchronize()
-            ms = cuda_ms(run)
+            t = cuda_ms(run)
             if ref is None:
                 ref = got
             err = rel_err(got, ref)
             print(
                 f"route {label} {'vmult' if pres else 'velocity_vmult'} {route}: "
-                f"rel err against K1 {err:.3e}, {ms:.4f} ms/apply",
+                f"rel err against K1 {err:.3e}, {t['ms']:.4f} ms/apply (one waited call "
+                f"{t['call_ms']:.4f} ms)",
                 flush=True,
             )
             if not err <= TOL["float64"]:
                 raise AssertionError(f"route {route} {label}: relative error {err:.3e}")
+
+
+def check_probe_entries(device):
+    """Phase 2, probe instances: every K12/K13 variant, K11 and K6 against
+    their plain versions on the box with Dirichlet rows at 16^3 and 48^3,
+    float64 and float32. Returns the records by (entry, case label)."""
+    import torch
+
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.scripts import joint_err
+
+    records = {}
+    for n in (16, 48):
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            label = f"3D Q2/Q1 {n}^3 {dname}"
+            op, u, p, s, tw, _ = operator_case(3, 2, n, dtype, device, False, 3000 + n)
+            cells, sc = op.cells, op._apply_scalars(tw)
+            rng = np.random.default_rng(n)
+            block = torch.as_tensor(rng.standard_normal((cells.n_cells, 89)), dtype=dtype,
+                                    device=device)
+            checks = {
+                f"coupled_apply_ablated[{v}]": (
+                    lambda v=v: cm.coupled_apply_ablated(u, p, s, cells, sc, v),
+                    lambda v=v: cm.coupled_apply_ablated_plain(u, p, s, cells, sc, v),
+                )
+                for v in cm.VARIANTS
+            }
+            checks["coupled_apply_lattice"] = (
+                lambda: cm.coupled_apply_lattice(u, p, s, cells, sc),
+                lambda: cm.coupled_apply_plain(u, p, s, cells, sc),
+            )
+            zeros = lambda: (torch.zeros_like(u), torch.zeros_like(p))
+            checks["scatter_cells"] = (
+                lambda: cm.scatter_cells(block, cells, *zeros()),
+                lambda: cm.scatter_cells_plain(block, cells, *zeros()),
+            )
+            for name, (run, plain) in checks.items():
+                got, ref = run(), plain()
+                torch.cuda.synchronize()
+                max_abs, err = joint_err(got, ref)
+                del got, ref
+                t = cuda_ms(run)
+                plain_ms = cuda_ms(plain, warmup=1, reps=5)["ms"]
+                print(
+                    f"kernel {name} {label}: rel err {err:.3e} (max abs {max_abs:.3e}), "
+                    f"{t['ms']:.4f} ms/apply (one waited call {t['call_ms']:.4f} ms), "
+                    f"plain {plain_ms:.4f} ms",
+                    flush=True,
+                )
+                if not err <= TOL[dname]:
+                    raise AssertionError(f"{name} {label}: relative error {err:.3e} > {TOL[dname]}")
+                records[(name, label)] = dict(max_abs_err=max_abs, rel_err=err, **t,
+                                              plain_ms=plain_ms)
+            del op, u, p, s, block, checks
+            torch.cuda.empty_cache()
+    return records
+
+
+def run_probes():
+    """Phase 4: the four probe drivers at the probes' 48^3 box, float64 and
+    float32, with the launch counts from 0; every probe entry must launch."""
+    import torch
+
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.scripts import (
+        probe_pr,
+        probe_pr_grouped,
+        probe_pr_parts,
+        probe_pr_phases,
+    )
+
+    reset_counts(cm)
+    t0 = time.perf_counter()
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for key, mod in (("K12", probe_pr_phases), ("K13", probe_pr_parts),
+                         ("K6", probe_pr), ("K11", probe_pr_grouped)):
+            results[(key, dname)] = mod.run(48, 20, dtype)
+            sys.stdout.flush()
+            torch.cuda.empty_cache()
+    launches, plain = dict(cm.launches), dict(cm.plain_calls)
+    probe_entries = [f"coupled_apply_ablated[{v}]" for v in cm.VARIANTS]
+    probe_entries += ["coupled_apply_lattice", "scatter_cells"]
+    checks = {
+        "every_probe_entry": all(launches[k] > 0 for k in probe_entries),
+        "errors": all(
+            r["rel_err"] <= TOL[dname]
+            for (key, dname), res in results.items() for r in res.values()
+        ),
+    }
+    print(
+        f"probes: {time.perf_counter() - t0:.1f} s, launches "
+        + json.dumps({k: launches[k] for k in probe_entries})
+        + f", plain calls {json.dumps({k: v for k, v in plain.items() if v})}, checks {checks}",
+        flush=True,
+    )
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"probe checks failed: {failed}")
+    return dict(results=results, launches=launches)
 
 
 def reset_counts(cm):
@@ -659,10 +722,14 @@ def main() -> int:
     # ---- phase 2: kernels against the plain versions -------------------------
     rec = check_kernels(device)
     block_rec = check_block_entries(device)
+    probe_rec = check_probe_entries(device)
 
     # ---- phase 3: the slice, each path with the counts from 0 ---------------
     slice_rec = run_slice()
     channel_rec = run_channel()
+
+    # ---- phase 4: the probes, their path with the counts from 0 -------------
+    probes = run_probes()
 
     def entry(name, replaces, r, b, main_label, launches):
         return {
@@ -671,8 +738,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "shape": main_label,
-            "at_48": {k: b[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+            "shape": main_label, "call_ms": r["call_ms"],
+            "at_48": {k: b[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
         }
 
     kernels = [
@@ -690,6 +758,38 @@ def main() -> int:
             block_rec[(name, main)], block_rec[(name, "3D Q2/Q1 48^3 f64")],
             main, channel_rec["launches"],
         ))
+    def probe_entry(name, counter, replaces, key, variant, library=None):
+        r64 = probes["results"][(key, "float64")][variant]
+        r32 = probes["results"][(key, "float32")][variant]
+        return {
+            "name": name, "route": "cuda", "source": K1_SOURCE, "replaces": replaces,
+            "launches": probes["launches"][counter],
+            "max_abs_err": r64["max_abs_err"], "ms": r64["ms"], "plain_ms": r64["plain_ms"],
+            "bound_ms": r64["bound_ms"], "bound_by": r64["bound_by"],
+            "library_ms": None if library is None else r64[library],
+            "shape": "3D Q2/Q1 48^3 f64 (probe driver)", "call_ms": r64["call_ms"],
+            "f32": {k: r32[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
+            "at_16": {k: probe_rec[(counter, "3D Q2/Q1 16^3 float64")][k]
+                      for k in ("max_abs_err", "ms", "call_ms", "plain_ms")},
+        }
+
+    from adaflo_tpu_torch.ops.coupled_matvec import K12_VARIANTS, K13_VARIANTS
+
+    for v in K12_VARIANTS:
+        name = f"coupled_apply_ablated[{v}]"
+        kernels.append(probe_entry(name, name, K12_REPLACES, "K12", v))
+        if v in K13_VARIANTS:  # "full", one instance for both probes
+            kernels[-1]["also_replaces"] = K13_REPLACES
+    for v in K13_VARIANTS:
+        if v in K12_VARIANTS:  # "full": K12's instance and row
+            continue
+        name = f"coupled_apply_ablated[{v}]"
+        kernels.append(probe_entry(name, name, K13_REPLACES, "K13", v))
+    kernels.append(probe_entry("coupled_apply_lattice", "coupled_apply_lattice",
+                               K11_REPLACES, "K11", "lattice"))
+    kernels.append(probe_entry("scatter_cells", "scatter_cells", K6_REPLACES, "K6",
+                               "scatter_cells", library="library_ms"))
     for title, r in (("beltrami_3d", slice_rec), ("periodic channel 16^3", channel_rec)):
         steps = r["steps"]
         n = len(steps)

@@ -13,9 +13,12 @@ and float32 (1e-5): the nodal entries (K1, K2) against
 `coupled_apply_plain`, the cell-block entries (K3 with the u* dof and
 q-field streams, K4's in-kernel gather; coupled and velocity-only) against
 `coupled_apply_cells_plain` and `coupled_apply_gather_plain`, on a box and
-on a periodic lattice (wrapped cell tables). What this cannot show: that
-nvcc accepts the source, and what many threads do; `chip_smoke.py` checks
-both on the card. Skips where g++ is missing."""
+on a periodic lattice (wrapped cell tables); and the probe instances on a
+4^3 box (K12's and K13's phase-masked instances against
+`coupled_apply_ablated_plain`, K11's table-free lattice source against
+`coupled_apply_plain`, K6's scatter against `scatter_cells_plain`). What this
+cannot show: that nvcc accepts the source, and what many threads do;
+`chip_smoke.py` checks both on the card. Skips where g++ is missing."""
 
 import ctypes
 import re
@@ -32,6 +35,7 @@ from adaflo_tpu_torch.mesh.structured import StructuredMesh
 from adaflo_tpu_torch.ops import coupled_matvec as cm
 from adaflo_tpu_torch.ops.lattice import LatticeOps
 from adaflo_tpu_torch.ops.tensor import CellEvaluator
+from adaflo_tpu_torch.scripts import joint_err
 
 torch.set_num_threads(2)
 
@@ -215,3 +219,76 @@ def test_emulated_block_entries_match_plain_versions(
     assert got.shape == ref.shape
     err = float((got - ref).abs().max())
     assert err <= (1e-12 if dtype == torch.float64 else 1e-5) * float(ref.abs().max())
+
+
+def _box4(dtype):
+    """The probes' Dirichlet box at 4^3 cells, Q2/Q1, with its masks (every
+    velocity boundary dof, one pressure dof) and the lattice shape."""
+    rng = np.random.default_rng(44)
+    mesh = StructuredMesh((4, 4, 4), (0.0,) * 3, (1.0,) * 3)
+    us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
+    ev_u = CellEvaluator(3, us.basis, 3, mesh.h, device="cpu")
+    ev_p = CellEvaluator(3, ps.basis, 3, mesh.h, device="cpu")
+    mask_u = np.zeros((3, us.n_dofs), bool)
+    mask_u[:, us.boundary_dofs(0)] = True
+    mask_p = np.zeros(ps.n_dofs, bool)
+    mask_p[0] = True
+    cells = cm.CoupledCells(
+        ev_u, ev_p, LatticeOps.for_space(us).cell_dof_table(),
+        LatticeOps.for_space(ps).cell_dof_table(), mask_u, mask_p, "cpu",
+        lattice=(mesh.n_cells_axis, tuple(mesh.periodic)),
+    )
+    t = lambda *shape: torch.tensor(rng.standard_normal(shape), dtype=dtype)
+    return cells, t(3, us.n_dofs), t(ps.n_dofs), t(3, us.n_dofs), t
+
+
+# the probe checks hold max-abs error over max-abs of the whole output
+# [u | p] (joint_err): a variant may leave one part at roundoff (a dropped
+# gather gives the cell constant values, so the divergence rows vanish)
+PROBE_VARIANTS = [("K12", v) for v in cm.K12_VARIANTS] + [("K13", v) for v in cm.K13_VARIANTS]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("probe,variant", PROBE_VARIANTS, ids=[f"{p}-{v}" for p, v in PROBE_VARIANTS])
+def test_emulated_probe_instances_match_plain_versions(emulated, probe, variant, dtype):
+    """K12/K13: each phase-masked instance of the cell kernel writes the
+    nodal output of coupled_apply_ablated_plain for its variant."""
+    cells, u, p, s, _ = _box4(dtype)
+    sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
+    ph = cm.VARIANTS[variant]
+    M = cells.probe_tables(u.device, dtype, sc)["M89"] if ph & cm.PH_MDOT else None
+    ref = cm.coupled_apply_ablated_plain(u, p, s, cells, sc, variant)
+    got = (torch.zeros_like(u), torch.zeros_like(p))
+    cm._launch_variant(ph, None, u, p, s, cells, sc, M, *got)
+    assert joint_err(got, ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_emulated_lattice_source_matches_plain_version(emulated, dtype):
+    """K11: the kernel given no cell tables (null pointers) computes the
+    addresses from the lattice and matches coupled_apply_plain, identity
+    rows included (its epilogue is K1's)."""
+    cells, u, p, s, _ = _box4(dtype)
+    sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
+    ref = cm.coupled_apply_plain(u, p, s, cells, sc)
+    out_u, out_p = torch.zeros_like(u), torch.zeros_like(p)
+    cm._launch_variant(cm.PH_ALL, (4, 4), u, p, s, cells, sc, None, out_u, out_p)
+    cm._launch_epilogue(u, p, cells, out_u, out_p, True, None, None)
+    assert joint_err((out_u, out_p), ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_emulated_scatter_cells_matches_plain_version(emulated, dtype):
+    """K6: the atomic block scatter adds into nonzero outputs as index_add_
+    does."""
+    cells, u, p, _, t = _box4(dtype)
+    block = t(cells.n_cells, 89)
+    ref = cm.scatter_cells_plain(block, cells, u.clone(), p.clone())
+    out_u, out_p = u.clone(), p.clone()
+    rc = cm.load_library().adaflo_scatter_cells(
+        1 if dtype == torch.float64 else 0, block.data_ptr(), cells.cell_u.data_ptr(),
+        cells.cell_p.data_ptr(), out_u.data_ptr(), out_p.data_ptr(), u.shape[1],
+        cells.n_cells, None,
+    )
+    assert rc == 0
+    assert joint_err((out_u, out_p), ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)

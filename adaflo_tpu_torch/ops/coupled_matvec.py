@@ -49,16 +49,13 @@ use into ``build/adaflo_tpu_torch/`` under the repository root.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from adaflo_tpu_torch.ops.build import build_library
 
 # launches of the CUDA kernel per entry, and calls of the plain versions;
 # plain integers that a caller may reset (chip_smoke.py reads them around a
@@ -114,7 +111,6 @@ for _name in VARIANTS:
     launches[f"coupled_apply_ablated[{_name}]"] = 0
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "coupled_matvec.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adaflo_tpu_torch"
 _lib = None
 build_info: dict = {}
 
@@ -662,42 +658,11 @@ def lattice_cell_dofs(n_cells_axis, degree: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # the CUDA library
 # ---------------------------------------------------------------------------
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the coupled apply kernel cannot be built")
-
-
 def load_library():
     """Build (once, keyed by the source's hash) and load the kernel library."""
     global _lib
-    if _lib is not None:
-        return _lib
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _BUILD_DIR / f"libcoupled_matvec_{tag}.so"
-    if not so.exists():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp), str(_SOURCE),
-        ]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_info["seconds"] = time.perf_counter() - t0
-        build_info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed to build coupled_matvec.cu:\n" + build_info["log"]
-            )
-        os.replace(tmp, so)
-    _lib = bind(ctypes.CDLL(str(so)))
+    if _lib is None:
+        _lib = bind(ctypes.CDLL(str(build_library(_SOURCE, "coupled_matvec", build_info))))
     return _lib
 
 

@@ -13,15 +13,26 @@ Each module runs as ``python -m adaflo_tpu_torch.scripts.<name> [--cells 48]
 - ``probe_pr_grouped``: K11, the apply with addresses from lattice
   coordinates, beside K1.
 
+and the contraction-rate and matrix-unit probes, with options of their own:
+
+- ``probe_sf``: K7-K10 (row statements, row copies, the resident dense dot,
+  the sum-factorized evaluation) at two work levels each, with the marginal
+  rates (``--block 4096 --nblk 29 --dtype float32|float64``);
+- ``probe_mxu``: K5, the streamed dense dot, beside the library's products
+  (``--n 4096 --cols 110592``);
+- ``probe_bounds``: the bounds of K5 and K7-K10 at a configuration;
+- ``sass_counts``: the probe kernels' instruction counts (cuobjdump).
+
 Without ``--device cpu`` a probe needs a CUDA device and raises otherwise; on
 the CPU it runs the plain versions, and its times are CPU times. This module
-holds what the four share: the case (the probes' 48^3-cell Q2/Q1 box), the
+holds what the probes share: the case (the probes' 48^3-cell Q2/Q1 box), the
 timing and the bounds.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import time
 from typing import NamedTuple
@@ -46,10 +57,13 @@ from adaflo_tpu_torch.ops.navier_stokes import NavierStokesOperator, TimeWeights
 from adaflo_tpu_torch.parameters import FlowParameters
 
 # NVIDIA H100 SXM at its 700 W limit (data sheet, dense rates): the HBM3
-# rate, and the peak rate of each number type, float64 on the tensor cores
-# (DMMA), float32 outside them, TF32 and bf16 on them
+# rate, and the peak rate of each number type: float64 on the tensor cores
+# (DMMA), float64 on the CUDA cores (the rate of elementwise statements,
+# which the tensor cores cannot run), float32 outside the tensor cores, TF32
+# and bf16 on them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "tf32": 495e12, "bf16": 989e12}
+PEAK_FLOPS = {"float64": 67e12, "float64_simt": 34e12, "float32": 67e12,
+              "tf32": 495e12, "bf16": 989e12}
 
 
 class ProbeCase(NamedTuple):
@@ -268,6 +282,51 @@ def scatter_bound(cells, n_u: int, n_p: int, dtype, pres: bool = True) -> dict:
     return roofline(nbytes, E * n_cols, _rate(dtype))
 
 
+@contextlib.contextmanager
+def allow_tf32():
+    """float32 matrix products in TF32 inside the block, the old setting
+    restored after it; every probe keeps TF32 off otherwise."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
 def sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def per_step(step, nblk: int, device):
+    """A callable that runs `step` nblk times: the library's counterpart of a
+    kernel that does one grid step's work nblk times over, each step writing
+    the same output. On the card the nblk calls are one CUDA graph, captured
+    at the first call after a warm-up on a side stream, so that one replay
+    times the library's kernels without the host's launches between them;
+    on the CPU a loop."""
+    if device.type != "cuda":
+        def loop():
+            for _ in range(nblk):
+                step()
+
+        return loop
+    graph = None
+
+    def replay():
+        nonlocal graph
+        if graph is None:
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    step()
+            torch.cuda.current_stream(device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(nblk):
+                    step()
+        graph.replay()
+
+    return replay

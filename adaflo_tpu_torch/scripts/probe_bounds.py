@@ -1,60 +1,123 @@
-"""Computed bounds of the probe kernels still to be ported (K5, K7-K10).
+"""Bounds of the contraction-rate and matrix-unit probes (K5, K7-K10).
 
-Nothing runs on a device here: each bound is the least time an NVIDIA H100
-SXM at its 700 W limit could take for the work of the JAX probe kernel at
-the shapes in its script (its bytes once over the HBM rate against its
-operations over the peak rate of the number type, both from
-adaflo_tpu_torch.scripts.PEAK_FLOPS and HBM_BYTES_PER_S), for the slices
-that port them. The probes:
+Each bound is the least time an NVIDIA H100 SXM at its 700 W limit could take
+for the work of the JAX probe kernel at a given configuration: its bytes
+once over the HBM rate against its operations over the peak rate it runs at
+(adaflo_tpu_torch.scripts.PEAK_FLOPS, HBM_BYTES_PER_S). The probe drivers
+(probe_sf.py, probe_mxu.py) and chip_smoke.py compute the bound of every
+configuration they time from these functions. The probes:
 
-  K5  scripts/probe_mxu.py:98   pall: (384, 96) @ (96, 110592) blocked dot
-  K7  scripts/probe_sf.py:83    run_vpu: 72 three-term FMA row-block ops on
-                                (24, 4096) blocks, 29 grid steps
-  K8  scripts/probe_sf.py:142   run_copies: 89 shifted (1, 4096) row
-                                copies per step, 29 steps
-  K9  scripts/probe_sf.py:169   run_mxu: (384, 96) @ (96, 4096) per step,
-                                29 steps
-  K10 scripts/probe_sf.py:295   run_sfeval: the 3-stage sum-factorized
-                                evaluation, block 2048, 58 steps
+  K5  scripts/probe_mxu.py:93  (384, 96) @ (96, E) streamed dot
+  K7  scripts/probe_sf.py:83   n_ops three-term row statements on
+                               (24, block) row slices, nblk grid steps
+  K8  scripts/probe_sf.py:142  n_rows shifted (1, block) row copies per step
+  K9  scripts/probe_sf.py:169  (m, k) @ (k, block) per step, nblk steps
+  K10 scripts/probe_sf.py:295  the three-stage sum-factorized evaluation
 
 K7-K10 rerun one resident block at every grid step, so their bytes are the
-block in and the block out once.
+block in and the block out once (K8: the parts of the slab its copies read);
+their operations are every step's.
+Rates: K7 and K10 are elementwise row statements, which the tensor cores
+cannot run, so their float64 rate is the CUDA cores' ("float64_simt"); the
+dot's float64 runs on the tensor cores (DMMA, "float64"), its "f32" on the
+CUDA cores, "tf32" and "bf16" on the tensor cores.
 
 Run: python -m adaflo_tpu_torch.scripts.probe_bounds
 """
 
 from __future__ import annotations
 
+from adaflo_tpu_torch.ops.probe_kernels import copy_table
 from adaflo_tpu_torch.scripts import roofline
+
+DOT_RATE = {"f32": "float32", "tf32": "tf32", "bf16": "bf16", "f64": "float64"}
+SIMT_RATE = {"float32": "float32", "float64": "float64_simt"}
+SIZE = {"float32": 4, "float64": 8}
 
 
 def _bound(nbytes: float, flops: float, rate: str) -> dict:
     return dict(roofline(nbytes, flops, rate), rate=rate)
 
 
+def k7_bound(block: int, nblk: int, n_ops: int, dtype: str = "float32") -> dict:
+    """K7: read the (96, block + 128) input, write the (24, block) sum; per
+    output element and step 3 multiplies and 2 adds per statement and one
+    add per statement after the first."""
+    s = SIZE[dtype]
+    nbytes = (96 * (block + 128) + 24 * block) * s
+    return _bound(nbytes, (6 * n_ops - 1) * 24 * block * nblk, SIMT_RATE[dtype])
+
+
+def k8_read_elements(block: int, n_rows: int) -> int:
+    """Slab elements K8's copies read: on each source row, the union of the
+    spans [off, off + block) of its entries in copy_table(n_rows)."""
+    offsets: dict = {}
+    for row, off in copy_table(n_rows):
+        offsets.setdefault(row, []).append(off)
+    total = 0
+    for offs in offsets.values():
+        end = 0  # end of the spans counted so far on this row
+        for off in sorted(offs):
+            total += max(0, off + block - max(off, end))
+            end = max(end, off + block)
+    return total
+
+
+def k8_bound(block: int, nblk: int, n_rows: int, dtype: str = "float32") -> dict:
+    """K8: read the slab elements the copies use (k8_read_elements), write
+    the (n_rows, block) rows."""
+    s = SIZE[dtype]
+    return _bound((k8_read_elements(block, n_rows) + n_rows * block) * s, 0, SIMT_RATE[dtype])
+
+
+def k9_bound(block: int, nblk: int, m: int, k: int, precision: str = "f32") -> dict:
+    """K9: read A (m, k) and x (k, block), float32 (float64 for "f64"; bf16
+    rounds them in the kernel), write the (m, block) product; 2 m k
+    operations per column and step."""
+    s = 8 if precision == "f64" else 4
+    nbytes = (m * k + k * block + m * block) * s
+    return _bound(nbytes, 2 * m * k * block * nblk, DOT_RATE[precision])
+
+
+def k5_bound(cols: int, precision: str = "f32") -> dict:
+    """K5: read A (384, 96) and X (96, cols), write the (384, cols) product,
+    all in the precision's type (bf16 for "bf16")."""
+    s = {"f32": 4, "tf32": 4, "bf16": 2, "f64": 8}[precision]
+    m, k = 384, 96
+    return _bound((m * k + k * cols + m * cols) * s, 2 * m * k * cols, DOT_RATE[precision])
+
+
+def k10_elements_per_step(block: int) -> int:
+    """Elements the JAX kernel's statements write per grid step: stage z 18
+    statements of (4, block + 64), stage y 81 of (2, block + 8), stage x 324
+    of (1, block)."""
+    return 18 * 4 * (block + 64) + 81 * 2 * (block + 8) + 324 * block
+
+
+def k10_bound(block: int, nblk: int, dtype: str = "float32") -> dict:
+    """K10: read the (32, block + 2560) slab, write the (384, block) q rows;
+    5 operations (3 multiplies, 2 adds) per written element."""
+    s = SIZE[dtype]
+    nbytes = (32 * (block + 2560) + 384 * block) * s
+    return _bound(nbytes, 5 * k10_elements_per_step(block) * nblk, SIMT_RATE[dtype])
+
+
 def bounds() -> dict:
-    out = {}
-    E = 110592
-    for rate, s in (("float32", 4), ("tf32", 4), ("bf16", 2)):
-        nbytes = (384 * 96 + 96 * E + 384 * E) * s
-        out[f"K5 {rate}"] = _bound(nbytes, 2 * 384 * 96 * E, rate)
-    block, nblk, rows, n_ops = 4096, 29, 24, 72
-    # 0.31 a + 0.47 b + 0.22 c, added into the sum: 3 multiplies, 3 adds
-    out["K7"] = _bound((96 * (block + 128) + rows * block) * 4,
-                       n_ops * rows * block * 6 * nblk, "float32")
-    out["K8"] = _bound((32 * (block + 2560) + 89 * block) * 4, 0, "float32")
-    out["K9"] = _bound((384 * 96 + 96 * block + 384 * block) * 4,
-                       2 * 384 * 96 * block * nblk, "float32")
-    b2, n2 = 2048, 2 * nblk
-    w1, w2 = b2 + 64, b2 + 8
-    per_step = 5 * (18 * 3 * 4 * w1 + 27 * 3 * 2 * w2 + 27 * 4 * 3 * b2)
-    out["K10"] = _bound((32 * (b2 + 2560) + 32 * b2) * 4, per_step * n2, "float32")
+    """The bounds at the scripts' defaults: block 4096, 29 steps (K10: block
+    2048, 58 steps), K7 at 72 statements, K8 at 89 rows, K9 (384, 96),
+    K5 E = 110592."""
+    out = {f"K5 {p}": k5_bound(110592, p) for p in DOT_RATE}
+    for dtype in ("float32", "float64"):
+        out[f"K7 {dtype}"] = k7_bound(4096, 29, 72, dtype)
+        out[f"K8 {dtype}"] = k8_bound(4096, 29, 89, dtype)
+        out[f"K10 {dtype}"] = k10_bound(2048, 58, dtype)
+    out |= {f"K9 {p}": k9_bound(4096, 29, 384, 96, p) for p in DOT_RATE}
     return out
 
 
 def main() -> None:
     for name, b in bounds().items():
-        print(f"{name:8s} bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+        print(f"{name:12s} bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
               f"{b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e9:.3f} GFLOP at the "
               f"{b['rate']} rate), computed, not measured")
 

@@ -2,7 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (adaflo_tpu_torch) on one NVIDIA GPU.
 
 Phases:
-  1. device: nvidia-smi name and power limit, CUDA version, kernel build time;
+  1. device: nvidia-smi name and power limit, CUDA version; the two kernel
+     libraries (csrc/coupled_matvec.cu, csrc/probe_kernels.cu) built by one
+     nvcc each, started together, with each build's time and ptxas'
+     registers and spills;
   2. kernels against their plain PyTorch versions, on the card, max-abs error
      over max-abs <= 1e-12 (float64) / 1e-5 (float32), with the time per
      apply beside the plain version's time and the bound (bytes over the
@@ -29,6 +32,13 @@ Phases:
        (coupled_apply_ablated) against coupled_apply_ablated_plain, K11
        (coupled_apply_lattice, no cell table) against coupled_apply_plain,
        K6 (scatter_cells) against scatter_cells_plain;
+     - the contraction-rate probes (ops/probe_kernels: K7 row_fma, K8
+       row_copies, K9 dense_dot and K5 dense_dot_streamed in f32, tf32, bf16
+       and f64, K10 sf_eval) against their plain versions at block 256 and 2
+       steps, in every mode, and the modes the drivers do not time at the
+       scripts' defaults, errors only (phase 4 times and checks the rest);
+       the drivers' tolerances (float64 1e-12, float32 1e-5, TF32 2e-3, K5's
+       bf16 output 8e-3), K8 exact;
   3. the slice, each path driven with the launch counts set to 0 before it
      and read after it:
      - the port's Beltrami driver on tests/prms/beltrami_3d.prm in float64
@@ -43,7 +53,11 @@ Phases:
      (probe_pr_phases K12, probe_pr_parts K13, probe_pr K6 with K3 and K4
      alone, probe_pr_grouped K11) at the probes' 48^3-cell Q2/Q1 box in
      float64 and float32: per variant ms/apply, bound and plain ms, K12's
-     phase attribution, K6's index_add_ and lattice-scatter times.
+     phase attribution, K6's index_add_ and lattice-scatter times; then the
+     contraction-rate probes (probe_sf K7-K10 at block 4096 and 29 steps in
+     float32 and float64, probe_mxu K5 at 110,592 columns beside
+     torch.matmul): per configuration ms, bound, plain and library ms, and
+     the marginal rates; every entry of ops/probe_kernels must launch.
 
 The last line is {"ok": true, "device": {...}}; a "kernels" JSON line and
 the nvidia-smi line come before it. Any failed phase raises and the script
@@ -62,6 +76,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -77,6 +92,12 @@ K6_REPLACES = "scripts/probe_pr.py:144"  # ring_scatter
 K11_REPLACES = "scripts/probe_pr_grouped.py:213"  # build_call
 K12_REPLACES = "scripts/probe_pr_phases.py:164"  # apply_fn
 K13_REPLACES = "scripts/probe_pr_parts.py:363"  # run_variant
+SF_SOURCE = "adaflo_tpu_torch/csrc/probe_kernels.cu"
+K5_REPLACES = "scripts/probe_mxu.py:93"  # pkern (pall)
+K7_REPLACES = "scripts/probe_sf.py:83"  # run_vpu kernel
+K8_REPLACES = "scripts/probe_sf.py:142"  # run_copies kernel
+K9_REPLACES = "scripts/probe_sf.py:169"  # run_mxu kernel
+K10_REPLACES = "scripts/probe_sf.py:295"  # run_sfeval kernel
 BLOCK_ENTRIES = (
     "coupled_apply_cells",
     "coupled_apply_cells_velocity",
@@ -506,6 +527,83 @@ def check_probe_entries(device):
     return records
 
 
+def sf_cases(device, block: int, nblk: int, cols: int, seed: int, timed: bool):
+    """Phase 2's cases of ops/probe_kernels: (label, counter, run, plain,
+    tolerance). With `timed`, the configurations that probe_sf times
+    (probe_sf.probes, float32 and float64) and K5 in every precision over
+    `cols` columns, as probe_mxu runs it; always the modes that the drivers
+    do not time: K7 at 72 statements, aligned and shifted, and the TF32 and
+    bf16 dots at k = 32. Tolerances: the drivers' (probe_sf.TOL and
+    DOT_TOL, probe_mxu.TOL), K8 exact."""
+    import torch
+
+    from adaflo_tpu_torch.ops import probe_kernels as pk
+    from adaflo_tpu_torch.scripts import probe_mxu, probe_sf
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=gen, dtype=torch.float64).to(device=device, dtype=dtype)
+
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        d = str(dtype)[6:]
+        if timed:
+            for _, _, cfgs in probe_sf.probes(block, nblk, dtype, device, seed).values():
+                cases += [(f"{c['name']} {d}", c["counter"], c["run"], c["plain"], c["tol"])
+                          for c in cfgs]
+        x7 = rnd(96, block + 128, dtype=dtype)
+        for shifted in (False, True):
+            cases.append((f"row_fma n_ops=72{' shifted' if shifted else ''} {d}", "row_fma",
+                          lambda sh=shifted, x=x7: pk.row_fma(x, 72, sh, nblk),
+                          lambda sh=shifted, x=x7: pk.row_fma_plain(x, 72, sh, nblk),
+                          probe_sf.TOL[d]))
+    for prec in ("tf32", "bf16"):
+        for m in (96, 384):
+            A, x = rnd(m, 32, dtype=torch.float32), rnd(32, block, dtype=torch.float32)
+            cases.append((f"dense_dot {prec} m={m} k=32", f"dense_dot[{prec}]",
+                          lambda A=A, x=x, p=prec: pk.dense_dot(A, x, p, nblk),
+                          lambda A=A, x=x, p=prec: pk.dense_dot_plain(A, x, p, nblk),
+                          probe_sf.DOT_TOL[prec]))
+    if timed:
+        for prec in pk.PRECISIONS:
+            A5, X5 = (rnd(*s, dtype=probe_mxu.TYPES[prec]) for s in ((384, 96), (96, cols)))
+            cases.append((f"dense_dot_streamed {prec} cols={cols}",
+                          f"dense_dot_streamed[{prec}]",
+                          lambda A=A5, X=X5, p=prec: pk.dense_dot_streamed(A, X, p),
+                          lambda A=A5, X=X5, p=prec: pk.dense_dot_streamed_plain(A, X, p),
+                          probe_mxu.TOL[prec]))
+    return cases
+
+
+def check_sf_entries(device):
+    """Phase 2, the contraction-rate probes (K5, K7-K10): every entry of
+    ops/probe_kernels in every mode against its plain version on the card,
+    at a small shape (block 256, 2 steps, K5 over 1,024 columns), and the
+    modes that phase 4's drivers do not time also at the scripts' defaults
+    (block 4096, 29 steps); phase 4 holds the timed ones to the same
+    tolerances there. Returns the errors by (label, shape)."""
+    import torch
+
+    records = {}
+    for shape, (block, nblk, cols, timed) in (("small", (256, 2, 1024, True)),
+                                              ("default", (4096, 29, 110592, False))):
+        for label, counter, run, plain, tol in sf_cases(device, block, nblk, cols, 5, timed):
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            got, ref = got.double(), ref.double()
+            max_abs = float((got - ref).abs().max())
+            err = max_abs / max(float(ref.abs().max()), 1e-300)
+            print(f"kernel {label} ({shape}): rel err {err:.3e} (max abs {max_abs:.3e}), "
+                  f"tolerance {tol:g}", flush=True)
+            if not err <= tol:
+                raise AssertionError(f"{label} ({shape}): relative error {err:.3e} > {tol:g}")
+            records[(label, shape)] = dict(max_abs_err=max_abs, rel_err=err, counter=counter)
+            del got, ref
+        torch.cuda.empty_cache()
+    return records
+
+
 def run_probes():
     """Phase 4: the four probe drivers at the probes' 48^3 box, float64 and
     float32, with the launch counts from 0; every probe entry must launch."""
@@ -551,11 +649,41 @@ def run_probes():
     return dict(results=results, launches=launches)
 
 
-def reset_counts(cm):
-    for k in cm.launches:
-        cm.launches[k] = 0
-    for k in cm.plain_calls:
-        cm.plain_calls[k] = 0
+def run_sf_probes():
+    """Phase 4, the contraction-rate probes: probe_sf at its defaults in
+    float32 and float64 and probe_mxu at its defaults, with the launch
+    counts of ops/probe_kernels from 0; every entry (the dot in every
+    precision) must launch, and every configuration meet its tolerance."""
+    import torch
+
+    from adaflo_tpu_torch.ops import probe_kernels as pk
+    from adaflo_tpu_torch.scripts import probe_mxu, probe_sf
+
+    reset_counts(pk)
+    t0 = time.perf_counter()
+    sf = {d: probe_sf.run(dtype=getattr(torch, d)) for d in ("float32", "float64")}
+    sys.stdout.flush()
+    mxu = probe_mxu.run()
+    launches = dict(pk.launches)
+    records = [r for res in sf.values() for r in res["configs"].values()]
+    records += [r for k, r in mxu.items() if k.startswith("K5 ")]
+    checks = {
+        "every_entry": all(v > 0 for v in launches.values()),
+        "errors": all(r["rel_err"] <= r["tol"] for r in records),
+    }
+    print(f"contraction-rate probes: {time.perf_counter() - t0:.1f} s, launches "
+          + json.dumps(launches) + f", checks {checks}", flush=True)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"contraction-rate probe checks failed: {failed}")
+    return dict(sf=sf, mxu=mxu, launches=launches)
+
+
+def reset_counts(mod):
+    for k in mod.launches:
+        mod.launches[k] = 0
+    for k in mod.plain_calls:
+        mod.plain_calls[k] = 0
 
 
 def run_steps(problem, n_steps, cm):
@@ -683,13 +811,62 @@ def run_slice():
     return dict(setup_s=setup_s, steps=steps, launches=launches)
 
 
+def sf_kernel_entries(sf_probes, sf_rec):
+    """The kernels-line entries of K7, K8, K9, K10 and K5: each at its main
+    configuration (float32; K7 at 96 aligned statements, K8 at 89 rows, K9
+    at m = 384, k = 96 on the CUDA cores, K5 in f32), launches summed over
+    phase 4, and every timed configuration of phase 4 beside it."""
+    keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "rate",
+            "max_abs_err")
+    sf32, sf64 = (sf_probes["sf"][d]["configs"] for d in ("float32", "float64"))
+    launches = sf_probes["launches"]
+
+    def entry(name, replaces, counter, rec, configs, slopes=None):
+        e = {
+            "name": name, "route": "cuda", "source": SF_SOURCE, "replaces": replaces,
+            "launches": sum(v for k, v in launches.items() if k.split("[")[0] == counter),
+            **{k: rec[k] for k in keys},
+            "configs": {n: {k: r[k] for k in keys} for n, r in configs.items()},
+        }
+        if slopes:
+            e["slopes"] = slopes
+        return e
+
+    def pick(prefixes):
+        out = {}
+        for tag, confs in (("float32", sf32), ("float64", sf64)):
+            out |= {f"{n} {tag}": r for n, r in confs.items() if n.split("[")[0] in prefixes}
+        return out
+
+    sl = {d: sf_probes["sf"][d]["slopes"] for d in ("float32", "float64")}
+    slopes = lambda names: {f"{n} {d}": sl[d][n] for d in sl for n in names if n in sl[d]}
+    mxu = sf_probes["mxu"]
+    k5 = {n: r for n, r in mxu.items() if n.startswith("K5 ")}
+    entries = [
+        entry("row_fma", K7_REPLACES, "row_fma", sf32["vpu[n_ops=96]"],
+              pick({"vpu", "vpu_shift"}), slopes(("vpu", "vpu_shift"))),
+        entry("row_copies", K8_REPLACES, "row_copies", sf32["copies[n_rows=89]"],
+              pick({"copies"}), slopes(("copies",))),
+        entry("dense_dot", K9_REPLACES, "dense_dot", sf32["mxu_k96[m=384]"],
+              pick({"mxu_k96", "mxu_k96tf", "mxu_k96bf", "mxu_k32"}),
+              slopes(("mxu_k96", "mxu_k96tf", "mxu_k96bf", "mxu_k32"))),
+        entry("sf_eval", K10_REPLACES, "sf_eval", sf32["sfeval"], pick({"sfeval"})),
+        entry("dense_dot_streamed", K5_REPLACES, "dense_dot_streamed", k5["K5 f32"], k5),
+    ]
+    entries[-1]["library_lines"] = {n: r["ms"] for n, r in mxu.items() if n.startswith("matmul")}
+    for e in entries:  # the phase-2 errors of every mode, at both shapes
+        e["phase2_max_rel_err"] = max(
+            r["rel_err"] for r in sf_rec.values() if r["counter"].split("[")[0] == e["name"])
+    return entries
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if not (ROOT / "adaflo_tpu_torch" / "csrc" / "coupled_matvec.cu").is_file():
+    if not all((ROOT / src).is_file() for src in (K1_SOURCE, SF_SOURCE)):
         print("chip_smoke: adaflo_tpu_torch is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -701,28 +878,32 @@ def main() -> int:
     smi = smi_line()
     print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.ops import probe_kernels as pk
 
     t0 = time.perf_counter()
-    cm.load_library()
-    print(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
-    log = cm.build_info.get("log", "").splitlines()
-    regs = [int(ln.split("Used ")[1].split()[0]) for ln in log if "Used " in ln]
-    spills = [
-        ln.strip() for ln in log
-        if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))
-    ]
-    if regs:
-        print(
-            f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers per "
-            f"thread, {len(spills)} with spills"
-        )
-    for ln in spills:
-        print("ptxas:", ln)
+    libs = {"coupled_matvec": cm, "probe_kernels": pk}
+    with ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, together
+        for f in [ex.submit(mod.load_library) for mod in libs.values()]:
+            f.result()
+    print(f"kernel builds + loads, in parallel: {time.perf_counter() - t0:.2f} s")
+    for name, mod in libs.items():
+        log = mod.build_info.get("log", "").splitlines()
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in log if "Used " in ln]
+        spills = [
+            ln.strip() for ln in log
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))
+        ]
+        print(f"{name}: build {mod.build_info.get('seconds', 0.0):.2f} s; ptxas: {len(regs)} "
+              f"kernels, {min(regs, default=0)}-{max(regs, default=0)} registers per "
+              f"thread, {len(spills)} with spills")
+        for ln in spills:
+            print(f"ptxas ({name}):", ln)
 
     # ---- phase 2: kernels against the plain versions -------------------------
     rec = check_kernels(device)
     block_rec = check_block_entries(device)
     probe_rec = check_probe_entries(device)
+    sf_rec = check_sf_entries(device)
 
     # ---- phase 3: the slice, each path with the counts from 0 ---------------
     slice_rec = run_slice()
@@ -730,6 +911,7 @@ def main() -> int:
 
     # ---- phase 4: the probes, their path with the counts from 0 -------------
     probes = run_probes()
+    sf_probes = run_sf_probes()
 
     def entry(name, replaces, r, b, main_label, launches):
         return {
@@ -790,6 +972,7 @@ def main() -> int:
                                K11_REPLACES, "K11", "lattice"))
     kernels.append(probe_entry("scatter_cells", "scatter_cells", K6_REPLACES, "K6",
                                "scatter_cells", library="library_ms"))
+    kernels += sf_kernel_entries(sf_probes, sf_rec)
     for title, r in (("beltrami_3d", slice_rec), ("periodic channel 16^3", channel_rec)):
         steps = r["steps"]
         n = len(steps)

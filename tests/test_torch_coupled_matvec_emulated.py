@@ -1,12 +1,8 @@
 """The CUDA source of the coupled cell apply, run on the CPU.
 
-There is no nvcc on a CPU host, but the kernel's arithmetic and indexing can
-still be held against the plain version: `csrc/coupled_matvec.cu` is
-compiled with g++ against a small header that defines the CUDA keywords,
-gives each block one thread (every stage of the kernel is a strided loop
-over its work items, so one thread does all of them), turns `__syncthreads`
-into a no-op and each `<<<...>>>` launch into a loop over the blocks. The
-library is driven through the port's own ctypes argument packing
+`csrc/coupled_matvec.cu` is compiled with g++ against the emulation header
+of `tests/torch_emulation.py` (one thread per block). The library is
+driven through the port's own ctypes argument packing
 (`ops/coupled_matvec._launch_cells` / `_launch_epilogue`) on CPU tensors and
 compared with the plain versions in every mode, float64 (1e-12 relative)
 and float32 (1e-5): the nodal entries (K1, K2) against
@@ -20,12 +16,6 @@ on a periodic lattice (wrapped cell tables); and the probe instances on a
 cannot show: that nvcc accepts the source, and what many threads do;
 `chip_smoke.py` checks both on the card. Skips where g++ is missing."""
 
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -36,78 +26,14 @@ from adaflo_tpu_torch.ops import coupled_matvec as cm
 from adaflo_tpu_torch.ops.lattice import LatticeOps
 from adaflo_tpu_torch.ops.tensor import CellEvaluator
 from adaflo_tpu_torch.scripts import joint_err
+from torch_emulation import build_emulated
 
 torch.set_num_threads(2)
-
-SOURCE = Path(cm.__file__).resolve().parents[1] / "csrc" / "coupled_matvec.cu"
-
-HEADER = r"""
-#pragma once
-#include <algorithm>
-#include <cstdint>
-#include <cstring>
-#include <functional>
-using std::min;
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };
-static emu_dim3 threadIdx, blockIdx, blockDim, gridDim;
-inline void __syncthreads() {}
-typedef void* cudaStream_t;
-typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
-inline int cudaGetLastError() { return 0; }
-template <class T> T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
-alignas(16) static unsigned char emu_smem[1 << 22];
-inline void emu_launch(unsigned grid, size_t smem, const std::function<void()>& f) {
-  if (smem > sizeof(emu_smem)) throw 1;
-  blockDim.x = 1; gridDim.x = grid; threadIdx.x = 0;
-  for (unsigned b = 0; b < grid; ++b) {
-    blockIdx.x = b;
-    std::memset(emu_smem, 0xff, smem);  // garbage, as on the card
-    f();
-  }
-}
-"""
-
-
-def _translate(src: str) -> str:
-    src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
-    src = src.replace(
-        "extern __shared__ unsigned char smem_raw[];",
-        "unsigned char* smem_raw = emu_smem;",
-    )
-    src = src.replace("__shared__ T part[256];", "static T part[256];")
-
-    def launch(m):
-        cfg = [c.strip() for c in m.group(2).split(",")]
-        smem = cfg[2] if len(cfg) > 2 else "0"
-        return f"emu_launch({cfg[0]}, {smem}, [&]() {{ {m.group(1)}({m.group(3)}); }});"
-
-    src = re.sub(r"([\w:<>]+)<<<(.*?)>>>\((.*?)\);", launch, src, flags=re.S)
-    assert "<<<" not in src and "__shared__" not in src
-    return src
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory, monkeypatch_module):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to compile the emulated kernel source")
-    d = tmp_path_factory.mktemp("coupled_matvec_emu")
-    (d / "cuda_emu.h").write_text(HEADER)
-    (d / "emu.cpp").write_text(_translate(SOURCE.read_text()))
-    so = d / "libemu.so"
-    subprocess.run(
-        [gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-o", str(so), str(d / "emu.cpp")],
-        check=True, capture_output=True, timeout=300,
-    )
-    lib = cm.bind(ctypes.CDLL(str(so)))
+    lib = cm.bind(build_emulated("coupled_matvec.cu", tmp_path_factory.mktemp("coupled_matvec_emu")))
     # the wrapper's launch helpers, pointed at the emulated library and a
     # null stream, for this module only
     monkeypatch_module.setattr(cm, "load_library", lambda: lib)

@@ -1,0 +1,301 @@
+"""The contraction-rate and matrix-unit probes (K5, K7-K10) against the JAX
+package's probe kernels, on the CPU.
+
+- The plain versions of ``ops/probe_kernels`` against the Pallas kernels of
+  ``scripts/probe_sf.py`` (``run_vpu`` K7, ``run_copies`` K8, ``run_mxu`` K9,
+  ``run_sfeval`` K10) at block 128 and 2 grid steps, and of
+  ``scripts/probe_mxu.py`` (``pall`` K5) at its full 110,592 columns, each run
+  in TPU interpret mode: the scripts' ``pl`` is replaced by a shim whose
+  ``pallas_call`` runs the call in interpret mode and records its inputs and
+  output, their ``timed`` by a single call; the port's plain version gets the
+  recorded inputs. Tolerances, max-abs error over max-abs: K7 1e-6, K8 exact,
+  K9 1e-6 (f32 and bf16 inputs; bf16 products are exact in float32), K10
+  1e-6 on rows 0-26 (the JAX kernel leaves its pad rows 27-31 unwritten,
+  NaN in interpret mode), K5 f32 "highest" and "default" (the port's tf32
+  entry, whose plain version is the float32 product) 1e-6, bf16 output 8e-3
+  (two bf16 ulps: sums in another order can round to neighbouring bf16
+  values).
+- The work counts behind the bounds: K10's elements written by the JAX body
+  (F10: stage z is 18 statements of (4, w1)), K7's operands read and the
+  slab elements K8's copies read.
+- The drivers: CUDA needed unless ``--device cpu``, their CPU runs, and no
+  import of JAX, the JAX package or ``scripts/``.
+
+The JAX probe scripts set ADAFLO_* variables and sys.path when imported;
+they are loaded with both restored afterwards.
+"""
+
+import importlib.util
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from adaflo_tpu_torch.ops import probe_kernels as pk
+from adaflo_tpu_torch.scripts import probe_bounds as pb
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCK, NBLK = 128, 2
+
+
+class PallasShim:
+    """Stands in for a script's `pl`: pallas_call runs in TPU interpret mode
+    and records (kernel, inputs, output) of every call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(pl, name)
+
+    def pallas_call(self, kernel, **kw):
+        with pltpu.force_tpu_interpret_mode():
+            call = pl.pallas_call(kernel, **kw)
+
+        def run(*args):
+            with pltpu.force_tpu_interpret_mode():
+                out = call(*args)
+            self.calls.append((kernel, [np.asarray(a) for a in args], np.asarray(out)))
+            return out
+
+        return run
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(f"jax_{name}", ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    path = list(sys.path)
+    with pytest.MonkeyPatch.context() as mp:
+        for k in ("ADAFLO_BENCH", "ADAFLO_TPU_NO_X64"):
+            mp.delenv(k, raising=False)
+        spec.loader.exec_module(mod)
+    sys.path[:] = path
+    return mod
+
+
+@pytest.fixture
+def sf():
+    """scripts/probe_sf.py with the shim and a single untimed call."""
+    mod = _load("probe_sf")
+    mod.pl = PallasShim()
+    mod.timed = lambda call, x, reps: (call(x), 0.0)[1]
+    return mod
+
+
+def _t(a):
+    """A recorded JAX array as a tensor (bf16 through float32, exactly)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(a)
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape
+    return float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["aligned", "shifted"])
+def test_k7_plain_matches_jax_probe_kernel(sf, shifted):
+    sf.run_vpu(BLOCK, NBLK, 1, shifted=shifted, n_ops=24)
+    (_, (x,), out), = sf.pl.calls
+    assert _rel(pk.row_fma_plain(_t(x), 24, shifted), out) <= 1e-6
+
+
+@pytest.mark.parametrize("n_rows", pk.N_ROWS)
+def test_k8_plain_equals_jax_probe_kernel(sf, n_rows):
+    sf.run_copies(BLOCK, NBLK, 1, n_rows=n_rows)
+    (_, (x,), out), = sf.pl.calls
+    np.testing.assert_array_equal(pk.row_copies_plain(_t(x), n_rows).numpy(), out)
+
+
+@pytest.mark.parametrize("k,bf16", [(96, False), (32, False), (96, True)],
+                         ids=["k96-f32", "k32-f32", "k96-bf16"])
+def test_k9_plain_matches_jax_probe_kernel(sf, k, bf16):
+    sf.run_mxu(BLOCK, NBLK, 1, m=96, k=k, bf16=bf16)
+    (_, (A, x), out), = sf.pl.calls
+    got = pk.dense_dot_plain(_t(A), _t(x), "bf16" if bf16 else "f32")
+    assert got.dtype == torch.float32
+    assert _rel(got, out) <= 1e-6
+
+
+def test_k10_plain_matches_jax_probe_kernel_on_the_written_rows(sf):
+    sf.run_sfeval(BLOCK, NBLK, 1)
+    (_, (x,), out), = sf.pl.calls
+    got = pk.sf_eval_plain(_t(x))
+    assert got.shape == (384, BLOCK)
+    assert _rel(got[:27], out[:27]) <= 1e-6
+    assert torch.equal(got.reshape(12, 32, BLOCK)[:, 27:], torch.zeros(12, 5, BLOCK))
+
+
+def test_k5_plain_matches_jax_probe_kernel():
+    """pall at f32 "highest", f32 "default" and bf16 (bf16 in and out), in
+    that order, over the full 110,592 columns; the xla lines are skipped."""
+    mod = _load("probe_mxu")
+    mod.pl = PallasShim()
+    mod.timed = lambda name, fn, *args, flops=None: (
+        fn(*args) if name.startswith("pallas") else None)
+    mod.main()
+    assert len(mod.pl.calls) == 3
+    for (_, (A, X), out), prec, tol in zip(mod.pl.calls, ("f32", "tf32", "bf16"),
+                                          (1e-6, 1e-6, 8e-3)):
+        A, X = _t(A), _t(X)
+        got = pk.dense_dot_streamed_plain(A, X, prec)
+        assert got.dtype == A.dtype and got.shape == (384, 110592)
+        assert _rel(got.float(), np.asarray(out, np.float32)) <= tol
+
+
+class Counting:
+    """A numpy array behind refs that count the elements read and written."""
+
+    def __init__(self, a):
+        self.a, self.read, self.written = a, 0, 0
+
+    def __getitem__(self, k):
+        v = self.a[k]
+        self.read += v.size
+        return v
+
+    def __setitem__(self, k, v):
+        self.a[k] = v
+        self.written += self.a[k].size
+
+
+def test_k10_bound_counts_the_jax_body_work():
+    """F10: the JAX body writes 152,064 + 333,072 + 663,552 elements per step
+    at block 2048 (stage z 18 x 4 x w1, not 18 x 3 x 4 x w1), 5 flops each."""
+    sf = _load("probe_sf")
+    block = 2048
+    w1, w2 = block + 64, block + 8
+    rng = np.random.default_rng(3)
+    x = Counting(rng.standard_normal((32, block + 2560)).astype(np.float32))
+    z, y, r = (Counting(np.zeros(s, np.float32))
+               for s in ((144, w1), (648, w2), (384, block)))
+    V, D = (0.3, 0.5, 0.2), (-1.0, 0.0, 1.0)
+    sf._sf_eval_body(x, z, y, r, block, w1, w2, V, D, V, D, V, D)
+    assert (z.written, y.written, r.written) == (152064, 333072, 663552)
+    assert pb.k10_elements_per_step(block) == z.written + y.written + r.written == 1148688
+    assert pb.k10_bound(block, 1)["flops"] == 5743440
+    assert pb.k10_bound(block, 58)["flops"] == 58 * 5743440
+
+
+@pytest.mark.parametrize("n_ops", pk.N_OPS)
+def test_k7_bound_counts_the_jax_kernel_operands(n_ops):
+    """K7's kernel reads three (24, block) operands per statement; each is
+    multiplied and added once (the first statement starts the sum)."""
+    sf = _load("probe_sf")
+    shim = PallasShim()
+    shim.pallas_call = lambda kernel, **kw: shim.calls.append(kernel) or (lambda x: x)
+    sf.pl, sf.timed = shim, lambda call, x, reps: 0.0
+    block = 256
+    sf.run_vpu(block, 1, 1, n_ops=n_ops)
+    x = Counting(np.random.default_rng(4).standard_normal((96, block + 128)))
+    o = np.zeros((24, block))
+    shim.calls[0](x, o)
+    assert x.read == 3 * n_ops * 24 * block
+    assert pb.k7_bound(block, 1, n_ops)["flops"] == 2 * x.read - 24 * block
+
+
+class Marking:
+    """A numpy array behind a ref that marks every element read."""
+
+    def __init__(self, a):
+        self.a, self.seen = a, np.zeros(a.shape, bool)
+
+    def __getitem__(self, k):
+        self.seen[k] = True
+        return self.a[k]
+
+
+@pytest.mark.parametrize("block", [256, 4096])
+@pytest.mark.parametrize("n_rows", pk.N_ROWS)
+def test_k8_bound_counts_the_slab_elements_the_jax_kernel_reads(n_rows, block):
+    """K8's bytes: the slab elements the JAX copies read (each once, however
+    many copies share it) and the (n_rows, block) rows they write."""
+    sf = _load("probe_sf")
+    shim = PallasShim()
+    shim.pallas_call = lambda kernel, **kw: shim.calls.append(kernel) or (lambda x: x)
+    sf.pl, sf.timed = shim, lambda call, x, reps: 0.0
+    sf.run_copies(block, 1, 1, n_rows=n_rows)
+    x = Marking(np.random.default_rng(5).standard_normal((32, block + 2560)).astype(np.float32))
+    o = np.zeros((n_rows, block), np.float32)
+    shim.calls[0](x, o)
+    read = int(x.seen.sum())
+    assert pb.k8_read_elements(block, n_rows) == read
+    assert pb.k8_bound(block, 29, n_rows)["bytes"] == 4 * (read + n_rows * block)
+    assert pb.k8_bound(block, 29, n_rows, "float64")["bytes"] == 8 * (read + n_rows * block)
+
+
+def test_probe_bounds_name_their_rates():
+    """F11: K7 and K10 in float64 run on the CUDA cores (34 TFLOP/s); the
+    dot's float64 on the tensor cores (67 TFLOP/s)."""
+    from adaflo_tpu_torch.scripts import PEAK_FLOPS
+
+    assert PEAK_FLOPS["float64_simt"] == 34e12 and PEAK_FLOPS["float64"] == 67e12
+    assert pb.k7_bound(4096, 29, 96, "float64")["rate"] == "float64_simt"
+    assert pb.k10_bound(2048, 58, "float64")["rate"] == "float64_simt"
+    assert pb.k9_bound(4096, 29, 384, 96, "f64")["rate"] == "float64"
+    assert pb.k10_bound(2048, 58)["bound_ms"] == pytest.approx(1e3 * 58 * 5743440 / 67e12)
+    assert pb.k8_bound(4096, 29, 89)["bound_by"] == "bytes"
+    b = pb.bounds()
+    assert {k.split()[0] for k in b} == {"K5", "K7", "K8", "K9", "K10"}
+    assert all(v["bound_ms"] > 0 for v in b.values())
+
+
+DRIVERS = {"probe_sf": ["--block", "128", "--nblk", "1", "--reps", "1"],
+           "probe_mxu": ["--n", "128", "--cols", "1024", "--reps", "1"]}
+
+
+@pytest.mark.parametrize("name", DRIVERS)
+def test_probe_driver_raises_without_cuda_unless_the_cpu_is_asked_for(monkeypatch, capsys,
+                                                                       name):
+    mod = importlib.import_module(f"adaflo_tpu_torch.scripts.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(DRIVERS[name])
+    mod.main(DRIVERS[name] + ["--device", "cpu"])
+    assert "cpu" in capsys.readouterr().out
+
+
+def test_probe_sf_driver_holds_every_configuration_to_its_plain_version_on_the_cpu():
+    """On the CPU every entry runs its plain version, so every error is 0;
+    the slopes of the two-level probes and their bounds are reported."""
+    from adaflo_tpu_torch.scripts import probe_sf
+
+    res = probe_sf.run(128, 1, 1, torch.float32, "cpu", out=lambda *a: None)
+    assert set(res["slopes"]) == {"vpu", "vpu_shift", "copies", "mxu_k96", "mxu_k96tf",
+                                  "mxu_k96bf", "mxu_k32"}
+    assert all(r["rel_err"] == 0.0 for r in res["configs"].values())
+    assert res["configs"]["copies[n_rows=89]"]["library_ms"] is not None
+    assert res["configs"]["sfeval"]["library_ms"] is None
+    r64 = probe_sf.run(128, 1, 1, torch.float64, "cpu", out=lambda *a: None)
+    assert r64["configs"]["mxu_k96[m=384]"]["rate"] == "float64"
+    assert r64["configs"]["vpu[n_ops=96]"]["rate"] == "float64_simt"
+
+
+_ISOLATION = """
+import sys
+from adaflo_tpu_torch.scripts import probe_mxu, probe_sf
+probe_sf.main(["--device", "cpu", "--block", "128", "--nblk", "1", "--reps", "1"])
+probe_mxu.main(["--device", "cpu", "--n", "128", "--cols", "1024", "--reps", "1"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "adaflo_tpu", "scripts"))
+assert not bad, bad
+"""
+
+
+def test_probe_drivers_run_without_jax_the_jax_package_or_its_scripts():
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", _ISOLATION], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "sfeval" in proc.stdout and "dense_dot_streamed (K5) bf16" in proc.stdout

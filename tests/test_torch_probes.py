@@ -449,13 +449,13 @@ def test_probe_drivers_import_neither_jax_nor_the_jax_package_nor_its_scripts():
 
 
 def test_unported_probe_bounds_follow_their_shapes():
-    """K5 and K7-K10's computed bounds: the work of each JAX probe at its
-    script's shapes (probe_bounds.py)."""
+    """K5 and K7-K10's computed bounds at their scripts' defaults: the work
+    of each JAX probe at its script's shapes (probe_bounds.py)."""
     from adaflo_tpu_torch.scripts.probe_bounds import bounds
 
     b = bounds()
-    assert b["K5 float32"]["flops"] == 2 * 384 * 96 * 110592
-    assert b["K5 float32"]["bound_by"] == "operations" and b["K5 bf16"]["bound_by"] == "bytes"
-    assert b["K8"]["flops"] == 0 and b["K8"]["bound_by"] == "bytes"
-    assert b["K9"]["flops"] == 2 * 384 * 96 * 4096 * 29
+    assert b["K5 f32"]["flops"] == 2 * 384 * 96 * 110592
+    assert b["K5 f32"]["bound_by"] == "operations" and b["K5 bf16"]["bound_by"] == "bytes"
+    assert b["K8 float32"]["flops"] == 0 and b["K8 float32"]["bound_by"] == "bytes"
+    assert b["K9 f32"]["flops"] == 2 * 384 * 96 * 4096 * 29
     assert all(v["bound_ms"] > 0 for v in b.values())

@@ -11,14 +11,17 @@
 // and the measurement probes of scripts/ that ablate the resident apply:
 //   K12 probe_pr_phases.py  apply_fn (_kernel_ablate): minus one phase,
 //   K13 probe_pr_parts.py   run_variant (make_kernel): whole-apply ablations,
+//                           and the full apply under its three TPU
+//                           schedules (make_kernel_rowdma, make_kernel_pipe,
+//                           make_kernel_unroll2),
 //   K11 probe_pr_grouped.py build_call (make_kernel_grouped): the apply with
 //                           a gather that reads no per-dof table,
 //   K6  probe_pr.py         ring_scatter: the cell-block scatter alone.
 // K1-K4, K11, K12 and K13 are template instances of one cell kernel (K12 and
-// K13 through its phase mask, K11 through the lattice source); K6 is
-// scatter_cells_kernel. The cell kernel computes, for every
-// cell of a uniform Cartesian lattice, the Newton-linearized Navier-Stokes
-// operator
+// K13 through its phase mask, K13's TPU schedules through its schedule, K11
+// through the lattice source); K6 is scatter_cells_kernel. The cell kernel
+// computes, for every cell of a uniform Cartesian lattice, the
+// Newton-linearized Navier-Stokes operator
 //
 //   value_c  = (rho w - d) u_c + tau1 rho conv_c          (constant mode)
 //            = rho(q) (w u_c + tau1 conv_c) - d(q) u_c    (variable mode)
@@ -58,6 +61,32 @@
 // bank, and are staged into shared memory at block start. float64 and
 // float32 are template instances, as are the table sets 3D Q2/Q1, 2D Q2/Q1
 // and 3D Q3/Q2.
+//
+// Schedules (the SCHED template parameter; K13's TPU schedules, probe
+// instances only). The production schedule kSchedOnce gives each thread
+// block one group of CPB cells: gather, compute, scatter, so the gather
+// overlaps the compute only across the SM's other resident blocks. The TPU
+// probe's three schedules overlap them inside the kernel with DMAs into VMEM;
+// here they are asynchronous copies into shared memory, on a persistent grid
+// (as many blocks as fit resident, each looping over the cell groups
+// blockIdx.x, blockIdx.x + gridDim.x, ...):
+//   kSchedRowAsync (rowdma)  every dof of the next group is one 4- or 8-byte
+//     cp.async from u, u* or p at the cell table's address into the other
+//     slot of a double-buffered staging area (a constrained entry is
+//     zero-filled by a source size of 0), in flight while this group
+//     computes; stage x reads the staging slot in place;
+//   kSchedPipe (pipe)  the next group's x-runs of the lattice (per row
+//     segment of the group 9 runs of each of the 6 velocity vectors and 4 of
+//     the pressure) as 1D bulk copies (TMA, cp.async.bulk) of their 16-byte
+//     aligned supersets into a slab, completing on an mbarrier while this
+//     group computes; after it, the slab is assembled, masks applied, into
+//     the other staging slot;
+//   kSchedPair (unroll2)  two groups per iteration, each in its own work
+//     area; the gather of one (cp.async, as kSchedRowAsync, straight into its
+//     work area) is in flight while the other computes.
+// Unlike the TPU kernels, every schedule covers every cell (an odd group
+// count leaves the last pair without its second group) and pads nothing
+// that it does not write. Their bound is the full apply's.
 //
 // Scatter. atomicAdd into the zeroed output (native for float64 on sm_60 and
 // later). A dof on a vertex takes up to 8 cell contributions, so the sum order
@@ -120,6 +149,9 @@ constexpr int kPhGather = 1, kPhEvalU = 2, kPhEvalUs = 4, kPhQPoint = 8,
               kPhIntegrate = 16, kPhScatter = 32, kPhAll = 63, kPhContig = 64,
               kPhMDot = 128;
 
+// Schedules of the cell kernel (the SCHED template parameter, see the top).
+constexpr int kSchedOnce = 0, kSchedRowAsync = 1, kSchedPipe = 2, kSchedPair = 3;
+
 template <typename T>
 struct Tables {
   T V[kMaxTab];   // (Q1, N1) velocity basis values at the Gauss points
@@ -168,6 +200,232 @@ __device__ __forceinline__ bool owned(int l) {
   return true;
 }
 
+// ---- asynchronous copies into shared memory: cp.async (sm_80), bulk
+//      copies and mbarriers (sm_90); under ADAFLO_EMULATED (one thread per
+//      block, on the CPU) plain copies and no-ops --------------------------
+template <typename T>
+__device__ __forceinline__ void async_copy(T* dst, const T* src, bool zero) {
+#ifdef ADAFLO_EMULATED
+  *dst = zero ? T(0) : *src;
+#else
+  // .ca: .cg takes only 16-byte copies; a source size of 0 zero-fills
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T)), "r"(zero ? 0u : (unsigned)sizeof(T)) : "memory");
+#endif
+}
+
+__device__ __forceinline__ void async_commit() {
+#ifndef ADAFLO_EMULATED
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void async_wait() {
+#ifndef ADAFLO_EMULATED
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
+#ifndef ADAFLO_EMULATED
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(b), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#endif
+}
+
+// this thread's arrival, with the bytes its bulk copies bring
+__device__ __forceinline__ void bar_arrive_expect(uint64_t* bar, unsigned bytes) {
+#ifndef ADAFLO_EMULATED
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+               "r"(bytes) : "memory");
+#endif
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+#ifndef ADAFLO_EMULATED
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(b), "r"(parity) : "memory");
+  } while (!done);
+#endif
+}
+
+// 1D bulk copy (TMA) of `bytes` (a multiple of 16) from 16-byte aligned
+// global to 16-byte aligned shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+#ifdef ADAFLO_EMULATED
+  memcpy(dst, src, bytes);
+#else
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(d), "l"(src), "r"(bytes), "r"(b) : "memory");
+#endif
+}
+
+// The cell group of a block's it-th iteration: strided by the grid (one
+// iteration per block for kSchedOnce, whose grid is the group count), or
+// for kSchedPair pairs of consecutive groups.
+template <int SCHED>
+__device__ __forceinline__ long long sched_group(long long it) {
+  if constexpr (SCHED == kSchedPair)
+    return 2 * (blockIdx.x + (it >> 1) * gridDim.x) + (it & 1);
+  else
+    return blockIdx.x + it * gridDim.x;
+}
+
+// ---- kSchedPipe's slab. A group's cells (consecutive, x fastest) fall into
+//      segments, one per x-row of the lattice that the group touches (a group
+//      straddles a row end when ncx is not a multiple of CPB). A segment of n
+//      cells reads kPipeRuns x-runs of the lattice: for each of the 6 vectors
+//      u_0 .. u*_2 and each (ly, lz) in 3 x 3 the 2 n + 1 velocity dofs, then
+//      for each (ly, lz) in 2 x 2 the n + 1 pressure dofs. Each run lands in a
+//      slot of the 16-byte aligned size of the longest run, as the 16-byte
+//      aligned superset of its bytes (the bulk copy's rule; the superset stays
+//      in the 16-byte lines of the vector, so inside its allocation). The
+//      threads that start the copies note each run's place and first dof,
+//      and each cell's segment, in small tables beside the slab, so that the
+//      assembly does no lattice arithmetic. Cell and dof indices fit in 32
+//      bits, as the int32 cell tables require. ---------------------------------
+constexpr int kPipeVecRuns = 6 * 9, kPipeRuns = kPipeVecRuns + 4;
+
+struct PipeGeom {
+  int cap_u, cap_p, seg_bytes;  // slot bytes of a velocity / pressure run; per segment
+};
+
+struct PipeRun {
+  int lead, dof0;  // its first element's place in its slot; its first dof
+};
+
+struct PipeCell {
+  int seg, xi;  // a cell's segment, and its place in the segment
+};
+
+__host__ __device__ inline PipeGeom pipe_geom(int cpb, int sz) {
+  PipeGeom g;
+  g.cap_u = (15 + (2 * cpb + 1) * sz + 15) / 16 * 16;
+  g.cap_p = (15 + (cpb + 1) * sz + 15) / 16 * 16;
+  g.seg_bytes = kPipeVecRuns * g.cap_u + (kPipeRuns - kPipeVecRuns) * g.cap_p;
+  return g;
+}
+
+// the most segments a group of cpb consecutive cells can have
+__host__ __device__ inline int pipe_max_segments(int cpb, int ncx) {
+  const int s = (cpb + ncx - 2) / ncx + 1;
+  return s < cpb ? s : cpb;
+}
+
+// bytes of the slab, then its mbarrier and its tables (16-byte multiples)
+__host__ __device__ inline int pipe_slab_bytes(int cpb, int ncx, int sz) {
+  return pipe_max_segments(cpb, ncx) * pipe_geom(cpb, sz).seg_bytes;
+}
+__host__ __device__ inline int pipe_table_bytes(int cpb, int ncx) {
+  const int b = 8 + pipe_max_segments(cpb, ncx) * kPipeRuns * (int)sizeof(PipeRun) +
+                cpb * (int)sizeof(PipeCell);
+  return (b + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ int pipe_slot(const PipeGeom& g, int s, int j) {
+  return s * g.seg_bytes +
+         (j < kPipeVecRuns ? j * g.cap_u : kPipeVecRuns * g.cap_u + (j - kPipeVecRuns) * g.cap_p);
+}
+
+// Start the bulk copies of the group [c0, c0 + nc) into the slab and fill
+// the tables; every thread arrives on `bar` (whose count is the block's
+// threads) with the bytes of its copies.
+template <typename T>
+__device__ __forceinline__ void pipe_start(unsigned char* slab, uint64_t* bar, PipeRun* runs,
+                                           PipeCell* cells, long long c0l, int nc, int cpb,
+                                           const T* u, const T* p, const T* us, long long n_u,
+                                           int ncx, int ncy) {
+  const PipeGeom pg = pipe_geom(cpb, sizeof(T));
+  const int c0 = (int)c0l, row_end = (c0 / ncx + 1) * ncx;  // first cell of the next x-row
+  const int rest = c0 + nc - row_end;                         // cells past it
+  const int nr = (rest <= 0 ? 1 : 1 + (rest + ncx - 1) / ncx) * kPipeRuns;
+  const int nx = 2 * ncx + 1, ny = 2 * ncy + 1;
+  unsigned bytes = 0;
+  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
+    const int s = r / kPipeRuns, j = r % kPipeRuns;
+    const int first = s == 0 ? c0 : row_end + (s - 1) * ncx;
+    const int last = min(s == 0 ? row_end : first + ncx, c0 + nc);
+    const int cx = first % ncx, cy = (first / ncx) % ncy, cz = first / (ncx * ncy);
+    int dof0, len;
+    const T* v;
+    if (j < kPipeVecRuns) {
+      const int f = j / 9, ly = j % 3, lz = (j / 3) % 3;
+      dof0 = ((2 * cz + lz) * ny + 2 * cy + ly) * nx + 2 * cx;
+      len = 2 * (last - first) + 1;
+      v = f < 3 ? u + f * n_u : us + (f - 3) * n_u;
+    } else {
+      const int q = j - kPipeVecRuns, ly = q % 2, lz = q / 2;
+      dof0 = ((cz + lz) * (ncy + 1) + cy + ly) * (ncx + 1) + cx;
+      len = last - first + 1;
+      v = p;
+    }
+    const uintptr_t a = (uintptr_t)(v + dof0);
+    const uintptr_t a0 = a & ~(uintptr_t)15, a1 = (a + len * sizeof(T) + 15) & ~(uintptr_t)15;
+    runs[r] = PipeRun{(int)((a - a0) / sizeof(T)), dof0};
+    bulk_copy(slab + pipe_slot(pg, s, j), (const void*)a0, (unsigned)(a1 - a0), bar);
+    bytes += (unsigned)(a1 - a0);
+  }
+  for (int cell = threadIdx.x; cell < nc; cell += blockDim.x) {
+    const int e = c0 + cell, s = e < row_end ? 0 : 1 + (e - row_end) / ncx;
+    cells[cell] = PipeCell{s, e - (s == 0 ? c0 : row_end + (s - 1) * ncx)};
+  }
+  bar_arrive_expect(bar, bytes);
+}
+
+// Assemble the group's nc cells from the slab (the tables filled by its
+// pipe_start) into the staging slot stg (cell stride SG, item stride NB, the
+// pressure after the 6 velocity items): constrained entries of u and p read
+// as zero.
+template <int NB, int SG, typename T>
+__device__ __forceinline__ void pipe_assemble(T* stg, const unsigned char* slab,
+                                              const PipeRun* runs, const PipeCell* cells,
+                                              int nc, int cpb, const uint8_t* mask_u,
+                                              const uint8_t* mask_p, long long n_u) {
+  constexpr int NL = 27, NP = 8, NI = 6, per = NI * NL + NP;
+  const PipeGeom pg = pipe_geom(cpb, sizeof(T));
+  for (int t = threadIdx.x; t < nc * per; t += blockDim.x) {
+    const int cell = t / per, k = t % per;
+    const PipeCell pc = cells[cell];
+    int j, x, at;
+    const uint8_t* m;
+    long long mi;
+    if (k < NI * NL) {
+      const int item = k / NL, l = k % NL;
+      j = item * 9 + (l / 9) * 3 + (l / 3) % 3;
+      x = 2 * pc.xi + l % 3;
+      at = item * NB + l;
+      m = item < 3 ? mask_u : nullptr;
+      mi = item * n_u;
+    } else {
+      const int l = k - NI * NL;
+      j = kPipeVecRuns + (l / 4) * 2 + (l / 2) % 2;
+      x = pc.xi + l % 2;
+      at = NI * NB + l;
+      m = mask_p;
+      mi = 0;
+    }
+    const PipeRun rr = runs[pc.seg * kPipeRuns + j];
+    const T* run = reinterpret_cast<const T*>(slab + pipe_slot(pg, pc.seg, j));
+    stg[cell * SG + at] = (m != nullptr && m[mi + rr.dof0 + x]) ? T(0) : run[rr.lead + x];
+  }
+}
+
 template <int DIM, int N1, int Q1, int P1>
 struct Shape {
   static constexpr int NL = ipow(N1, DIM);   // velocity dofs per component
@@ -213,6 +471,70 @@ __device__ __forceinline__ void axis_op(T* __restrict__ out, const T* in,
   out[o] = acc;
 }
 
+// The nodal gather of the cells [c0, c0 + nc) into dst (cell stride
+// dstride, item stride NB: u_0 .., u*_0 .., then p): u and p with their
+// constrained entries read as zero, u* plain. The addresses come from the
+// cell tables, from the lattice coordinates (LAT: consecutive threads take
+// one local dof of consecutive cells) or are contiguous (CONTIG: cell e,
+// local l reads entry (e n_loc + l) mod n). ASYNC: each value is one
+// cp.async, committed by the caller.
+template <int DIM, int N1, int P1, int NB, bool PRES, bool LAT, bool CONTIG, bool ASYNC,
+          typename T>
+__device__ __forceinline__ void gather_nodal(
+    T* dst, int dstride, long long c0, int nc, const T* __restrict__ u,
+    const T* __restrict__ p, const T* __restrict__ us, const int32_t* __restrict__ cell_u,
+    const int32_t* __restrict__ cell_p, const uint8_t* __restrict__ mask_u,
+    const uint8_t* __restrict__ mask_p, long long n_u, ProbeArgs<T> pa) {
+  constexpr int NL = ipow(N1, DIM), NP = ipow(P1, DIM), NI = 2 * DIM;
+  constexpr int per_g = NI * NL + (PRES ? NP : 0);
+  for (int t = threadIdx.x; t < nc * per_g; t += blockDim.x) {
+    const int cell = LAT ? t % nc : t / per_g;
+    const int k = LAT ? t / nc : t % per_g;
+    const long long e = c0 + cell;
+    const T* src;
+    bool zero = false;
+    int at;
+    if (k < NI * NL) {
+      const int item = k / NL, l = k % NL;
+      long long dof;
+      if constexpr (LAT) {
+        dof = lattice_dof<N1>(e, l, pa.ncx, pa.ncy);
+      } else if constexpr (CONTIG) {
+        dof = (e * NL + l) % n_u;
+      } else {
+        dof = cell_u[e * NL + l];
+      }
+      if (item < DIM) {
+        const long long g = item * n_u + dof;
+        src = u + g;
+        zero = mask_u != nullptr && mask_u[g];
+      } else {
+        src = us + (item - DIM) * n_u + dof;
+      }
+      at = item * NB + l;
+    } else {
+      const int l = k - NI * NL;
+      long long dof;
+      if constexpr (LAT) {
+        dof = lattice_dof<P1>(e, l, pa.ncx, pa.ncy);
+      } else if constexpr (CONTIG) {
+        dof = (e * NP + l) % pa.n_p;
+      } else {
+        dof = cell_p[e * NP + l];
+      }
+      src = p + dof;
+      zero = mask_p != nullptr && mask_p[dof];
+      at = NI * NB + l;
+    }
+    T* d = dst + cell * dstride + at;
+    if constexpr (ASYNC) {
+      async_copy(d, src, zero);
+    } else {
+      *d = zero ? T(0) : *src;
+    }
+  }
+}
+
 // PRES: the pressure input and the pressure rows; the velocity-only entry
 // (no pressure) skips the pressure evaluation and integration stages.
 // SRC, STREAM, DST: gather source, u* stream and output (see the top). With
@@ -223,8 +545,10 @@ __device__ __forceinline__ void axis_op(T* __restrict__ out, const T* in,
 // computed from the cell's lattice coordinates (lattice_dof) in place of the
 // tables; its gather and scatter give consecutive threads one local dof of
 // consecutive cells. PH: the phases run (kPhAll for every production entry).
+// SCHED: the schedule of the gather against the compute (kSchedOnce for
+// every production entry).
 template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM,
-          int DST, typename T, int PH = kPhAll>
+          int DST, typename T, int PH = kPhAll, int SCHED = kSchedOnce>
 __global__ void __launch_bounds__(kThreads)
 coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ us, const int32_t* __restrict__ cell_u,
@@ -258,13 +582,32 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
                                  PRES && SRC == kSrcTable && !QF && DST == kOutScatter),
                 "probe phases: 3D Q2/Q1 with pressure, nodal in and out only");
   static_assert(!LAT || (DIM == 3 && !QF), "the lattice source is 3D, u* dofs");
+  static_assert(SCHED == kSchedOnce || (PH == kPhAll && DIM == 3 && N1 == 3 && Q1 == 3 &&
+                                        P1 == 2 && PRES && SRC == kSrcTable && !QF &&
+                                        DST == kOutScatter),
+                "schedules: 3D Q2/Q1 with pressure, nodal in and out only");
+  // staged schedules: stage x reads the gathered inputs in a staging slot
+  // of SG elements per cell (item stride NB, the pressure after the items)
+  constexpr bool STAGED = SCHED == kSchedRowAsync || SCHED == kSchedPipe;
+  constexpr int SG = NI * NB + (PRES ? NP : 0);
 
-  extern __shared__ unsigned char smem_raw[];
+  // shared memory: the 1D tables, M89, the work area (two for kSchedPair),
+  // the two staging slots, the pipe's slab, its mbarrier and its tables;
+  // every region starts 16-byte aligned (see launch_schedule)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sV = reinterpret_cast<T*>(smem_raw);
   T* sD = sV + kMaxTab;
   T* sVp = sD + kMaxTab;
   T* sM = sVp + kMaxTab;  // kPhMDot: M89, (LDX, LDX) row-major
-  T* buf = sM + (MDOT ? LDX * LDX : 0);
+  T* const work0 = sM + (MDOT ? LDX * LDX : 0);
+  T* const stg = work0 + (SCHED == kSchedPair ? 2 : 1) * cpb * CS;
+  unsigned char* const slab = reinterpret_cast<unsigned char*>(stg + 2 * cpb * SG);
+  unsigned char* const ptab =
+      slab + (SCHED == kSchedPipe ? pipe_slab_bytes(cpb, pa.ncx, sizeof(T)) : 0);
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(ptab);
+  PipeRun* const pruns = reinterpret_cast<PipeRun*>(ptab + 8);
+  PipeCell* const pcells = reinterpret_cast<PipeCell*>(
+      pruns + (SCHED == kSchedPipe ? pipe_max_segments(cpb, pa.ncx) * kPipeRuns : 0));
 
   const int tid = threadIdx.x, nth = blockDim.x;
   for (int i = tid; i < kMaxTab; i += nth) {
@@ -275,410 +618,442 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   if constexpr (MDOT) {
     for (int i = tid; i < LDX * LDX; i += nth) sM[i] = pa.M[i];
   }
-  const long long c0 = (long long)blockIdx.x * cpb;
-  const int nc = (int)min((long long)cpb, n_cells - c0);
+  const long long n_groups = (n_cells + cpb - 1) / cpb;
+  auto group_cells = [&](long long g) { return (int)min((long long)cpb, n_cells - g * cpb); };
+  long long g = sched_group<SCHED>(0);
 
-  if constexpr (SRC != kSrcBlock && !GATHER) {
-    // ---- dropped gather: each item of a cell reads one value v, at the
-    //      cell's first dof, and spreads it as v (l + 1) over its local dofs l
-    //      (a field constant on each cell would leave the output at roundoff)
-    constexpr int NIP = NI + 1;
-    for (int t = tid; t < nc * NIP; t += nth) {
-      const int cell = t / NIP, item = t % NIP;
-      const long long e = c0 + cell;
-      T* cb = buf + cell * CS;
-      if (item < NI) {
-        const long long dof = cell_u[e * NL];
-        T v;
-        if (item < DIM) {
-          const long long g = item * n_u + dof;
-          v = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
-        } else {
-          v = us[(item - DIM) * n_u + dof];
-        }
-        for (int l = 0; l < NL; ++l) cb[(IN + item) * NB + l] = v * T(l + 1);
-      } else {
-        const long long dof = cell_p[e * NP];
-        const T v = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
-        for (int l = 0; l < NP; ++l) cb[(IN + NI) * NB + l] = v * T(l + 1);
-      }
-    }
-  } else if constexpr (SRC != kSrcBlock) {
-    // ---- gather: u (constrained entries read 0), u* (plain), p (masked) --
-    constexpr int per_g = NI * NL + (PRES ? NP : 0);
-    for (int t = tid; t < nc * per_g; t += nth) {
-      const int cell = LAT ? t % nc : t / per_g;
-      const int k = LAT ? t / nc : t % per_g;
-      const long long e = c0 + cell;
-      T* cb = buf + cell * CS;
-      if (k < NI * NL) {
-        const int item = k / NL, l = k % NL;
-        long long dof;
-        if constexpr (LAT) {
-          dof = lattice_dof<N1>(e, l, pa.ncx, pa.ncy);
-        } else if constexpr ((PH & kPhContig) != 0) {
-          dof = (e * NL + l) % n_u;
-        } else {
-          dof = cell_u[e * NL + l];
-        }
-        T v;
-        if (item < DIM) {
-          const long long g = item * n_u + dof;
-          v = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
-        } else {
-          v = us[(item - DIM) * n_u + dof];
-        }
-        cb[(IN + item) * NB + l] = v;
-      } else {
-        const int l = k - NI * NL;
-        long long dof;
-        if constexpr (LAT) {
-          dof = lattice_dof<P1>(e, l, pa.ncx, pa.ncy);
-        } else if constexpr ((PH & kPhContig) != 0) {
-          dof = (e * NP + l) % pa.n_p;
-        } else {
-          dof = cell_p[e * NP + l];
-        }
-        cb[(IN + NI) * NB + l] = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
-      }
-    }
-  } else {
-    // ---- load the cell blocks: x row = [u_0 .. u_(DIM-1) | p], stream row
-    //      = u* dofs [u*_0 ..] or u* q-fields [(value, d/dx_0 ..) of u*_0,
-    //      ...] with physical gradients, straight into the final fields ----
-    constexpr int per_g = LDX + SLD;
-    for (int t = tid; t < nc * per_g; t += nth) {
-      const int cell = t / per_g;
-      const int k = t % per_g;
-      const long long e = c0 + cell;
-      T* cb = buf + cell * CS;
-      if (k < LDX) {
-        const T v = u[e * LDX + k];
-        if (k < DIM * NL) {
-          cb[(IN + k / NL) * NB + k % NL] = v;
-        } else {
-          cb[(IN + NI) * NB + (k - DIM * NL)] = v;
-        }
-      } else {
-        const int j = k - LDX;
-        const T v = us[e * SLD + j];
-        if constexpr (QF) {
-          cb[(F + FI * DIM + j / NQ) * NB + j % NQ] = v;
-        } else {
-          cb[(IN + DIM + j / NL) * NB + j % NL] = v;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- evaluation, stage x: A0 = Vx u, A1 = Dx u; pressure Vpx p ---------
-  {
-    constexpr int n1 = ipow(N1, DIM - 1) * Q1, np1 = ipow(P1, DIM - 1) * Q1;
-    constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
-    constexpr int per = NE * 2 * n1 + (PE ? np1 : 0);
-    // (no work when a probe drops every item of the stage)
-    if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
-      T* cb = buf + (t / per) * CS;
-      int k = t % per;
-      if (k < NE * 2 * n1) {
-        const int item = I0 + k / (2 * n1), which = (k / n1) % 2, o = k % n1;
-        axis_op<T>(cb + (S1 + 2 * item + which) * NB, cb + (IN + item) * NB,
-                   which ? sD : sV, nullptr, nullptr, N1, false, 0, N1, N1, e2,
-                   Q1, o);
-      } else {
-        k -= NE * 2 * n1;
-        axis_op<T>(cb + (S1 + 2 * NI) * NB, cb + (IN + NI) * NB, sVp, nullptr,
-                   nullptr, P1, false, 0, P1, P1, pe2, Q1, k);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- evaluation, stage y: B00 = Vy A0, B01 = Dy A0, B10 = Vy A1 -------
-  // (2D: these are the final fields value, d/dy, d/dx, written to F)
-  {
-    constexpr int n2 = ipow(Q1, 2) * (DIM == 3 ? N1 : 1);
-    constexpr int np2 = ipow(Q1, 2) * (DIM == 3 ? P1 : 1);
-    constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
-    constexpr int per = NE * 3 * n2 + (PE ? np2 : 0);
-    // (no work when a probe drops every item of the stage)
-    if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
-      T* cb = buf + (t / per) * CS;
-      int k = t % per;
-      if (k < NE * 3 * n2) {
-        const int item = I0 + k / (3 * n2), which = (k / n2) % 3, o = k % n2;
-        const T* src = cb + (S1 + 2 * item + (which == 2 ? 1 : 0)) * NB;
-        const T* M = which == 1 ? sD : sV;
-        T* dst;
-        if (DIM == 3) {
-          dst = cb + (S2 + 3 * item + which) * NB;
-        } else {
-          // value, d/dy (Dy Vx), d/dx (Vy Dx) -> F slots 0, 2, 1
-          const int f = which == 0 ? 0 : (which == 1 ? 2 : 1);
-          dst = cb + (F + FI * item + f) * NB;
-        }
-        axis_op<T>(dst, src, M, nullptr, nullptr, N1, false, 1, Q1, N1, e2, Q1,
-                   o);
-      } else {
-        k -= NE * 3 * n2;
-        T* dst = DIM == 3 ? cb + (S2 + 3 * NI) * NB : cb + (F + FI * NI) * NB;
-        axis_op<T>(dst, cb + (S1 + 2 * NI) * NB, sVp, nullptr, nullptr, P1,
-                   false, 1, Q1, P1, pe2, Q1, k);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- evaluation, stage z (3D): value = Vz B00, d/dx = Vz B10,
-  //      d/dy = Vz B01, d/dz = Dz B00 ---------------------------------------
-  if constexpr (DIM == 3) {
-    constexpr int n3 = NQ;
-    constexpr int per = NE * 4 * n3 + (PE ? n3 : 0);
-    // (no work when a probe drops every item of the stage)
-    if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
-      T* cb = buf + (t / per) * CS;
-      int k = t % per;
-      if (k < NE * 4 * n3) {
-        const int item = I0 + k / (4 * n3), which = (k / n3) % 4, o = k % n3;
-        const int src_slot = which == 1 ? 2 : (which == 2 ? 1 : 0);
-        axis_op<T>(cb + (F + FI * item + which) * NB,
-                   cb + (S2 + 3 * item + src_slot) * NB, which == 3 ? sD : sV,
-                   nullptr, nullptr, N1, false, 2, Q1, Q1, N1, Q1, o);
-      } else {
-        k -= NE * 4 * n3;
-        axis_op<T>(cb + (F + FI * NI) * NB, cb + (S2 + 3 * NI) * NB, sVp,
-                   nullptr, nullptr, P1, false, 2, Q1, Q1, P1, Q1, k);
-      }
+  // ---- the schedules' prologue: the block's first group in flight (pipe:
+  //      copied and assembled into staging slot 0) ---------------------------
+  if constexpr (SCHED == kSchedRowAsync || SCHED == kSchedPair) {
+    if (g < n_groups)
+      gather_nodal<DIM, N1, P1, NB, PRES, false, false, true>(
+          SCHED == kSchedPair ? work0 + IN * NB : stg, SCHED == kSchedPair ? CS : SG,
+          g * cpb, group_cells(g), u, p, us, cell_u, cell_p, mask_u, mask_p, n_u, pa);
+    async_commit();
+  } else if constexpr (SCHED == kSchedPipe) {
+    if (tid == 0) bar_init(bar, nth);
+    __syncthreads();
+    if (g < n_groups) {
+      pipe_start(slab, bar, pruns, pcells, g * cpb, group_cells(g), cpb, u, p, us, n_u,
+                 pa.ncx, pa.ncy);
+      __syncthreads();  // the tables
+      bar_wait(bar, 0);
+      pipe_assemble<NB, SG>(stg, slab, pruns, pcells, group_cells(g), cpb, mask_u, mask_p, n_u);
     }
     __syncthreads();
   }
 
-  // ---- dropped evaluation: each final field of an item not evaluated holds
-  //      the item's dofs (q < NQ = NL), the pressure field its dofs (q mod NP)
-  if constexpr (!MDOT && (PH & (kPhEvalU | kPhEvalUs)) != (kPhEvalU | kPhEvalUs)) {
-    constexpr int NU = (PH & kPhEvalU) ? 0 : DIM;   // u items copied
-    constexpr int NS = (PH & kPhEvalUs) ? 0 : DIM;  // u* items copied
-    constexpr int per = (NU + NS) * FI * NQ + (PE ? 0 : NQ);
-    for (int t = tid; t < nc * per; t += nth) {
-      T* cb = buf + (t / per) * CS;
-      const int k = t % per;
-      if (k < (NU + NS) * FI * NQ) {
-        const int j = k / (FI * NQ), f = (k / NQ) % FI, q = k % NQ;
-        const int item = j < NU ? j : DIM + (j - NU);
-        cb[(F + FI * item + f) * NB + q] = cb[(IN + item) * NB + q];
+  // one iteration per cell group of this block (kSchedOnce: one group)
+  for (long long it = 0; g < n_groups; ++it) {
+    const long long gn = sched_group<SCHED>(it + 1);  // the block's next group
+    const bool more = gn < n_groups;
+    const long long c0 = g * cpb;
+    const int nc = group_cells(g);
+    // this group's work area, and where stage x finds its gathered inputs
+    T* const buf = work0 + (SCHED == kSchedPair ? (it & 1) * cpb * CS : 0);
+    const T* const gin = STAGED ? stg + (it & 1) * cpb * SG : buf + IN * NB;
+    const int gstride = STAGED ? SG : CS;
+
+    if constexpr (SCHED == kSchedRowAsync || SCHED == kSchedPair) {
+      // ---- the next group's gather in flight (into the other staging slot or
+      //      work area), this group's landed ---------------------------------
+      if (more) {
+        gather_nodal<DIM, N1, P1, NB, PRES, false, false, true>(
+            SCHED == kSchedPair ? work0 + ((it + 1) & 1) * cpb * CS + IN * NB
+                                : stg + ((it + 1) & 1) * cpb * SG,
+            SCHED == kSchedPair ? CS : SG, gn * cpb, group_cells(gn), u, p, us, cell_u,
+            cell_p, mask_u, mask_p, n_u, pa);
+        async_commit();
+        async_wait<1>();
       } else {
-        const int q = k - (NU + NS) * FI * NQ;
-        cb[(F + FI * NI) * NB + q] = cb[(IN + NI) * NB + q % NP];
+        async_wait<0>();
       }
-    }
-    __syncthreads();
-  }
-
-  if constexpr (!MDOT && (PH & kPhQPoint) != 0) {
-    // ---- q-point terms (NavierStokesOperator._q_point_terms, "vmult") -------
-    // outputs into S1: value_c at +c, stress_cd at +DIM+DIM c+d, prow at +DIM+DIM^2
-    // (the q-field stream's u* gradients are physical already)
-    for (int t = tid; t < nc * NQ; t += nth) {
-      const int cell = t / NQ, q = t % NQ;
-      T* cb = buf + cell * CS;
-      const int qx = q % Q1, qy = (q / Q1) % Q1, qz = q / (Q1 * Q1);
-      T jxw = tab.w[qx] * tab.w[qy] * tab.vol;
-      if (DIM == 3) jxw *= tab.w[qz];
-      T uv[DIM], sv[DIM], ug[DIM][DIM], sg[DIM][DIM];
-      for (int c = 0; c < DIM; ++c) {
-        uv[c] = cb[(F + FI * c) * NB + q];
-        sv[c] = cb[(F + FI * (DIM + c)) * NB + q];
-        for (int d = 0; d < DIM; ++d) {
-          ug[c][d] = cb[(F + FI * c + 1 + d) * NB + q] * tab.inv_h[d];
-          sg[c][d] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q] *
-                     (QF ? T(1) : tab.inv_h[d]);
-        }
-      }
-      const T pq = PRES ? cb[(F + FI * NI) * NB + q] : T(0);
-      T div = T(0), div_s = T(0);
-      for (int a = 0; a < DIM; ++a) {
-        div += ug[a][a];
-        div_s += sg[a][a];
-      }
-      const bool variable = rho != nullptr || mu != nullptr || damp != nullptr;
-      const long long qi = (c0 + cell) * NQ + q;
-      const T r_q = rho != nullptr ? rho[qi] : sc.rho0;
-      const T m_q = mu != nullptr ? mu[qi] : sc.mu0;
-      const T d_q = damp != nullptr ? damp[qi] : sc.damp0;
-      const T tmu = sc.tau1 * m_q;
-      for (int c = 0; c < DIM; ++c) {
-        T conv = sc.beta * (div * sv[c] + div_s * uv[c]);
-        for (int e = 0; e < DIM; ++e) conv += sv[e] * ug[c][e] + uv[e] * sg[c][e];
-        const T value = variable
-            ? r_q * (sc.weight * uv[c] + sc.tau1 * conv) - d_q * uv[c]
-            : (sc.rho0 * sc.weight - sc.damp0) * uv[c] + sc.tau1 * sc.rho0 * conv;
-        cb[(S1 + c) * NB + q] = value * jxw;
-        for (int d = 0; d < DIM; ++d) {
-          T st = tmu * (ug[c][d] + ug[d][c]);
-          if (c == d) st += sc.tgd * div - pq;
-          cb[(S1 + DIM + DIM * c + d) * NB + q] = st * jxw * tab.inv_h[d];
-        }
-      }
-      if (PRES) cb[(S1 + DIM + DIM * DIM) * NB + q] = -div * jxw;
-    }
-    __syncthreads();
-  } else if constexpr (!MDOT) {
-    // ---- dropped q-point terms: value_c = u_c, stress_cd = d_d u*_c,
-    //      prow = p (the final fields, copied) -----------------------------
-    for (int t = tid; t < nc * NQ; t += nth) {
-      T* cb = buf + (t / NQ) * CS;
-      const int q = t % NQ;
-      for (int c = 0; c < DIM; ++c) {
-        cb[(S1 + c) * NB + q] = cb[(F + FI * c) * NB + q];
-        for (int d = 0; d < DIM; ++d)
-          cb[(S1 + DIM + DIM * c + d) * NB + q] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q];
-      }
-      cb[(S1 + DIM + DIM * DIM) * NB + q] = cb[(F + FI * NI) * NB + q];
-    }
-    __syncthreads();
-  }
-
-  constexpr int OUT = DIM == 3 ? S1 : IN;
-  if constexpr (!MDOT && (PH & kPhIntegrate) != 0) {
-    // ---- integration, stage x (transposed): a_c = Vx^T value_c + Dx^T st_cx,
-    //      b_c = Vx^T st_cy (, cz_c = Vx^T st_cz); pressure Vpx^T prow --------
-    // outputs: 3D into S2 (3 per component), 2D into F (2 per component)
-    {
-      constexpr int TX = DIM == 3 ? S2 : F;
-      constexpr int e2 = DIM == 3 ? Q1 : 1;
-      constexpr int n1 = N1 * ipow(Q1, DIM - 1), np1 = P1 * ipow(Q1, DIM - 1);
-      constexpr int per = DIM * DIM * n1 + (PRES ? np1 : 0);
-      for (int t = tid; t < nc * per; t += nth) {
-        T* cb = buf + (t / per) * CS;
-        int k = t % per;
-        if (k < DIM * DIM * n1) {
-          const int c = k / (DIM * n1), j = (k / n1) % DIM, o = k % n1;
-          const T* st = cb + (S1 + DIM + DIM * c) * NB;  // st_c0 .. st_c(DIM-1)
-          T* dst = cb + (TX + DIM * c + j) * NB;
-          if (j == 0) {
-            axis_op<T>(dst, cb + (S1 + c) * NB, sV, st, sD, N1, true, 0, Q1, Q1,
-                       e2, N1, o);
+      __syncthreads();
+    } else if constexpr (SCHED == kSchedPipe) {
+      // ---- the next group's bulk copies in flight; this group was assembled
+      //      at the end of the last iteration -------------------------------
+      if (more)
+        pipe_start(slab, bar, pruns, pcells, gn * cpb, group_cells(gn), cpb, u, p, us, n_u,
+                   pa.ncx, pa.ncy);
+    } else if constexpr (SRC != kSrcBlock && !GATHER) {
+      // ---- dropped gather: each item of a cell reads one value v, at the
+      //      cell's first dof, and spreads it as v (l + 1) over its local dofs l
+      //      (a field constant on each cell would leave the output at roundoff)
+      constexpr int NIP = NI + 1;
+      for (int t = tid; t < nc * NIP; t += nth) {
+        const int cell = t / NIP, item = t % NIP;
+        const long long e = c0 + cell;
+        T* cb = buf + cell * CS;
+        if (item < NI) {
+          const long long dof = cell_u[e * NL];
+          T v;
+          if (item < DIM) {
+            const long long g = item * n_u + dof;
+            v = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
           } else {
-            axis_op<T>(dst, st + j * NB, sV, nullptr, nullptr, N1, true, 0, Q1,
-                       Q1, e2, N1, o);
+            v = us[(item - DIM) * n_u + dof];
+          }
+          for (int l = 0; l < NL; ++l) cb[(IN + item) * NB + l] = v * T(l + 1);
+        } else {
+          const long long dof = cell_p[e * NP];
+          const T v = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
+          for (int l = 0; l < NP; ++l) cb[(IN + NI) * NB + l] = v * T(l + 1);
+        }
+      }
+    } else if constexpr (SRC != kSrcBlock) {
+      // ---- gather: u (constrained entries read 0), u* (plain), p (masked) --
+      gather_nodal<DIM, N1, P1, NB, PRES, LAT, (PH & kPhContig) != 0, false>(
+          buf + IN * NB, CS, c0, nc, u, p, us, cell_u, cell_p, mask_u, mask_p, n_u, pa);
+    } else {
+      // ---- load the cell blocks: x row = [u_0 .. u_(DIM-1) | p], stream row
+      //      = u* dofs [u*_0 ..] or u* q-fields [(value, d/dx_0 ..) of u*_0,
+      //      ...] with physical gradients, straight into the final fields ----
+      constexpr int per_g = LDX + SLD;
+      for (int t = tid; t < nc * per_g; t += nth) {
+        const int cell = t / per_g;
+        const int k = t % per_g;
+        const long long e = c0 + cell;
+        T* cb = buf + cell * CS;
+        if (k < LDX) {
+          const T v = u[e * LDX + k];
+          if (k < DIM * NL) {
+            cb[(IN + k / NL) * NB + k % NL] = v;
+          } else {
+            cb[(IN + NI) * NB + (k - DIM * NL)] = v;
           }
         } else {
-          k -= DIM * DIM * n1;
-          axis_op<T>(cb + (TX + DIM * DIM) * NB, cb + (S1 + DIM + DIM * DIM) * NB,
-                     sVp, nullptr, nullptr, P1, true, 0, Q1, Q1, e2, P1, k);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- integration, stage y: 3D e_c = Vy^T a_c + Dy^T b_c, f_c = Vy^T cz_c
-    //      into IN; 2D out_c = Vy^T a_c + Dy^T b_c into IN -------------------
-    {
-      constexpr int TX = DIM == 3 ? S2 : F;
-      constexpr int e2 = DIM == 3 ? Q1 : 1;
-      constexpr int n2 = N1 * N1 * (DIM == 3 ? Q1 : 1);
-      constexpr int np2 = P1 * P1 * (DIM == 3 ? Q1 : 1);
-      constexpr int NO = DIM == 3 ? 2 : 1;  // outputs per component
-      constexpr int per = DIM * NO * n2 + (PRES ? np2 : 0);
-      for (int t = tid; t < nc * per; t += nth) {
-        T* cb = buf + (t / per) * CS;
-        int k = t % per;
-        if (k < DIM * NO * n2) {
-          const int c = k / (NO * n2), j = (k / n2) % NO, o = k % n2;
-          const T* src = cb + (TX + DIM * c) * NB;
-          T* dst = cb + (IN + NO * c + j) * NB;
-          if (j == 0) {
-            axis_op<T>(dst, src, sV, src + NB, sD, N1, true, 1, N1, Q1, e2, N1,
-                       o);
+          const int j = k - LDX;
+          const T v = us[e * SLD + j];
+          if constexpr (QF) {
+            cb[(F + FI * DIM + j / NQ) * NB + j % NQ] = v;
           } else {
-            axis_op<T>(dst, src + 2 * NB, sV, nullptr, nullptr, N1, true, 1, N1,
-                       Q1, e2, N1, o);
+            cb[(IN + DIM + j / NL) * NB + j % NL] = v;
           }
+        }
+      }
+    }
+    if constexpr (SCHED == kSchedOnce) __syncthreads();
+
+    // ---- evaluation, stage x: A0 = Vx u, A1 = Dx u; pressure Vpx p ---------
+    {
+      constexpr int n1 = ipow(N1, DIM - 1) * Q1, np1 = ipow(P1, DIM - 1) * Q1;
+      constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
+      constexpr int per = NE * 2 * n1 + (PE ? np1 : 0);
+      // (no work when a probe drops every item of the stage)
+      if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
+        T* cb = buf + (t / per) * CS;
+        int k = t % per;
+        if (k < NE * 2 * n1) {
+          const int item = I0 + k / (2 * n1), which = (k / n1) % 2, o = k % n1;
+          axis_op<T>(cb + (S1 + 2 * item + which) * NB,
+                     gin + (t / per) * gstride + item * NB, which ? sD : sV, nullptr,
+                     nullptr, N1, false, 0, N1, N1, e2, Q1, o);
         } else {
-          k -= DIM * NO * n2;
-          axis_op<T>(cb + (IN + NO * DIM) * NB, cb + (TX + DIM * DIM) * NB, sVp,
-                     nullptr, nullptr, P1, true, 1, P1, Q1, e2, P1, k);
+          k -= NE * 2 * n1;
+          axis_op<T>(cb + (S1 + 2 * NI) * NB, gin + (t / per) * gstride + NI * NB, sVp,
+                     nullptr, nullptr, P1, false, 0, P1, P1, pe2, Q1, k);
         }
       }
     }
     __syncthreads();
 
-    // ---- integration, stage z (3D): out_c = Vz^T e_c + Dz^T f_c into S1 -----
-    if constexpr (DIM == 3) {
-      constexpr int per = DIM * NL + (PRES ? NP : 0);
-      for (int t = tid; t < nc * per; t += nth) {
+    // ---- evaluation, stage y: B00 = Vy A0, B01 = Dy A0, B10 = Vy A1 -------
+    // (2D: these are the final fields value, d/dy, d/dx, written to F)
+    {
+      constexpr int n2 = ipow(Q1, 2) * (DIM == 3 ? N1 : 1);
+      constexpr int np2 = ipow(Q1, 2) * (DIM == 3 ? P1 : 1);
+      constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
+      constexpr int per = NE * 3 * n2 + (PE ? np2 : 0);
+      // (no work when a probe drops every item of the stage)
+      if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
         T* cb = buf + (t / per) * CS;
         int k = t % per;
-        if (k < DIM * NL) {
-          const int c = k / NL, o = k % NL;
-          axis_op<T>(cb + (S1 + c) * NB, cb + (IN + 2 * c) * NB, sV,
-                     cb + (IN + 2 * c + 1) * NB, sD, N1, true, 2, N1, N1, Q1, N1,
+        if (k < NE * 3 * n2) {
+          const int item = I0 + k / (3 * n2), which = (k / n2) % 3, o = k % n2;
+          const T* src = cb + (S1 + 2 * item + (which == 2 ? 1 : 0)) * NB;
+          const T* M = which == 1 ? sD : sV;
+          T* dst;
+          if (DIM == 3) {
+            dst = cb + (S2 + 3 * item + which) * NB;
+          } else {
+            // value, d/dy (Dy Vx), d/dx (Vy Dx) -> F slots 0, 2, 1
+            const int f = which == 0 ? 0 : (which == 1 ? 2 : 1);
+            dst = cb + (F + FI * item + f) * NB;
+          }
+          axis_op<T>(dst, src, M, nullptr, nullptr, N1, false, 1, Q1, N1, e2, Q1,
                      o);
         } else {
-          k -= DIM * NL;
-          axis_op<T>(cb + (S1 + DIM) * NB, cb + (IN + 2 * DIM) * NB, sVp, nullptr,
-                     nullptr, P1, true, 2, P1, P1, Q1, P1, k);
+          k -= NE * 3 * n2;
+          T* dst = DIM == 3 ? cb + (S2 + 3 * NI) * NB : cb + (F + FI * NI) * NB;
+          axis_op<T>(dst, cb + (S1 + 2 * NI) * NB, sVp, nullptr, nullptr, P1,
+                     false, 1, Q1, P1, pe2, Q1, k);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- evaluation, stage z (3D): value = Vz B00, d/dx = Vz B10,
+    //      d/dy = Vz B01, d/dz = Dz B00 ---------------------------------------
+    if constexpr (DIM == 3) {
+      constexpr int n3 = NQ;
+      constexpr int per = NE * 4 * n3 + (PE ? n3 : 0);
+      // (no work when a probe drops every item of the stage)
+      if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
+        T* cb = buf + (t / per) * CS;
+        int k = t % per;
+        if (k < NE * 4 * n3) {
+          const int item = I0 + k / (4 * n3), which = (k / n3) % 4, o = k % n3;
+          const int src_slot = which == 1 ? 2 : (which == 2 ? 1 : 0);
+          axis_op<T>(cb + (F + FI * item + which) * NB,
+                     cb + (S2 + 3 * item + src_slot) * NB, which == 3 ? sD : sV,
+                     nullptr, nullptr, N1, false, 2, Q1, Q1, N1, Q1, o);
+        } else {
+          k -= NE * 4 * n3;
+          axis_op<T>(cb + (F + FI * NI) * NB, cb + (S2 + 3 * NI) * NB, sVp,
+                     nullptr, nullptr, P1, false, 2, Q1, Q1, P1, Q1, k);
         }
       }
       __syncthreads();
     }
-  } else if constexpr (!MDOT) {
-    // ---- dropped integration: out_c = value_c, already in place at S1 + c
-    //      (NL = NQ); out_p = prow ------------------------------------------
-    for (int t = tid; t < nc * NP; t += nth) {
-      T* cb = buf + (t / NP) * CS;
-      cb[(OUT + DIM) * NB + t % NP] = cb[(S1 + DIM + DIM * DIM) * NB + t % NP];
-    }
-    __syncthreads();
-  } else {
-    // ---- dense cell matrix: out = M89 x, x = [u_0 .. u_(DIM-1) | p] ------
-    for (int t = tid; t < nc * LDX; t += nth) {
-      T* cb = buf + (t / LDX) * CS;
-      const int k = t % LDX;
-      T acc = T(0);
-      for (int j = 0; j < DIM * NL; ++j)
-        acc += sM[k * LDX + j] * cb[(IN + j / NL) * NB + j % NL];
-      for (int j = 0; j < NP; ++j)
-        acc += sM[k * LDX + DIM * NL + j] * cb[(IN + NI) * NB + j];
-      cb[(OUT + (k < DIM * NL ? k / NL : DIM)) * NB + (k < DIM * NL ? k % NL : k - DIM * NL)] = acc;
-    }
-    __syncthreads();
-  }
 
-  // ---- output: atomic adds into the nodal output, or the cell block (or,
-  //      without kPhScatter, plain stores of the owned dofs) ----------------
-  constexpr bool SCATTER = (PH & kPhScatter) != 0;
-  for (int t = tid; t < nc * LDX; t += nth) {
-    const int cell = LAT ? t % nc : t / LDX;
-    const int k = LAT ? t / nc : t % LDX;
-    const long long e = c0 + cell;
-    const T* cb = buf + cell * CS;
-    if (k < DIM * NL) {
-      const int c = k / NL, l = k % NL;
-      const T v = cb[(OUT + c) * NB + l];
-      if constexpr (DST == kOutBlock) {
-        out_u[e * LDX + k] = v;
-      } else if constexpr (LAT) {
-        atomicAdd(out_u + c * n_u + lattice_dof<N1>(e, l, pa.ncx, pa.ncy), v);
-      } else if constexpr (SCATTER) {
-        atomicAdd(out_u + c * n_u + cell_u[e * NL + l], v);
-      } else {
-        if (owned<DIM, N1>(l)) out_u[c * n_u + cell_u[e * NL + l]] = v;
+    // ---- dropped evaluation: each final field of an item not evaluated holds
+    //      the item's dofs (q < NQ = NL), the pressure field its dofs (q mod NP)
+    if constexpr (!MDOT && (PH & (kPhEvalU | kPhEvalUs)) != (kPhEvalU | kPhEvalUs)) {
+      constexpr int NU = (PH & kPhEvalU) ? 0 : DIM;   // u items copied
+      constexpr int NS = (PH & kPhEvalUs) ? 0 : DIM;  // u* items copied
+      constexpr int per = (NU + NS) * FI * NQ + (PE ? 0 : NQ);
+      for (int t = tid; t < nc * per; t += nth) {
+        T* cb = buf + (t / per) * CS;
+        const int k = t % per;
+        if (k < (NU + NS) * FI * NQ) {
+          const int j = k / (FI * NQ), f = (k / NQ) % FI, q = k % NQ;
+          const int item = j < NU ? j : DIM + (j - NU);
+          cb[(F + FI * item + f) * NB + q] = cb[(IN + item) * NB + q];
+        } else {
+          const int q = k - (NU + NS) * FI * NQ;
+          cb[(F + FI * NI) * NB + q] = cb[(IN + NI) * NB + q % NP];
+        }
       }
+      __syncthreads();
+    }
+
+    if constexpr (!MDOT && (PH & kPhQPoint) != 0) {
+      // ---- q-point terms (NavierStokesOperator._q_point_terms, "vmult") -------
+      // outputs into S1: value_c at +c, stress_cd at +DIM+DIM c+d, prow at +DIM+DIM^2
+      // (the q-field stream's u* gradients are physical already)
+      for (int t = tid; t < nc * NQ; t += nth) {
+        const int cell = t / NQ, q = t % NQ;
+        T* cb = buf + cell * CS;
+        const int qx = q % Q1, qy = (q / Q1) % Q1, qz = q / (Q1 * Q1);
+        T jxw = tab.w[qx] * tab.w[qy] * tab.vol;
+        if (DIM == 3) jxw *= tab.w[qz];
+        T uv[DIM], sv[DIM], ug[DIM][DIM], sg[DIM][DIM];
+        for (int c = 0; c < DIM; ++c) {
+          uv[c] = cb[(F + FI * c) * NB + q];
+          sv[c] = cb[(F + FI * (DIM + c)) * NB + q];
+          for (int d = 0; d < DIM; ++d) {
+            ug[c][d] = cb[(F + FI * c + 1 + d) * NB + q] * tab.inv_h[d];
+            sg[c][d] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q] *
+                       (QF ? T(1) : tab.inv_h[d]);
+          }
+        }
+        const T pq = PRES ? cb[(F + FI * NI) * NB + q] : T(0);
+        T div = T(0), div_s = T(0);
+        for (int a = 0; a < DIM; ++a) {
+          div += ug[a][a];
+          div_s += sg[a][a];
+        }
+        const bool variable = rho != nullptr || mu != nullptr || damp != nullptr;
+        const long long qi = (c0 + cell) * NQ + q;
+        const T r_q = rho != nullptr ? rho[qi] : sc.rho0;
+        const T m_q = mu != nullptr ? mu[qi] : sc.mu0;
+        const T d_q = damp != nullptr ? damp[qi] : sc.damp0;
+        const T tmu = sc.tau1 * m_q;
+        for (int c = 0; c < DIM; ++c) {
+          T conv = sc.beta * (div * sv[c] + div_s * uv[c]);
+          for (int e = 0; e < DIM; ++e) conv += sv[e] * ug[c][e] + uv[e] * sg[c][e];
+          const T value = variable
+              ? r_q * (sc.weight * uv[c] + sc.tau1 * conv) - d_q * uv[c]
+              : (sc.rho0 * sc.weight - sc.damp0) * uv[c] + sc.tau1 * sc.rho0 * conv;
+          cb[(S1 + c) * NB + q] = value * jxw;
+          for (int d = 0; d < DIM; ++d) {
+            T st = tmu * (ug[c][d] + ug[d][c]);
+            if (c == d) st += sc.tgd * div - pq;
+            cb[(S1 + DIM + DIM * c + d) * NB + q] = st * jxw * tab.inv_h[d];
+          }
+        }
+        if (PRES) cb[(S1 + DIM + DIM * DIM) * NB + q] = -div * jxw;
+      }
+      __syncthreads();
+    } else if constexpr (!MDOT) {
+      // ---- dropped q-point terms: value_c = u_c, stress_cd = d_d u*_c,
+      //      prow = p (the final fields, copied) -----------------------------
+      for (int t = tid; t < nc * NQ; t += nth) {
+        T* cb = buf + (t / NQ) * CS;
+        const int q = t % NQ;
+        for (int c = 0; c < DIM; ++c) {
+          cb[(S1 + c) * NB + q] = cb[(F + FI * c) * NB + q];
+          for (int d = 0; d < DIM; ++d)
+            cb[(S1 + DIM + DIM * c + d) * NB + q] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q];
+        }
+        cb[(S1 + DIM + DIM * DIM) * NB + q] = cb[(F + FI * NI) * NB + q];
+      }
+      __syncthreads();
+    }
+
+    constexpr int OUT = DIM == 3 ? S1 : IN;
+    if constexpr (!MDOT && (PH & kPhIntegrate) != 0) {
+      // ---- integration, stage x (transposed): a_c = Vx^T value_c + Dx^T st_cx,
+      //      b_c = Vx^T st_cy (, cz_c = Vx^T st_cz); pressure Vpx^T prow --------
+      // outputs: 3D into S2 (3 per component), 2D into F (2 per component)
+      {
+        constexpr int TX = DIM == 3 ? S2 : F;
+        constexpr int e2 = DIM == 3 ? Q1 : 1;
+        constexpr int n1 = N1 * ipow(Q1, DIM - 1), np1 = P1 * ipow(Q1, DIM - 1);
+        constexpr int per = DIM * DIM * n1 + (PRES ? np1 : 0);
+        for (int t = tid; t < nc * per; t += nth) {
+          T* cb = buf + (t / per) * CS;
+          int k = t % per;
+          if (k < DIM * DIM * n1) {
+            const int c = k / (DIM * n1), j = (k / n1) % DIM, o = k % n1;
+            const T* st = cb + (S1 + DIM + DIM * c) * NB;  // st_c0 .. st_c(DIM-1)
+            T* dst = cb + (TX + DIM * c + j) * NB;
+            if (j == 0) {
+              axis_op<T>(dst, cb + (S1 + c) * NB, sV, st, sD, N1, true, 0, Q1, Q1,
+                         e2, N1, o);
+            } else {
+              axis_op<T>(dst, st + j * NB, sV, nullptr, nullptr, N1, true, 0, Q1,
+                         Q1, e2, N1, o);
+            }
+          } else {
+            k -= DIM * DIM * n1;
+            axis_op<T>(cb + (TX + DIM * DIM) * NB, cb + (S1 + DIM + DIM * DIM) * NB,
+                       sVp, nullptr, nullptr, P1, true, 0, Q1, Q1, e2, P1, k);
+          }
+        }
+      }
+      __syncthreads();
+
+      // ---- integration, stage y: 3D e_c = Vy^T a_c + Dy^T b_c, f_c = Vy^T cz_c
+      //      into IN; 2D out_c = Vy^T a_c + Dy^T b_c into IN -------------------
+      {
+        constexpr int TX = DIM == 3 ? S2 : F;
+        constexpr int e2 = DIM == 3 ? Q1 : 1;
+        constexpr int n2 = N1 * N1 * (DIM == 3 ? Q1 : 1);
+        constexpr int np2 = P1 * P1 * (DIM == 3 ? Q1 : 1);
+        constexpr int NO = DIM == 3 ? 2 : 1;  // outputs per component
+        constexpr int per = DIM * NO * n2 + (PRES ? np2 : 0);
+        for (int t = tid; t < nc * per; t += nth) {
+          T* cb = buf + (t / per) * CS;
+          int k = t % per;
+          if (k < DIM * NO * n2) {
+            const int c = k / (NO * n2), j = (k / n2) % NO, o = k % n2;
+            const T* src = cb + (TX + DIM * c) * NB;
+            T* dst = cb + (IN + NO * c + j) * NB;
+            if (j == 0) {
+              axis_op<T>(dst, src, sV, src + NB, sD, N1, true, 1, N1, Q1, e2, N1,
+                         o);
+            } else {
+              axis_op<T>(dst, src + 2 * NB, sV, nullptr, nullptr, N1, true, 1, N1,
+                         Q1, e2, N1, o);
+            }
+          } else {
+            k -= DIM * NO * n2;
+            axis_op<T>(cb + (IN + NO * DIM) * NB, cb + (TX + DIM * DIM) * NB, sVp,
+                       nullptr, nullptr, P1, true, 1, P1, Q1, e2, P1, k);
+          }
+        }
+      }
+      __syncthreads();
+
+      // ---- integration, stage z (3D): out_c = Vz^T e_c + Dz^T f_c into S1 -----
+      if constexpr (DIM == 3) {
+        constexpr int per = DIM * NL + (PRES ? NP : 0);
+        for (int t = tid; t < nc * per; t += nth) {
+          T* cb = buf + (t / per) * CS;
+          int k = t % per;
+          if (k < DIM * NL) {
+            const int c = k / NL, o = k % NL;
+            axis_op<T>(cb + (S1 + c) * NB, cb + (IN + 2 * c) * NB, sV,
+                       cb + (IN + 2 * c + 1) * NB, sD, N1, true, 2, N1, N1, Q1, N1,
+                       o);
+          } else {
+            k -= DIM * NL;
+            axis_op<T>(cb + (S1 + DIM) * NB, cb + (IN + 2 * DIM) * NB, sVp, nullptr,
+                       nullptr, P1, true, 2, P1, P1, Q1, P1, k);
+          }
+        }
+        __syncthreads();
+      }
+    } else if constexpr (!MDOT) {
+      // ---- dropped integration: out_c = value_c, already in place at S1 + c
+      //      (NL = NQ); out_p = prow ------------------------------------------
+      for (int t = tid; t < nc * NP; t += nth) {
+        T* cb = buf + (t / NP) * CS;
+        cb[(OUT + DIM) * NB + t % NP] = cb[(S1 + DIM + DIM * DIM) * NB + t % NP];
+      }
+      __syncthreads();
     } else {
-      const int l = k - DIM * NL;
-      const T v = cb[(OUT + DIM) * NB + l];
-      if constexpr (DST == kOutBlock) {
-        out_u[e * LDX + k] = v;
-      } else if constexpr (LAT) {
-        atomicAdd(out_p + lattice_dof<P1>(e, l, pa.ncx, pa.ncy), v);
-      } else if constexpr (SCATTER) {
-        atomicAdd(out_p + cell_p[e * NP + l], v);
+      // ---- dense cell matrix: out = M89 x, x = [u_0 .. u_(DIM-1) | p] ------
+      for (int t = tid; t < nc * LDX; t += nth) {
+        T* cb = buf + (t / LDX) * CS;
+        const int k = t % LDX;
+        T acc = T(0);
+        for (int j = 0; j < DIM * NL; ++j)
+          acc += sM[k * LDX + j] * cb[(IN + j / NL) * NB + j % NL];
+        for (int j = 0; j < NP; ++j)
+          acc += sM[k * LDX + DIM * NL + j] * cb[(IN + NI) * NB + j];
+        cb[(OUT + (k < DIM * NL ? k / NL : DIM)) * NB + (k < DIM * NL ? k % NL : k - DIM * NL)] = acc;
+      }
+      __syncthreads();
+    }
+
+    // ---- output: atomic adds into the nodal output, or the cell block (or,
+    //      without kPhScatter, plain stores of the owned dofs) ----------------
+    constexpr bool SCATTER = (PH & kPhScatter) != 0;
+    for (int t = tid; t < nc * LDX; t += nth) {
+      const int cell = LAT ? t % nc : t / LDX;
+      const int k = LAT ? t / nc : t % LDX;
+      const long long e = c0 + cell;
+      const T* cb = buf + cell * CS;
+      if (k < DIM * NL) {
+        const int c = k / NL, l = k % NL;
+        const T v = cb[(OUT + c) * NB + l];
+        if constexpr (DST == kOutBlock) {
+          out_u[e * LDX + k] = v;
+        } else if constexpr (LAT) {
+          atomicAdd(out_u + c * n_u + lattice_dof<N1>(e, l, pa.ncx, pa.ncy), v);
+        } else if constexpr (SCATTER) {
+          atomicAdd(out_u + c * n_u + cell_u[e * NL + l], v);
+        } else {
+          if (owned<DIM, N1>(l)) out_u[c * n_u + cell_u[e * NL + l]] = v;
+        }
       } else {
-        if (owned<DIM, P1>(l)) out_p[cell_p[e * NP + l]] = v;
+        const int l = k - DIM * NL;
+        const T v = cb[(OUT + DIM) * NB + l];
+        if constexpr (DST == kOutBlock) {
+          out_u[e * LDX + k] = v;
+        } else if constexpr (LAT) {
+          atomicAdd(out_p + lattice_dof<P1>(e, l, pa.ncx, pa.ncy), v);
+        } else if constexpr (SCATTER) {
+          atomicAdd(out_p + cell_p[e * NP + l], v);
+        } else {
+          if (owned<DIM, P1>(l)) out_p[cell_p[e * NP + l]] = v;
+        }
       }
     }
+
+    if constexpr (SCHED == kSchedPipe) {
+      // ---- the next group: its copies landed, assembled into the other
+      //      staging slot (the one this group's stage x did not read) --------
+      if (more) {
+        bar_wait(bar, (unsigned)((it + 1) & 1));
+        pipe_assemble<NB, SG>(stg + ((it + 1) & 1) * cpb * SG, slab, pruns, pcells,
+                            group_cells(gn), cpb, mask_u, mask_p, n_u);
+      }
+      __syncthreads();
+    }
+    g = gn;
   }
 }
 
@@ -799,6 +1174,82 @@ int launch_instance(K kern, int extra, const void* u, const void* p, const void*
   return (int)cudaGetLastError();
 }
 
+// Launch a K13 schedule of the cell kernel (3D Q2/Q1, table source, atomic
+// scatter, constant coefficients) on a persistent grid: as many blocks as
+// fit resident on the card, at most one per cell group (kSchedPair: per pair
+// of groups). Shared memory: the tables, one work area of CPB cells (two for
+// kSchedPair), two staging slots of CPB cells (kSchedRowAsync, kSchedPipe),
+// the pipe's slab, its mbarrier and tables; each region a multiple of 16
+// bytes.
+template <typename T>
+size_t schedule_smem(int sched, int ncx, int* cpb_out) {
+  using S = Shape<3, 3, 3, 2>;
+  const size_t cell_bytes = (size_t)S::SLOTS * S::NB * sizeof(T);
+  int cpb = (int)(32768 / cell_bytes);
+  if (cpb < 1) cpb = 1;
+  size_t smem = 3 * kMaxTab * sizeof(T) + (sched == kSchedPair ? 2 : 1) * cpb * cell_bytes;
+  if (sched == kSchedRowAsync || sched == kSchedPipe)
+    smem += 2 * (size_t)cpb * (6 * S::NB + S::NP) * sizeof(T);
+  if (sched == kSchedPipe)
+    smem += pipe_slab_bytes(cpb, ncx, sizeof(T)) + pipe_table_bytes(cpb, ncx);
+  if (cpb_out != nullptr) *cpb_out = cpb;
+  return smem;
+}
+
+// The blocks of `kern` with `smem` bytes of shared memory that one SM holds
+// (the occupancy calculator), after allowing that shared memory.
+template <typename K>
+cudaError_t resident_blocks(K kern, size_t smem, int* per_sm) {
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, kThreads, smem);
+}
+
+// The probe configuration's cell kernel (3D Q2/Q1 with pressure, table
+// source, atomic scatter, every phase) under schedule `sched`, passed to f.
+template <typename T, typename F>
+int with_schedule(int sched, F f) {
+#define ADAFLO_SCHED(s) \
+  coupled_cell_kernel<3, 3, 3, 2, true, kSrcTable, kStreamDofs, kOutScatter, T, kPhAll, s>
+  switch (sched) {
+    case kSchedOnce: return f(ADAFLO_SCHED(kSchedOnce));
+    case kSchedRowAsync: return f(ADAFLO_SCHED(kSchedRowAsync));
+    case kSchedPipe: return f(ADAFLO_SCHED(kSchedPipe));
+    case kSchedPair: return f(ADAFLO_SCHED(kSchedPair));
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ADAFLO_SCHED
+}
+
+template <typename T, typename K>
+int launch_schedule(K kern, int sched, const void* u, const void* p, const void* us,
+                    const int32_t* cell_u, const int32_t* cell_p, const uint8_t* mask_u,
+                    const uint8_t* mask_p, void* out_u, void* out_p, long long n_u,
+                    long long n_cells, const double* tab, const double* scal,
+                    ProbeArgs<T> pa, cudaStream_t stream) {
+  int cpb = 0, dev = 0, sms = 0, per_sm = 0;
+  const size_t smem = schedule_smem<T>(sched, pa.ncx, &cpb);
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = resident_blocks(kern, smem, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long groups = (n_cells + cpb - 1) / cpb;
+  const long long units = sched == kSchedPair ? (groups + 1) / 2 : groups;
+  const long long resident = (long long)per_sm * sms;
+  const long long grid = resident < units ? resident : units;
+  if (grid > 0) {
+    kern<<<(unsigned)grid, kThreads, smem, stream>>>(
+        (const T*)u, (const T*)p, (const T*)us, cell_u, cell_p, mask_u, mask_p, nullptr,
+        nullptr, nullptr, (T*)out_u, (T*)out_p, n_u, n_cells, cpb,
+        make_tables<3, 3, 3, 2, T>(tab), make_scalars<T>(scal), pa);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int DIM, int N1, int Q1, int P1, typename T>
 int launch_cells(int mode, int pres, const void* u, const void* p, const void* us,
                  const int32_t* cell_u, const int32_t* cell_p,
@@ -826,9 +1277,10 @@ int launch_cells(int mode, int pres, const void* u, const void* p, const void* u
 }
 
 // K12/K13 and K11: 3D Q2/Q1 with pressure, nodal in and out, constant
-// coefficients; a phase mask PH (table source) or the lattice source.
+// coefficients; a phase mask PH (table source), the lattice source, or one
+// of K13's schedules (every phase, table source).
 template <typename T>
-int launch_variant(int phases, int lattice, const void* u, const void* p,
+int launch_variant(int phases, int lattice, int sched, const void* u, const void* p,
                    const void* us, const int32_t* cell_u, const int32_t* cell_p,
                    const uint8_t* mask_u, const uint8_t* mask_p, void* out_u,
                    void* out_p, long long n_u, long long n_cells, const double* tab,
@@ -840,6 +1292,16 @@ int launch_variant(int phases, int lattice, const void* u, const void* p,
   };
 #define ADAFLO_PH(ph) coupled_cell_kernel<3, 3, 3, 2, true, kSrcTable, kStreamDofs, kOutScatter, T, ph>
   if (p == nullptr || out_p == nullptr || us == nullptr) return (int)cudaErrorInvalidValue;
+  if (sched != kSchedOnce) {
+    if (lattice || phases != kPhAll || cell_u == nullptr || cell_p == nullptr)
+      return (int)cudaErrorInvalidValue;
+    // the pipe's copies address the lattice: its cells per axis
+    if (sched == kSchedPipe && (pa.ncx < 1 || pa.ncy < 1)) return (int)cudaErrorInvalidValue;
+    return with_schedule<T>(sched, [&](auto kern) {
+      return launch_schedule<T>(kern, sched, u, p, us, cell_u, cell_p, mask_u, mask_p, out_u,
+                                out_p, n_u, n_cells, tab, scal, pa, stream);
+    });
+  }
   if (lattice) {
     if (phases != kPhAll) return (int)cudaErrorInvalidValue;
     return go(coupled_cell_kernel<3, 3, 3, 2, true, kSrcLattice, kStreamDofs, kOutScatter, T>, 0);
@@ -864,6 +1326,17 @@ int launch_variant(int phases, int lattice, const void* u, const void* p,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ADAFLO_PH
+}
+
+// Shared memory of one block and resident blocks per SM of a schedule.
+template <typename T>
+int residency(int sched, int ncx, int* smem, int* blocks_per_sm) {
+  if (sched == kSchedPipe && ncx < 1) return (int)cudaErrorInvalidValue;
+  const size_t bytes = schedule_smem<T>(sched, ncx, nullptr);
+  *smem = (int)bytes;
+  return with_schedule<T>(sched, [&](auto kern) {
+    return (int)resident_blocks(kern, bytes, blocks_per_sm);
+  });
 }
 
 template <typename T>
@@ -969,9 +1442,12 @@ int adaflo_coupled_epilogue(int dtype, void* out_u, void* out_p,
 // coefficients, its phases the mask `phases` (kPh* bits; one of the probe
 // variants). K11 takes phases = kPhAll and reads no cell table: its
 // addresses come from the cells per axis ncx, ncy of the uniform,
-// non-periodic lattice. M: M89 (89 x 89, row-major) for kPhMDot, else null.
-// n_p: pressure length (read by kPhContig). tab, scal: as adaflo_coupled_cells.
-int adaflo_coupled_variant(int dtype, int phases, int lattice, const void* u,
+// non-periodic lattice. sched: kSched* (0 for K11, K12 and K13's
+// ablations; K13's schedules take phases = kPhAll, lattice 0 and the cell
+// tables, and kSchedPipe also ncx, ncy, whose bulk copies address the
+// lattice). M: M89 (89 x 89, row-major) for kPhMDot, else null. n_p:
+// pressure length (read by kPhContig). tab, scal: as adaflo_coupled_cells.
+int adaflo_coupled_variant(int dtype, int phases, int lattice, int sched, const void* u,
                            const void* p, const void* us, const int32_t* cell_u,
                            const int32_t* cell_p, const uint8_t* mask_u,
                            const uint8_t* mask_p, const void* M, void* out_u,
@@ -980,13 +1456,23 @@ int adaflo_coupled_variant(int dtype, int phases, int lattice, const void* u,
                            const double* scal, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch_variant<double>(phases, lattice, u, p, us, cell_u, cell_p, mask_u,
+    return launch_variant<double>(phases, lattice, sched, u, p, us, cell_u, cell_p, mask_u,
                                   mask_p, out_u, out_p, n_u, n_cells, tab, scal,
                                   ProbeArgs<double>{(const double*)M, n_p, ncx, ncy}, st);
   if (dtype == 0)
-    return launch_variant<float>(phases, lattice, u, p, us, cell_u, cell_p, mask_u,
+    return launch_variant<float>(phases, lattice, sched, u, p, us, cell_u, cell_p, mask_u,
                                  mask_p, out_u, out_p, n_u, n_cells, tab, scal,
                                  ProbeArgs<float>{(const float*)M, n_p, ncx, ncy}, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K13's schedules and the one-shot full apply (sched 0) in the probe
+// configuration: the dynamic shared memory of one block (smem, bytes) and
+// the blocks of 128 threads one SM holds (the occupancy calculator); ncx:
+// the lattice's cells along x (the pipe's slab depends on it).
+int adaflo_coupled_residency(int dtype, int sched, int ncx, int* smem, int* blocks_per_sm) {
+  if (dtype == 1) return residency<double>(sched, ncx, smem, blocks_per_sm);
+  if (dtype == 0) return residency<float>(sched, ncx, smem, blocks_per_sm);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -29,7 +29,9 @@ their own, 3D Q2/Q1 only (the probes' configuration), driven by
 
 - ``coupled_apply_ablated`` (K12 ``probe_pr_phases.py``, K13
   ``probe_pr_parts.py``): nodal in and out with the phases of a variant
-  (``VARIANTS``), a compile-time phase mask of the cell kernel;
+  (``VARIANTS``), a compile-time phase mask of the cell kernel, or the full
+  apply under one of K13's TPU schedules (``K13_SCHEDULES``: rowdma, pipe,
+  unroll2), a compile-time schedule of its gather against its compute;
 - ``coupled_apply_lattice`` (K11 ``probe_pr_grouped.py``): K1's function with
   constant coefficients, its addresses computed from the lattice
   coordinates in place of the cell tables;
@@ -106,7 +108,13 @@ K13_VARIANTS = {
     "full": PH_ALL,
     "noscatter": PH_ALL & ~PH_SCATTER,
 }
-VARIANTS = K12_VARIANTS | K13_VARIANTS
+# the schedule of the cell kernel (kSched* in csrc/coupled_matvec.cu): the
+# production one-shot block, and K13's TPU schedules (scripts/probe_pr_parts.py
+# make_kernel_rowdma, make_kernel_pipe, make_kernel_unroll2), each the full
+# apply with its gather overlapped with its compute by asynchronous copies
+SCHED_ONCE, SCHED_ROW_ASYNC, SCHED_PIPE, SCHED_PAIR = 0, 1, 2, 3
+K13_SCHEDULES = {"rowdma": SCHED_ROW_ASYNC, "pipe": SCHED_PIPE, "unroll2": SCHED_PAIR}
+VARIANTS = K12_VARIANTS | K13_VARIANTS | {name: PH_ALL for name in K13_SCHEDULES}
 for _name in VARIANTS:
     launches[f"coupled_apply_ablated[{_name}]"] = 0
 
@@ -527,7 +535,9 @@ def coupled_apply_ablated_plain(u, p, u_star, cells: CoupledCells, sc: ApplyScal
     [phases], each dropped phase replaced as the kernel replaces it, step by
     step on the kernel's own intermediates (final fields with reference
     gradients, the q-point rows with JxW and 1/h folded in) from the dense
-    per-axis-product tables. Nodal (out_u, out_p), no constraint rows."""
+    per-axis-product tables. Nodal (out_u, out_p), no constraint rows. A
+    schedule of K13_SCHEDULES computes the full apply, so its plain version
+    is full's."""
     plain_calls["coupled_apply_ablated_plain"] += 1
     ph = VARIANTS[phases]
     dim, E = cells.dim, cells.n_cells
@@ -658,11 +668,16 @@ def lattice_cell_dofs(n_cells_axis, degree: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # the CUDA library
 # ---------------------------------------------------------------------------
+def library_path() -> Path:
+    """The built kernel library (built here when its source's hash is new)."""
+    return build_library(_SOURCE, "coupled_matvec", build_info)
+
+
 def load_library():
     """Build (once, keyed by the source's hash) and load the kernel library."""
     global _lib
     if _lib is None:
-        _lib = bind(ctypes.CDLL(str(build_library(_SOURCE, "coupled_matvec", build_info))))
+        _lib = bind(ctypes.CDLL(str(library_path())))
     return _lib
 
 
@@ -674,10 +689,13 @@ def bind(lib):
     lib.adaflo_coupled_cells.restype = i
     lib.adaflo_coupled_epilogue.argtypes = [i] + [vp] * 6 + [ll, ll, i, d, vp, vp]
     lib.adaflo_coupled_epilogue.restype = i
-    lib.adaflo_coupled_variant.argtypes = [i, i, i] + [vp] * 10 + [ll, ll, ll, i, i, vp, vp, vp]
+    lib.adaflo_coupled_variant.argtypes = [i] * 4 + [vp] * 10 + [ll, ll, ll, i, i, vp, vp, vp]
     lib.adaflo_coupled_variant.restype = i
     lib.adaflo_scatter_cells.argtypes = [i] + [vp] * 5 + [ll, ll, vp]
     lib.adaflo_scatter_cells.restype = i
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.adaflo_coupled_residency.argtypes = [i, i, i, ip, ip]
+    lib.adaflo_coupled_residency.restype = i
     return lib
 
 
@@ -881,17 +899,25 @@ def _probe_cells(cells: CoupledCells, what: str):
         )
 
 
-def _launch_variant(phases: int, lattice, u, p, u_star, cells, sc, M, out_u, out_p):
+def _launch_variant(phases: int, lattice, u, p, u_star, cells, sc, M, out_u, out_p,
+                    sched: int = SCHED_ONCE):
     """One launch of a probe instance of the cell kernel (K12/K13 by phase
-    mask, or K11 with lattice = (ncx, ncy) and no cell tables)."""
+    mask, K13's schedules by `sched`, or K11 with lattice = (ncx, ncy) and no
+    cell tables). The cells per axis of cells.lattice go with every launch
+    (the pipe schedule's bulk copies address the lattice)."""
     lib = load_library()
     scal = np.asarray(
         [sc.beta, sc.weight, sc.tau1, sc.rho, sc.mu, sc.damping, sc.tau_grad_div],
         np.float64,
     )
-    ncx, ncy = lattice if lattice is not None else (0, 0)
+    if lattice is not None:
+        ncx, ncy = lattice
+    elif cells.lattice is not None:
+        ncx, ncy = cells.lattice[0][:2]
+    else:
+        ncx, ncy = 0, 0
     rc = lib.adaflo_coupled_variant(
-        1 if u.dtype == torch.float64 else 0, phases, 0 if lattice is None else 1,
+        1 if u.dtype == torch.float64 else 0, phases, 0 if lattice is None else 1, sched,
         _ptr(u), _ptr(p), _ptr(u_star),
         None if lattice is not None else _ptr(cells.cell_u),
         None if lattice is not None else _ptr(cells.cell_p),
@@ -907,10 +933,21 @@ def coupled_apply_ablated(u, p, u_star, cells: CoupledCells, sc: ApplyScalars, p
     """K12/K13: the coupled apply (nodal in and out, constant coefficients,
     no constraint rows) with the phases of VARIANTS[phases]; a dropped
     phase is replaced by copies of its inputs (csrc/coupled_matvec.cu,
-    kPh*). 3D Q2/Q1. Returns (out_u, out_p)."""
+    kPh*). A name of K13_SCHEDULES is the full apply under that schedule
+    (kSched*); "pipe" copies x-runs of the lattice, so it takes the
+    uniform, non-periodic probe box only. 3D Q2/Q1. Returns (out_u, out_p)."""
     if phases not in VARIANTS:
         raise ValueError(f"unknown probe variant {phases!r}: one of {sorted(VARIANTS)}")
     _probe_cells(cells, "coupled_apply_ablated")
+    sched = K13_SCHEDULES.get(phases, SCHED_ONCE)
+    if sched == SCHED_PIPE:
+        if cells.lattice is None:
+            raise ValueError("coupled_apply_ablated('pipe'): the cells carry no lattice shape")
+        if any(cells.lattice[1]):
+            raise NotImplementedError(
+                "the pipe schedule copies x-runs of the non-periodic probe box; periodic "
+                "lattices wrap their cell tables, use 'rowdma' or 'unroll2'"
+            )
     _check(u, p, u_star, cells, None)
     if p is None:
         raise ValueError("coupled_apply_ablated needs a pressure vector")
@@ -921,9 +958,25 @@ def coupled_apply_ablated(u, p, u_star, cells: CoupledCells, sc: ApplyScalars, p
     ph = VARIANTS[phases]
     M = cells.probe_tables(u.device, u.dtype, sc)["M89"] if ph & PH_MDOT else None
     out_u, out_p = torch.zeros_like(u), torch.zeros_like(p)
-    _launch_variant(ph, None, u, p, u_star, cells, sc, M, out_u, out_p)
+    _launch_variant(ph, None, u, p, u_star, cells, sc, M, out_u, out_p, sched)
     launches[f"coupled_apply_ablated[{phases}]"] += 1
     return out_u, out_p
+
+
+def schedule_residency(dtype, name: str, ncx: int) -> dict:
+    """The cell kernel in the probe configuration under K13's schedule
+    `name` (or "full", the one-shot schedule): the shared memory of one
+    block in bytes ("smem") and the blocks of 128 threads one SM holds
+    ("blocks_per_sm", the CUDA occupancy calculator), on a lattice of ncx
+    cells along x. Needs the kernel library (a CUDA device)."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    rc = load_library().adaflo_coupled_residency(
+        1 if dtype == torch.float64 else 0, K13_SCHEDULES.get(name, SCHED_ONCE), ncx,
+        ctypes.byref(smem), ctypes.byref(blocks),
+    )
+    if rc != 0:
+        raise RuntimeError(f"coupled apply residency query failed (CUDA error {rc})")
+    return {"smem": smem.value, "blocks_per_sm": blocks.value}
 
 
 def coupled_apply_lattice(u, p, u_star, cells: CoupledCells, sc: ApplyScalars):

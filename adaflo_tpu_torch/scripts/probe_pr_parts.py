@@ -15,15 +15,28 @@ kernel (``csrc/coupled_matvec.cu``) with a compile-time phase mask:
   noscatter  full with a plain store of each cell's owned dofs in place of
              the atomic scatter (K12's minus_scatter)
 
-The TPU probe's scheduling variants (rowdma, pipe, unroll2) are DMA and VMEM
-schedules; their Hopper counterparts (a cp.async/TMA gather double-buffered
-against the compute, two cell blocks per thread block) belong to the
-redesign of the cell kernel and are not instanced here. Each variant is held
-against its plain version and timed with CUDA events.
+and the full apply under the TPU probe's three schedules of the gather
+against the compute (make_kernel_rowdma, make_kernel_pipe,
+make_kernel_unroll2), each an instance of the cell kernel with a
+compile-time schedule on a persistent grid (as many blocks as fit resident,
+each looping over groups of cells), its gather of the next group in flight
+while the current group computes:
+
+  rowdma     one 4- or 8-byte cp.async per dof, at the cell table's address,
+             into the other slot of a double-buffered staging area
+             (constrained entries zero-filled); stage x reads the slot
+  pipe       1D bulk copies (TMA, cp.async.bulk) of the lattice x-runs the
+             next group reads, 16-byte aligned, completing on an mbarrier;
+             then assembled, masks applied, into the other staging slot
+  unroll2    two groups per iteration, each in its own work area, one's
+             cp.async gather in flight while the other computes
+
+Each variant is held against its plain version (a schedule's output is
+full's, so it is held against full's) and timed with CUDA events.
 
 Run: python -m adaflo_tpu_torch.scripts.probe_pr_parts [--cells 48]
 [--reps 20] [--dtype float64|float32] [--device cpu]
-[--variants datapath,noshift,...]
+[--variants datapath,noshift,...,rowdma,pipe,unroll2]
 """
 
 from __future__ import annotations
@@ -37,20 +50,23 @@ from adaflo_tpu_torch.scripts import parse_args, probe_case
 from adaflo_tpu_torch.scripts.probe_pr_phases import run_variants
 
 
+VARIANTS = tuple(cm.K13_VARIANTS) + tuple(cm.K13_SCHEDULES)
+
+
 def run(cells: int = 48, reps: int = 20, dtype=torch.float64, device=None,
-        seed: int = 0, variants=tuple(cm.K13_VARIANTS), out=print) -> dict:
+        seed: int = 0, variants=VARIANTS, out=print) -> dict:
     for name in variants:
-        if name not in cm.K13_VARIANTS:
-            raise ValueError(f"unknown K13 variant {name!r}: one of {list(cm.K13_VARIANTS)}")
+        if name not in VARIANTS:
+            raise ValueError(f"unknown K13 variant {name!r}: one of {list(VARIANTS)}")
     case = probe_case(cells, dtype, device, seed)
-    out(f"K13 apply ablations: {cells}^3 cells, "
+    out(f"K13 apply ablations and schedules: {cells}^3 cells, "
         f"{3 * case.u.shape[1] + case.p.shape[0]} dofs, {str(dtype)[6:]}, {case.u.device}")
     return run_variants(case, variants, reps, out)
 
 
 def main(argv=None) -> None:
     def extra(ap):
-        ap.add_argument("--variants", default=",".join(cm.K13_VARIANTS))
+        ap.add_argument("--variants", default=",".join(VARIANTS))
 
     args = parse_args(__doc__.split("\n\n")[0], argv if argv is not None else sys.argv[1:],
                       extra)

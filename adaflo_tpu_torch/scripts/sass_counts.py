@@ -1,13 +1,19 @@
-"""Instruction counts of the probe kernels in the built library's SASS.
+"""Instruction counts of the probe kernels in the built libraries' SASS.
 
 The probes time statements that repeat themselves, which a compiler may
 merge or delete; the counts show that the work survived: the FMA and
 tensor-core instructions of each instance must grow with its statement
 count (K7 n_ops), row count (K8 n_rows) and rows of A (K9/K5 M) as the work
-does. Runs ``cuobjdump -sass`` (CUDA toolkit) on the library of
-``csrc/probe_kernels.cu``, building it first if needed, and prints, per
-kernel instance, the counts of FFMA, FMUL, FADD, DFMA, DMUL, DADD, HMMA,
-DMMA, LDS, LDG and STG.
+does. K13's schedules of the cell kernel must copy asynchronously: rowdma
+and unroll2 through cp.async (LDGSTS), pipe through bulk copies (UBLKCP)
+completing on an mbarrier (SYNCS); if nvcc turned a schedule's copies into
+plain loads, the counts show it. Runs ``cuobjdump -sass`` (CUDA toolkit)
+on the libraries of ``csrc/probe_kernels.cu`` and ``csrc/coupled_matvec.cu``,
+building them first if needed, and prints, per probe kernel instance and
+per schedule instance of the cell kernel (beside the production one-shot
+instance, "full"), the counts of FFMA, FMUL, FADD, DFMA, DMUL, DADD, HMMA,
+DMMA, LDS, LDG, STG, LDGSTS, UBLKCP and SYNCS; it fails if a schedule lacks
+its asynchronous copies.
 
 Run: python -m adaflo_tpu_torch.scripts.sass_counts
 """
@@ -20,9 +26,16 @@ import subprocess
 from collections import Counter
 from pathlib import Path
 
+from adaflo_tpu_torch.ops import coupled_matvec as cm
 from adaflo_tpu_torch.ops import probe_kernels as pk
 
-OPS = ("FFMA", "FMUL", "FADD", "DFMA", "DMUL", "DADD", "HMMA", "DMMA", "LDS", "LDG", "STG")
+OPS = ("FFMA", "FMUL", "FADD", "DFMA", "DMUL", "DADD", "HMMA", "DMMA", "LDS", "LDG", "STG",
+       "LDGSTS", "UBLKCP", "SYNCS")
+# the asynchronous copies each schedule must show
+SCHEDULE_OPS = {"rowdma": ("LDGSTS",), "pipe": ("UBLKCP", "SYNCS"), "unroll2": ("LDGSTS",)}
+# the mangled cell kernel <3, 3, 3, 2, true, kSrcTable, kStreamDofs,
+# kOutScatter, T, kPhAll, SCHED>: the probe configuration with every phase
+_CELL_KERNEL = re.compile(r"coupled_cell_kernelILi3ELi3ELi3ELi2ELb1ELi0ELi0ELi0E([df])Li63ELi(\d)EE")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 
 
@@ -42,8 +55,8 @@ def _demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
-def counts(library: Path) -> dict:
-    """{kernel instance (demangled): {opcode: count}} of `library`."""
+def _sass(library: Path) -> dict:
+    """{kernel instance (mangled): {opcode: count}} of `library`."""
     text = subprocess.run([_tool("cuobjdump"), "-sass", str(library)], capture_output=True,
                           text=True, check=True).stdout
     per, name = {}, None
@@ -55,15 +68,66 @@ def counts(library: Path) -> dict:
             m = _INSN.search(line)
             if m:
                 per[name][m.group(1).split(".")[0]] += 1
+    return {n: {op: c[op] for op in OPS} for n, c in per.items()}
+
+
+def counts(library: Path) -> dict:
+    """{kernel instance (demangled): {opcode: count}} of `library`."""
+    per = _sass(library)
     names = list(per)
-    return {d: {op: per[n][op] for op in OPS} for n, d in zip(names, _demangle(names))}
+    return {d: per[n] for n, d in zip(names, _demangle(names))}
 
 
-def main() -> None:
-    res = counts(pk.library_path())
+def _schedule_key(mangled: str):
+    """"<schedule> <double|float>" of a mangled instance of _CELL_KERNEL
+    ("full" for the one-shot schedule), or None for another kernel."""
+    m = _CELL_KERNEL.search(mangled)
+    if m is None:
+        return None
+    names = {v: k for k, v in cm.K13_SCHEDULES.items()} | {cm.SCHED_ONCE: "full"}
+    return f"{names[int(m.group(2))]} {'double' if m.group(1) == 'd' else 'float'}"
+
+
+def schedule_counts(library: Path) -> dict:
+    """{"<schedule> <dtype>": {opcode: count}} of the cell kernel's K13
+    schedule instances in `library` (coupled_matvec's), and of the
+    production one-shot full apply ("full <dtype>") beside them."""
+    return {_schedule_key(n): c for n, c in _sass(library).items() if _schedule_key(n)}
+
+
+def schedule_registers(log: str) -> dict:
+    """{"<schedule> <dtype>": registers per thread} of the instances of
+    schedule_counts, from the ptxas lines of an nvcc -Xptxas -v build log."""
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            key = _schedule_key(line)
+        elif key is not None and "Used " in line:
+            out[key] = int(line.split("Used ")[1].split()[0])
+            key = None
+    return out
+
+
+def check_schedules(res: dict) -> list:
+    """The schedules (float32 and float64) missing from `res` or without
+    their asynchronous copies (SCHEDULE_OPS)."""
+    return [f"{name} {t}" for name, ops in SCHEDULE_OPS.items() for t in ("float", "double")
+            if not all(res.get(f"{name} {t}", {}).get(op, 0) > 0 for op in ops)]
+
+
+def show(res: dict) -> None:
     for name in sorted(res):
         c = res[name]
         print(f"{name}: " + ", ".join(f"{op} {c[op]}" for op in OPS if c[op]), flush=True)
+
+
+def main() -> None:
+    show(counts(pk.library_path()))
+    sched = schedule_counts(cm.library_path())
+    show(sched)
+    missing = check_schedules(sched)
+    if missing:
+        raise SystemExit(f"schedules without their asynchronous copies: {missing}")
 
 
 if __name__ == "__main__":

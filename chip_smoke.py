@@ -5,7 +5,12 @@ Phases:
   1. device: nvidia-smi name and power limit, CUDA version; the two kernel
      libraries (csrc/coupled_matvec.cu, csrc/probe_kernels.cu) built by one
      nvcc each, started together, with each build's time and ptxas'
-     registers and spills;
+     registers and spills; the SASS of K13's three schedules of the cell
+     kernel (scripts/sass_counts): rowdma and unroll2 must hold cp.async
+     (LDGSTS), pipe bulk copies (UBLKCP) and mbarrier operations (SYNCS);
+     beside it each schedule's registers, shared memory per block and
+     resident blocks per SM (the occupancy calculator), and the one-shot
+     full apply's;
   2. kernels against their plain PyTorch versions, on the card, max-abs error
      over max-abs <= 1e-12 (float64) / 1e-5 (float32), with the time per
      apply beside the plain version's time and the bound (bytes over the
@@ -28,8 +33,9 @@ Phases:
        reads the wrapped cell table on the periodic lattice);
      - the probe instances at 16^3 and 48^3 (3D Q2/Q1 box with Dirichlet
        rows, float64 and float32), max-abs error over max-abs of the whole
-       output [u | p]: K12's and K13's phase-masked instances
-       (coupled_apply_ablated) against coupled_apply_ablated_plain, K11
+       output [u | p]: K12's and K13's phase-masked instances and K13's
+       three schedules rowdma, pipe and unroll2 (coupled_apply_ablated)
+       against coupled_apply_ablated_plain (full's, for a schedule), K11
        (coupled_apply_lattice, no cell table) against coupled_apply_plain,
        K6 (scatter_cells) against scatter_cells_plain;
      - the contraction-rate probes (ops/probe_kernels: K7 row_fma, K8
@@ -53,7 +59,8 @@ Phases:
      (probe_pr_phases K12, probe_pr_parts K13, probe_pr K6 with K3 and K4
      alone, probe_pr_grouped K11) at the probes' 48^3-cell Q2/Q1 box in
      float64 and float32: per variant ms/apply, bound and plain ms, K12's
-     phase attribution, K6's index_add_ and lattice-scatter times; then the
+     phase attribution, K13's schedules beside full, K6's index_add_ and
+     lattice-scatter times; then the
      contraction-rate probes (probe_sf K7-K10 at block 4096 and 29 steps in
      float32 and float64, probe_mxu K5 at 110,592 columns beside
      torch.matmul): per configuration ms, bound, plain and library ms, and
@@ -92,6 +99,11 @@ K6_REPLACES = "scripts/probe_pr.py:144"  # ring_scatter
 K11_REPLACES = "scripts/probe_pr_grouped.py:213"  # build_call
 K12_REPLACES = "scripts/probe_pr_phases.py:164"  # apply_fn
 K13_REPLACES = "scripts/probe_pr_parts.py:363"  # run_variant
+K13_SCHEDULE_REPLACES = {  # make_kernel_rowdma, make_kernel_pipe, make_kernel_unroll2
+    "rowdma": "scripts/probe_pr_parts.py:35",
+    "pipe": "scripts/probe_pr_parts.py:101",
+    "unroll2": "scripts/probe_pr_parts.py:170",
+}
 SF_SOURCE = "adaflo_tpu_torch/csrc/probe_kernels.cu"
 K5_REPLACES = "scripts/probe_mxu.py:93"  # pkern (pall)
 K7_REPLACES = "scripts/probe_sf.py:83"  # run_vpu kernel
@@ -627,6 +639,13 @@ def run_probes():
             results[(key, dname)] = mod.run(48, 20, dtype)
             sys.stdout.flush()
             torch.cuda.empty_cache()
+    for (key, dname), res in results.items():
+        if key == "K13":
+            full = res["full"]
+            print(f"K13 schedules, 48^3 {dname}: " + ", ".join(
+                f"{v} {res[v]['ms']:.4f} ms ({res[v]['ms'] / full['ms']:.3f} x full)"
+                for v in cm.K13_SCHEDULES
+            ) + f"; full {full['ms']:.4f} ms, bound {full['bound_ms']:.4f} ms", flush=True)
     launches, plain = dict(cm.launches), dict(cm.plain_calls)
     probe_entries = [f"coupled_apply_ablated[{v}]" for v in cm.VARIANTS]
     probe_entries += ["coupled_apply_lattice", "scatter_cells"]
@@ -677,6 +696,36 @@ def run_sf_probes():
     if failed:
         raise AssertionError(f"contraction-rate probe checks failed: {failed}")
     return dict(sf=sf, mxu=mxu, launches=launches)
+
+
+def check_schedule_build(cm):
+    """Phase 1: K13's schedules (and the one-shot full apply beside them) in
+    the built library: SASS counts, each schedule holding its asynchronous
+    copies (scripts.sass_counts.SCHEDULE_OPS), ptxas registers, and shared
+    memory and resident blocks per SM at the probes' 48 cells along x.
+    Returns {"<name> <double|float>": record}."""
+    import torch
+
+    from adaflo_tpu_torch.scripts import sass_counts
+
+    sass = sass_counts.schedule_counts(cm.library_path())
+    regs = sass_counts.schedule_registers(cm.build_info.get("log", ""))
+    out = {}
+    for name in ("full",) + tuple(cm.K13_SCHEDULES):
+        for t, dtype in (("double", torch.float64), ("float", torch.float32)):
+            key = f"{name} {t}"
+            c = sass.get(key, {})
+            out[key] = dict(sass=c, registers=regs.get(key),
+                            **cm.schedule_residency(dtype, name, 48))
+            print(f"schedule {key}: {out[key]['registers']} registers, {out[key]['smem']} B "
+                  f"shared, {out[key]['blocks_per_sm']} blocks/SM; SASS " + ", ".join(
+                      f"{op} {c.get(op, 0)}"
+                      for op in ("LDGSTS", "UBLKCP", "SYNCS", "LDG", "LDS", "DFMA", "FFMA")),
+                  flush=True)
+    missing = sass_counts.check_schedules(sass)
+    if missing:
+        raise AssertionError(f"schedules without their asynchronous copies: {missing}")
+    return out
 
 
 def reset_counts(mod):
@@ -898,6 +947,7 @@ def main() -> int:
               f"thread, {len(spills)} with spills")
         for ln in spills:
             print(f"ptxas ({name}):", ln)
+    sched_build = check_schedule_build(cm)
 
     # ---- phase 2: kernels against the plain versions -------------------------
     rec = check_kernels(device)
@@ -963,11 +1013,17 @@ def main() -> int:
         kernels.append(probe_entry(name, name, K12_REPLACES, "K12", v))
         if v in K13_VARIANTS:  # "full", one instance for both probes
             kernels[-1]["also_replaces"] = K13_REPLACES
+            kernels[-1]["build"] = {t: sched_build[f"full {t}"] for t in ("double", "float")}
     for v in K13_VARIANTS:
         if v in K12_VARIANTS:  # "full": K12's instance and row
             continue
         name = f"coupled_apply_ablated[{v}]"
         kernels.append(probe_entry(name, name, K13_REPLACES, "K13", v))
+    for v, replaces in K13_SCHEDULE_REPLACES.items():
+        name = f"coupled_apply_ablated[{v}]"
+        kernels.append(probe_entry(name, name, replaces, "K13", v))
+        kernels[-1]["full_ms"] = probes["results"][("K13", "float64")]["full"]["ms"]
+        kernels[-1]["build"] = {t: sched_build[f"{v} {t}"] for t in ("double", "float")}
     kernels.append(probe_entry("coupled_apply_lattice", "coupled_apply_lattice",
                                K11_REPLACES, "K11", "lattice"))
     kernels.append(probe_entry("scatter_cells", "scatter_cells", K6_REPLACES, "K6",

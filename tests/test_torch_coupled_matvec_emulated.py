@@ -12,9 +12,11 @@ q-field streams, K4's in-kernel gather; coupled and velocity-only) against
 on a periodic lattice (wrapped cell tables); and the probe instances on a
 4^3 box (K12's and K13's phase-masked instances against
 `coupled_apply_ablated_plain`, K11's table-free lattice source against
-`coupled_apply_plain`, K6's scatter against `scatter_cells_plain`). What this
-cannot show: that nvcc accepts the source, and what many threads do;
-`chip_smoke.py` checks both on the card. Skips where g++ is missing."""
+`coupled_apply_plain`, K6's scatter against `scatter_cells_plain`), and K13's
+three schedules on a persistent grid smaller than their group count, against
+full's plain version. What this cannot show: that nvcc accepts the source,
+what many threads do, and that the copies are asynchronous; `chip_smoke.py`
+checks all three on the card. Skips where g++ is missing."""
 
 import numpy as np
 import pytest
@@ -26,7 +28,7 @@ from adaflo_tpu_torch.ops import coupled_matvec as cm
 from adaflo_tpu_torch.ops.lattice import LatticeOps
 from adaflo_tpu_torch.ops.tensor import CellEvaluator
 from adaflo_tpu_torch.scripts import joint_err
-from torch_emulation import build_emulated
+from torch_emulation import EMU_SMS, build_emulated
 
 torch.set_num_threads(2)
 
@@ -147,11 +149,12 @@ def test_emulated_block_entries_match_plain_versions(
     assert err <= (1e-12 if dtype == torch.float64 else 1e-5) * float(ref.abs().max())
 
 
-def _box4(dtype):
-    """The probes' Dirichlet box at 4^3 cells, Q2/Q1, with its masks (every
-    velocity boundary dof, one pressure dof) and the lattice shape."""
+def _box4(dtype, shape=(4, 4, 4)):
+    """The probes' Dirichlet box at 4^3 cells (or `shape`), Q2/Q1, with its
+    masks (every velocity boundary dof, one pressure dof) and the lattice
+    shape."""
     rng = np.random.default_rng(44)
-    mesh = StructuredMesh((4, 4, 4), (0.0,) * 3, (1.0,) * 3)
+    mesh = StructuredMesh(shape, (0.0,) * 3, (1.0,) * 3)
     us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
     ev_u = CellEvaluator(3, us.basis, 3, mesh.h, device="cpu")
     ev_p = CellEvaluator(3, ps.basis, 3, mesh.h, device="cpu")
@@ -187,6 +190,75 @@ def test_emulated_probe_instances_match_plain_versions(emulated, probe, variant,
     got = (torch.zeros_like(u), torch.zeros_like(p))
     cm._launch_variant(ph, None, u, p, s, cells, sc, M, *got)
     assert joint_err(got, ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+# boxes for the schedules: 4^3 (32 cell groups in float64, 16 in float32),
+# 3 x 3 x 2 (9 and 5, odd; groups straddle x-row ends) and 1 x 3 x 3 (5 and
+# 3, odd; one cell per x-row, so a float32 group spans 4 rows)
+SCHED_SHAPES = [(4, 4, 4), (3, 3, 2), (1, 3, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", SCHED_SHAPES, ids=["x".join(map(str, s)) for s in SCHED_SHAPES])
+@pytest.mark.parametrize("schedule", list(cm.K13_SCHEDULES))
+def test_emulated_schedules_match_full_plain_version(emulated, schedule, shape, dtype):
+    """K13's schedules (rowdma, pipe, unroll2) with Dirichlet masks (the
+    zero-filled copies) write full's nodal output. The emulated card has
+    EMU_SMS SMs of one resident block, fewer blocks than cell groups (pairs
+    for unroll2), so each block loops over its groups through both staging
+    slots (both work areas), and an odd group count leaves a last pair
+    without its second group."""
+    cells, u, p, s, _ = _box4(dtype, shape)
+    sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
+    cpb = 32768 // (64 * 27 * (8 if dtype == torch.float64 else 4))
+    groups = -(-cells.n_cells // cpb)
+    assert groups > EMU_SMS
+    ref = cm.coupled_apply_ablated_plain(u, p, s, cells, sc, schedule)
+    got = (torch.zeros_like(u), torch.zeros_like(p))
+    cm._launch_variant(cm.PH_ALL, None, u, p, s, cells, sc, None, *got,
+                       sched=cm.K13_SCHEDULES[schedule])
+    assert joint_err(got, ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+def test_emulated_schedule_entry_refuses_what_it_does_not_instance(emulated):
+    """The C entry returns an error, which the wrapper raises, for a
+    schedule with dropped phases, with the table-free lattice source, or an
+    unknown one, and for pipe without the cells per axis: no silent
+    fallback to another instance."""
+    cells, u, p, s, _ = _box4(torch.float64)
+    sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
+    out = (torch.zeros_like(u), torch.zeros_like(p))
+    bad = [
+        (cm.PH_GATHER | cm.PH_SCATTER, None, cm.SCHED_ROW_ASYNC),
+        (cm.PH_ALL, (4, 4), cm.SCHED_PAIR),
+        (cm.PH_ALL, None, 7),
+    ]
+    for phases, lattice, sched in bad:
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            cm._launch_variant(phases, lattice, u, p, s, cells, sc, None, *out, sched=sched)
+    cells.lattice = None  # no cells per axis for the pipe's copies
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        cm._launch_variant(cm.PH_ALL, None, u, p, s, cells, sc, None, *out, sched=cm.SCHED_PIPE)
+
+
+def test_emulated_residency_counts_each_schedules_shared_memory(emulated):
+    """The residency entry's shared memory per block at 48 cells along x:
+    the 1D tables (3 x 16 values) and CPB = 32768 // 13,824 (float64) or
+    // 6,912 (float32) cells of 64 x 27-value work slots (two work areas for
+    unroll2), two staging slots of CPB x 170 values (rowdma, pipe), and the
+    pipe's slab (2 segments of 54 velocity and 4 pressure run slots, each
+    the 16-byte aligned size of a run plus 15 bytes) with its mbarrier and
+    tables (8 + 2 x 58 x 8 + CPB x 8 bytes, to 16). The emulated card holds
+    one block per SM."""
+    expect = {
+        torch.float64: {"full": 28032, "rowdma": 33472, "pipe": 33472 + 2 * 3648 + 960,
+                        "unroll2": 55680},
+        torch.float32: {"full": 27840, "rowdma": 33280, "pipe": 33280 + 2 * 3648 + 976,
+                        "unroll2": 55488},
+    }
+    for dtype, names in expect.items():
+        for name, smem in names.items():
+            assert cm.schedule_residency(dtype, name, 48) == {"smem": smem, "blocks_per_sm": 1}
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])

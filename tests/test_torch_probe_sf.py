@@ -70,14 +70,21 @@ class PallasShim:
 
 
 def _load(name):
+    """scripts/<name>.py imported without ADAFLO_BENCH and ADAFLO_TPU_NO_X64,
+    which it sets when imported; sys.path and the environment are restored
+    exactly afterwards, so that nothing stays set for the JAX tests that the
+    same worker runs next."""
     spec = importlib.util.spec_from_file_location(f"jax_{name}", ROOT / "scripts" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
-    path = list(sys.path)
-    with pytest.MonkeyPatch.context() as mp:
+    path, env = list(sys.path), dict(os.environ)
+    try:
         for k in ("ADAFLO_BENCH", "ADAFLO_TPU_NO_X64"):
-            mp.delenv(k, raising=False)
+            os.environ.pop(k, None)
         spec.loader.exec_module(mod)
-    sys.path[:] = path
+    finally:
+        sys.path[:] = path
+        os.environ.clear()
+        os.environ.update(env)
     return mod
 
 

@@ -12,6 +12,15 @@ package's probe kernels and lattice scatter, on the CPU.
   does (1e-6); K11's dots accumulate in float32 whatever the input (1e-6).
   K13 and K11 round the u* stream to bf16 as their scripts do, and the port
   is given the same rounded u*.
+- K13's TPU schedules (``make_kernel_rowdma``, ``make_kernel_pipe``,
+  ``make_kernel_unroll2``, with ``run_variant``'s scratch shapes) at 8^3
+  with 128-wide blocks (6 grid steps, so the prefetch slots and unroll2's 3
+  steps run) against full's plain version, which is each schedule's: rowdma
+  in float64 to 1e-12; pipe, which reads scratch rows it never writes
+  (ROADMAP F12), with uninitialized memory read as zero, to 1e-12, and with
+  the default NaN fill it returns NaN (at 4^3); unroll2, whose dots return float32
+  (F14), to 1e-7; and at 6^3 (3 blocks) unroll2's grid of one step leaves
+  the last block unwritten (F13), while the port's output covers it.
 - ``scatter_cells_plain`` (K6) against the JAX ``LatticeOps.scatter_add``
   (1e-13), and K11's lattice addresses against ``cell_dof_table()``.
 - The probe drivers: CUDA needed unless ``--device cpu``, their CPU runs, and
@@ -23,7 +32,9 @@ only while the JAX operator that reads it is built. No variable-coefficient
 JAX apply is built.
 """
 
+import functools
 import importlib.util
+import os
 import subprocess
 import sys
 import types
@@ -61,12 +72,16 @@ BLOCK = 128
 
 @pytest.fixture(scope="module")
 def jax_probes():
-    """The three JAX probe modules, imported from their files with the
-    environment they change restored afterwards."""
+    """The three JAX probe modules, imported from their files without the
+    PROBE_ENV variables and with the environment restored exactly
+    afterwards: the modules set some of those variables when imported
+    (probe_pr_phases sets ADAFLO_PALLAS_MATVEC=1), which would otherwise
+    stay set for the JAX tests that the same worker runs next."""
     mods = {}
-    with pytest.MonkeyPatch.context() as mp:
+    saved = dict(os.environ)
+    try:
         for k in PROBE_ENV:
-            mp.delenv(k, raising=False)
+            os.environ.pop(k, None)
         for name in ("probe_pr_phases", "probe_pr_parts", "probe_pr_grouped"):
             spec = importlib.util.spec_from_file_location(
                 f"jax_{name}", ROOT / "scripts" / f"{name}.py"
@@ -74,6 +89,9 @@ def jax_probes():
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
             mods[name] = mod
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
     return mods
 
 
@@ -85,13 +103,19 @@ def _jax_scalars():
 
 @pytest.fixture(scope="module")
 def case():
-    """The probes' box (unit cube, no constraints) at 4^3, Q2/Q1: the JAX
+    """The probes' box at 4^3 (_probe_box)."""
+    return _probe_box(4)
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_box(n: int):
+    """The probes' box (unit cube, no constraints) at n^3, Q2/Q1: the JAX
     operator with its Pallas tables and the port's cell tables, and nodal
     u, p, u* from a numpy seed."""
     par = JFlowParameters.from_string(
         "subsection Navier-Stokes\n  set dimension = 3\n  set velocity degree = 2\nend\n"
     )
-    jmesh = JStructuredMesh((4, 4, 4), (0.0,) * 3, (1.0,) * 3)
+    jmesh = JStructuredMesh((n,) * 3, (0.0,) * 3, (1.0,) * 3)
     jus, jps = JScalarSpace(jmesh, 2), JScalarSpace(jmesh, 1)
     cu = [JConstraints(jus.n_dofs) for _ in range(3)]
     cp = JConstraints(jps.n_dofs)
@@ -101,7 +125,7 @@ def case():
         mp.setenv("ADAFLO_PALLAS_MATVEC", "1")
         op = JOperator(par, jus, jps, cu, cp, dtype=jnp.float64)
     assert op._pallas_tables is not None
-    mesh = StructuredMesh((4, 4, 4), (0.0,) * 3, (1.0,) * 3)
+    mesh = StructuredMesh((n,) * 3, (0.0,) * 3, (1.0,) * 3)
     us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
     cells = cm.CoupledCells(
         CellEvaluator(3, us.basis, 3, mesh.h, device="cpu"),
@@ -158,14 +182,16 @@ def _port(c, variant, dtype, u, p, s):
     return [o.numpy().astype(np.float64) for o in out]
 
 
-def _interpreted(kernel, **kw):
+def _interpreted(kernel, params=None, **kw):
     """pl.pallas_call in TPU interpret mode (the mode is read when the call
-    is built and traced)."""
-    with pltpu.force_tpu_interpret_mode():
+    is built and traced), with its parameters `params` (default: the
+    defaults, uninitialized memory read as NaN)."""
+    params = pltpu.InterpretParams() if params is None else params
+    with pltpu.force_tpu_interpret_mode(params):
         call = pl.pallas_call(kernel, **kw)
 
     def run(*args):
-        with pltpu.force_tpu_interpret_mode():
+        with pltpu.force_tpu_interpret_mode(params):
             return call(*args)
 
     return run
@@ -180,38 +206,108 @@ def test_k13_plain_matches_jax_probe_kernel(jax_probes, case, parts):
     """K13 (probe_pr_parts.make_kernel) in float64, the u* stream through
     bf16 as run_variant rounds it: the port's plain ablation agrees to
     1e-12."""
-    op, dtype = case.op, jnp.float64
+    out, s_port, _ = _k13_out(jax_probes, case, parts, "nan")
+    ref = _unpack(case.op, out)
+    got = _port(case, parts, torch.float64, case.u, case.p, s_port)
+    assert _rel(got, ref) <= 1e-12
+
+
+def _k13_out(jax_probes, c, parts, memory):
+    """K13's kernel for `parts` (an ablation of make_kernel, or a TPU
+    schedule: rowdma, pipe, unroll2) of scripts/probe_pr_parts.py in TPU
+    interpret mode, float64, u* through bf16, built as run_variant
+    (:363-416) builds it: its scratch shapes, pipe's rows and matrices
+    padded to 96, unroll2's two blocks per grid step. memory: interpret
+    mode's uninitialized_memory. Returns the packed output, the port's u*
+    and (block, EA_pad)."""
+    op, dtype = c.op, jnp.float64
     tables = op._pallas_tables
     rows_table, EA, block, EA_pad, win, L_need = _geometry(op)
-    xin, st, mask, s_port = _jax_inputs(case, dtype, jnp.bfloat16)
+    xin, st, mask, s_port = _jax_inputs(c, dtype, jnp.bfloat16)
     g, dim = tables.g, tables.dim
     n_su, n_cols, R_pad = dim * tables.n_u_loc, len(rows_table), xin.shape[0]
     Ae = jnp.asarray(tables.A_evg, dtype)
     M89, A_ics, beta = jpm.combine_linear(tables, _jax_scalars(), dtype)
-    kern = jax_probes["probe_pr_parts"].make_kernel(g, dim, tuple(rows_table), win, block, parts)
+    vm = lambda *shape: pltpu.VMEM(shape, dtype)
+    probe = jax_probes["probe_pr_parts"]
+    make = getattr(probe, f"make_kernel_{parts}", probe.make_kernel)
+    kern = make(g, dim, tuple(rows_table), win, block, parts)
+    sem = pltpu.SemaphoreType.DMA((2,))
+    scratch = {
+        "rowdma": [vm(2, n_cols, block), vm(dim * g, block), vm(R_pad, win), sem],
+        "pipe": [vm(2, R_pad, win), vm(2, -(-n_cols // 8) * 8, block), vm(dim * g, block),
+                 vm(R_pad, win), sem],
+        "unroll2": [vm(2, R_pad, 2 * block + (win - block)), vm(n_cols, block),
+                    vm(n_cols, block), vm(dim * g, block), vm(dim * g, block), vm(R_pad, win),
+                    sem],
+    }.get(parts, [vm(2, R_pad, win), vm(n_cols, block), vm(dim * g, block), vm(R_pad, win),
+                  sem])
+    bmul = 2 if parts == "unroll2" else 1
+    nc_k = -(-n_cols // 8) * 8 if parts == "pipe" else n_cols
+    Ae_k = jnp.pad(Ae, ((0, 0), (0, nc_k - n_cols)))
+    M_k = jnp.pad(M89, ((0, nc_k - n_cols), (0, nc_k - n_cols)))
+    Ai_k = jnp.pad(A_ics, ((0, nc_k - n_cols), (0, 0)))
     call = _interpreted(
-        kern,
-        grid=(EA_pad // block,),
+        kern, pltpu.InterpretParams(uninitialized_memory=memory),
+        grid=(EA_pad // (bmul * block),),
         in_specs=[
             pl.BlockSpec((1,), lambda i: (0,), memory_space=pltpu.SMEM),
-            _rep((Ae.shape[0], n_cols)), _rep((Ae.shape[0], n_su)),
-            _rep((n_cols, n_cols)), _rep((n_cols, dim * g)),
-            pl.BlockSpec((1, block), lambda i: (0, i), memory_space=pltpu.VMEM),
+            _rep((Ae.shape[0], nc_k)), _rep((Ae.shape[0], n_su)),
+            _rep((nc_k, nc_k)), _rep((nc_k, dim * g)),
+            pl.BlockSpec((1, bmul * block), lambda i: (0, i), memory_space=pltpu.VMEM),
             pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((n_su, block), lambda i: (0, i), memory_space=pltpu.VMEM),
+            pl.BlockSpec((n_su, bmul * block), lambda i: (0, i), memory_space=pltpu.VMEM),
         ],
-        out_specs=pl.BlockSpec((R_pad, block), lambda i: (0, i), memory_space=pltpu.VMEM),
+        out_specs=pl.BlockSpec((R_pad, bmul * block), lambda i: (0, i),
+                               memory_space=pltpu.VMEM),
         out_shape=jax.ShapeDtypeStruct((R_pad, EA_pad), dtype),
-        scratch_shapes=[
-            pltpu.VMEM((2, R_pad, win), dtype), pltpu.VMEM((n_cols, block), dtype),
-            pltpu.VMEM((dim * g, block), dtype), pltpu.VMEM((R_pad, win), dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
+        scratch_shapes=scratch,
     )
-    out = call(beta[None], Ae, Ae[:, :n_su], M89, A_ics, mask, xin, st)
-    ref = _unpack(op, out)
-    got = _port(case, parts, torch.float64, case.u, case.p, s_port)
-    assert _rel(got, ref) <= 1e-12
+    out = call(beta[None], Ae_k, Ae[:, :n_su], M_k, Ai_k, mask, xin, st)
+    return np.asarray(out), s_port, (block, EA_pad)
+
+
+# (schedule, cells per axis, uninitialized memory, check): the schedule
+# against the port to its tolerance, or the reference's fault it shows
+SCHEDULE_CASES = [
+    ("rowdma", 8, "nan", "equal"),
+    ("pipe", 8, "zero", "equal"),
+    ("unroll2", 8, "nan", "equal"),
+    ("pipe", 4, "nan", "F12"),
+    ("unroll2", 6, "nan", "F13"),
+]
+SCHEDULE_TOL = {"rowdma": 1e-12, "pipe": 1e-12, "unroll2": 1e-7}  # unroll2: F14
+
+
+@pytest.mark.parametrize("parts,n,memory,check", SCHEDULE_CASES,
+                         ids=[f"{p}-{n}-{m}-{c}" for p, n, m, c in SCHEDULE_CASES])
+def test_k13_schedule_matches_jax_probe_kernel(jax_probes, parts, n, memory, check):
+    """K13's TPU schedules compute full's output, so the port's plain
+    version of each (coupled_apply_ablated_plain, full's) is held against
+    them: rowdma in float64 to 1e-12 (0.0 found); pipe to 1e-12 once its
+    never-written scratch rows 89-95 read as zero, and NaN with the default
+    NaN fill (F12, on the 4^3 box: the dots multiply those rows by the zero
+    columns of the padded matrices); unroll2 to 1e-7, its dots returning float32 (F14,
+    3.5e-9 found). At 6^3 the 343 anchors make 3 blocks of 128 and unroll2's
+    grid EA_pad // 256 one step, so the last block of the output is never
+    written (F13), while the port's output covers every cell."""
+    c = _probe_box(n)
+    out, s_port, (block, EA_pad) = _k13_out(jax_probes, c, parts, memory)
+    got = _port(c, parts, torch.float64, c.u, c.p, s_port)
+    if check == "equal":
+        assert _rel(got, _unpack(c.op, out)) <= SCHEDULE_TOL[parts]
+    elif check == "F12":
+        assert np.isnan(out).any()
+    else:  # F13
+        n_blocks, steps = EA_pad // block, EA_pad // (2 * block)
+        assert (n_blocks, steps) == (3, 1)
+        packed = np.asarray(c.op.pr_pack(jnp.asarray(got[0]), jnp.asarray(got[1])))
+        done = slice(0, 2 * block)
+        last = slice(2 * block, EA_pad)
+        scale = np.abs(packed).max()
+        assert np.abs(out[:, done] - packed[: out.shape[0], done]).max() <= 1e-7 * scale
+        assert np.isnan(out[:, last]).all()  # never written
+        assert np.abs(packed[:, last]).max() > 0.1 * scale
 
 
 def test_k12_plain_full_matches_jax_probe_kernel(jax_probes, case):
@@ -373,6 +469,56 @@ def test_k11_refuses_periodic_lattices_and_other_table_sets():
             fn()
 
 
+def test_pipe_schedule_refuses_periodic_lattices():
+    """K13's pipe schedule copies x-runs of the non-periodic probe box, so it
+    refuses periodic cells and cells without a lattice shape, on the CPU as
+    on the card; rowdma and unroll2 read the cell tables and take them."""
+    mesh = StructuredMesh((2, 2, 2), (0.0,) * 3, (1.0,) * 3)
+    mesh.set_periodic(0)
+    us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
+    ev = [CellEvaluator(3, sp.basis, 3, mesh.h, device="cpu") for sp in (us, ps)]
+    tables = [LatticeOps.for_space(sp).cell_dof_table() for sp in (us, ps)]
+    periodic = cm.CoupledCells(*ev, *tables, None, None, "cpu",
+                               lattice=(mesh.n_cells_axis, tuple(mesh.periodic)))
+    shapeless = cm.CoupledCells(*ev, *tables, None, None, "cpu")
+    u = torch.zeros(3, us.n_dofs, dtype=torch.float64)
+    p = torch.zeros(ps.n_dofs, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="non-periodic probe box"):
+        cm.coupled_apply_ablated(u, p, u, periodic, SC, "pipe")
+    with pytest.raises(ValueError, match="no lattice shape"):
+        cm.coupled_apply_ablated(u, p, u, shapeless, SC, "pipe")
+    for name in ("rowdma", "unroll2"):
+        out = cm.coupled_apply_ablated(u, p, u, periodic, SC, name)
+        assert all(float(o.abs().max()) == 0.0 for o in out)
+
+
+def test_sass_counts_find_the_schedule_instances():
+    """sass_counts keys the probe configuration's cell kernel instances by
+    schedule and type from their mangled names (ptxas and cuobjdump print
+    those), skips other instances, and flags a schedule whose SASS lacks its
+    asynchronous copies."""
+    from adaflo_tpu_torch.scripts import sass_counts
+
+    name = "_ZN12_GLOBAL__N_119coupled_cell_kernelILi3ELi3ELi3ELi2ELb1ELi0ELi0ELi0E{}Li{}ELi{}EEEvPKT7_"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{name.format('d', 63, 2)}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name.format('d', 63, 2)}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 70 registers, used 1 barriers, 384 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{name.format('f', 31, 0)}' for 'sm_90a'",
+        "ptxas info    : Used 33 registers, used 1 barriers, 384 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{name.format('f', 63, 0)}' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, used 1 barriers, 384 bytes cmem[0]",
+    ])
+    assert sass_counts.schedule_registers(log) == {"pipe double": 70, "full float": 40}
+    ok = {f"{n} {t}": {op: 1 for op in ops}
+          for n, ops in sass_counts.SCHEDULE_OPS.items() for t in ("double", "float")}
+    assert sass_counts.check_schedules(ok) == []
+    ok["pipe float"] = {"UBLKCP": 2, "SYNCS": 0, "LDGSTS": 0}
+    del ok["rowdma double"]
+    assert sass_counts.check_schedules(ok) == ["rowdma double", "pipe float"]
+
+
 def test_cell_flops_split_by_phase():
     """The per-phase operation counts of the cell apply (the bounds of
     chip_smoke.py and of the probes): 14,482 per 3D Q2/Q1 cell, of which
@@ -418,7 +564,8 @@ def test_probe_drivers_hold_each_variant_to_its_plain_version_on_the_cpu():
     assert set(k12) == set(cm.K12_VARIANTS)
     assert all("attribution_ms" in r for n, r in k12.items() if n.startswith("minus_"))
     k13 = probe_pr_parts.run(2, 1, torch.float32, "cpu", out=quiet)
-    assert list(k13) == list(cm.K13_VARIANTS)
+    assert list(k13) == list(cm.K13_VARIANTS) + list(cm.K13_SCHEDULES)
+    assert all(k13[v]["bound_ms"] == k13["full"]["bound_ms"] for v in cm.K13_SCHEDULES)
     k6 = probe_pr.run(2, 1, torch.float64, "cpu", out=quiet)
     k11 = probe_pr_grouped.run(2, 1, torch.float64, "cpu", out=quiet)
     for res in (k12, k13, k6, k11):

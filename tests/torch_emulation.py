@@ -7,9 +7,12 @@ against a small header that defines the CUDA keywords, gives each block one
 thread (every kernel is a strided loop over its work items, so one thread
 does all of them), turns `__syncthreads` into a no-op and each `<<<...>>>`
 launch into a loop over the blocks. The header defines ADAFLO_EMULATED, under
-which a source leaves out what g++ cannot run (inline PTX). What this cannot
-show: that nvcc accepts the source, and what many threads do; chip_smoke.py
-checks both on the card.
+which a source leaves out what g++ cannot run (inline PTX) and makes its
+asynchronous copies (cp.async, bulk copies) plain copies and their barriers
+no-ops. The occupancy and SM-count queries report one block on each of
+EMU_SMS SMs, so that a persistent grid is smaller than the work and each
+block loops. What this cannot show: that nvcc accepts the source, and what
+many threads do; chip_smoke.py checks both on the card.
 """
 
 import ctypes
@@ -21,6 +24,7 @@ from pathlib import Path
 import pytest
 
 CSRC = Path(__file__).resolve().parents[1] / "adaflo_tpu_torch" / "csrc"
+EMU_SMS = 2  # SMs of the emulated card, one resident block each
 
 HEADER = r"""
 #pragma once
@@ -35,14 +39,21 @@ using std::min;
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
+#define __align__(n) alignas(n)
 struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };
 static emu_dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline void __syncthreads() {}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+constexpr int EMU_SMS = %d;
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = EMU_SMS; return 0; }
+template <class F>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
 inline int cudaGetLastError() { return 0; }
 template <class T> T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
 alignas(16) static unsigned char emu_smem[1 << 22];
@@ -61,9 +72,9 @@ inline void emu_launch(unsigned grid, size_t smem, const std::function<void()>& 
 def translate(src: str) -> str:
     """A CUDA source rewritten for g++ against HEADER."""
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
-    src = src.replace(
-        "extern __shared__ unsigned char smem_raw[];",
-        "unsigned char* smem_raw = emu_smem;",
+    src = re.sub(
+        r"extern __shared__ (__align__\(\d+\) )?unsigned char smem_raw\[\];",
+        "unsigned char* smem_raw = emu_smem;", src,
     )
     src = src.replace("__shared__ T part[256];", "static T part[256];")
 
@@ -83,7 +94,7 @@ def build_emulated(source_name: str, workdir: Path) -> ctypes.CDLL:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not available to compile the emulated kernel source")
-    (workdir / "cuda_emu.h").write_text(HEADER)
+    (workdir / "cuda_emu.h").write_text(HEADER % EMU_SMS)
     (workdir / "emu.cpp").write_text(translate((CSRC / source_name).read_text()))
     so = workdir / "libemu.so"
     subprocess.run(

@@ -119,6 +119,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 __host__ __device__ constexpr int ipow(int b, int e) { return e == 0 ? 1 : b * ipow(b, e - 1); }
@@ -198,82 +200,6 @@ __device__ __forceinline__ bool owned(int l) {
   for (int a = 0; a < DIM; ++a, l /= N1)
     if (l % N1 == N1 - 1) return false;
   return true;
-}
-
-// ---- asynchronous copies into shared memory: cp.async (sm_80), bulk
-//      copies and mbarriers (sm_90); under ADAFLO_EMULATED (one thread per
-//      block, on the CPU) plain copies and no-ops --------------------------
-template <typename T>
-__device__ __forceinline__ void async_copy(T* dst, const T* src, bool zero) {
-#ifdef ADAFLO_EMULATED
-  *dst = zero ? T(0) : *src;
-#else
-  // .ca: .cg takes only 16-byte copies; a source size of 0 zero-fills
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
-               "n"(sizeof(T)), "r"(zero ? 0u : (unsigned)sizeof(T)) : "memory");
-#endif
-}
-
-__device__ __forceinline__ void async_commit() {
-#ifndef ADAFLO_EMULATED
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void async_wait() {
-#ifndef ADAFLO_EMULATED
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-#endif
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
-#ifndef ADAFLO_EMULATED
-  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(b), "r"(count) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-#endif
-}
-
-// this thread's arrival, with the bytes its bulk copies bring
-__device__ __forceinline__ void bar_arrive_expect(uint64_t* bar, unsigned bytes) {
-#ifndef ADAFLO_EMULATED
-  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-               "r"(bytes) : "memory");
-#endif
-}
-
-// wait for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-#ifndef ADAFLO_EMULATED
-  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(b), "r"(parity) : "memory");
-  } while (!done);
-#endif
-}
-
-// 1D bulk copy (TMA) of `bytes` (a multiple of 16) from 16-byte aligned
-// global to 16-byte aligned shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-#ifdef ADAFLO_EMULATED
-  memcpy(dst, src, bytes);
-#else
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(d), "l"(src), "r"(bytes), "r"(b) : "memory");
-#endif
 }
 
 // The cell group of a block's it-th iteration: strided by the grid (one

@@ -9,10 +9,12 @@
 //
 // The JAX probes (except K5) re-run one VMEM-resident block at every grid
 // step, so their time is compute alone. Here a grid step is not a loop
-// (identical work inside one thread would be hoisted): every kernel is
+// (identical work inside one thread would be hoisted): K7, K8 and K10 are
 // launched over steps x column tiles thread blocks, each of which loads its
 // columns (with the halo of its shifts) from L2 into shared memory or
-// registers and does one step's work on them. Every step writes the same
+// registers and does one step's work on them; the dot's persistent blocks
+// loop over steps x tiles work items, each tile brought anew by the TMA
+// (see dense_dot_kernel). Every step writes the same
 // output with the same values, as the TPU kernels do. Timing two work levels
 // (the probe drivers' slopes) cancels the loads, as it cancelled the TPU's
 // refetch.
@@ -37,14 +39,14 @@
 //
 // All kernels are strided loops over their work items, so that the g++
 // emulation of the CPU tests (one thread per block) runs them; the tensor-core
-// passes (mma.sync) are inline PTX, which that emulation cannot run, and are
-// left out under ADAFLO_EMULATED, where their C entries return an error.
+// paths of the dot (wgmma, mma.sync) are inline PTX, which that emulation
+// cannot run, and are left out under ADAFLO_EMULATED, where their C entries
+// return an error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#ifndef ADAFLO_EMULATED
-#include <cuda_bf16.h>
-#endif
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -144,227 +146,648 @@ row_copies_kernel(const T* __restrict__ x, T* __restrict__ out, int ldx, int blo
 }
 
 // ---------------------------------------------------------------------------
-// K9 and K5: O = A X, A (M, K), X (K, ldx), accumulated in float32 (float64
-// for kPrecF64). One kernel, two entries: resident (K9: every grid step reads
-// the same (K, block) X, grid steps x column tiles blocks) and streamed (K5:
-// the column tiles cover all of X once).
+// K9 and K5: O = A X, A (M, K), X (K, ncols), accumulated in float32 (float64
+// for kPrecF64). One kernel, two entries: resident (K9: nblk grid steps, each
+// writing the same output from the same X) and streamed (K5: every column of
+// X once).
 // Precisions: kPrecF32 IEEE float32 FMAs on the CUDA cores (the "highest"
-// product); kPrecTF32 mma.sync m16n8k8 TF32 (inputs rounded to TF32, the
-// counterpart of the TPU's float32 "default"); kPrecBF16 mma.sync m16n8k16
-// (inputs rounded to bf16, float32 accumulation); kPrecF64 mma.sync m8n8k4
-// DMMA, float64.
-// Bound: operations (2 M K per column), or bytes for bf16/TF32 when K is
-// small. Design: a block stages its (K, 64) tile of X once (converted to the
-// staged type), then walks over M in passes of 32 rows of A, each staged in
-// shared memory; a pass is 16 float32 FMAs per k for each of 128 threads, or
-// 4 warps of mma.sync, each warp a 16 x 32 part of the 32 x 64 output tile.
+// product); kPrecTF32 wgmma on TF32 inputs rounded to nearest (cvt.rna, the
+// counterpart of the TPU's float32 "default"); kPrecBF16 wgmma on bf16
+// inputs (K9 rounds its float32 inputs to nearest; K5 reads bf16 and writes
+// bf16); kPrecF64 mma.sync m16n8k8 DMMA, float64.
+// Bound: bytes for K5 (the output is 80 % of them; f32 by operations on the
+// CUDA cores), operations for K9 (2 M K per column and step).
+//
+// Design. A persistent grid: as many blocks as are resident on the card
+// (occupancy query x SMs), each looping over work items of W columns (64; 32
+// for float64): K5's items are its column tiles, K9's are steps x tiles.
+// Every block has 8 consumer warps (2 per SM sub-partition) and 1 producer
+// warp.
+//  - A is loaded once per block, converted and laid out for its consumer, and
+//    stays on the SM for every item of the block: in shared memory, or for
+//    float64 as the warps' mma.sync fragments in registers.
+//  - X tiles arrive by TMA (cp.async.bulk.tensor.2d, one box of 128 bytes x K
+//    rows per 128-byte column chunk, 128-byte swizzled) into a ring of S
+//    stages completing on mbarriers ("full"); one producer thread (lane 0 of
+//    the last warp) keeps the ring filled while the consumer warps compute,
+//    and a consumer warp releases a stage by an arrival on its "empty"
+//    mbarrier once it has read it.
+//  - bf16 and TF32 compute O^T = X^T A^T with wgmma (m64n48, 2 consumer
+//    warpgroups, each 64 tile columns x half of A's rows as 1 or 4 n48
+//    chunks): A^T is the B operand, K-major in shared memory (A row-major,
+//    the only operand order TF32 allows, 128-byte swizzled, written once by
+//    the block with fence.proxy.async); X^T is the A operand: for K5 bf16 the
+//    TMA stage itself through a descriptor with the transpose bit (MN-major;
+//    16-bit types allow it), for TF32 and K9 bf16 registers loaded from the
+//    float32 stage and rounded by cvt.rna.tf32 or cvt.rn.bf16x2 (wgmma reads
+//    TF32 only K-major, and the hardware would truncate). Two accumulators
+//    of one n48 chunk each take turns: chunk q + 1's wgmma group runs while
+//    chunk q is staged in shared memory (the swizzled layout of a TMA box)
+//    and written by TMA stores (cp.async.bulk.tensor, whole 128-byte rows,
+//    asynchronous, L2 evict-first: the output is not read again), from one
+//    or two staging buffers per warpgroup.
+//  - float64 has no wgmma: mma.sync m16n8k8 (the sm_90 shape, four times the
+//    work of m8n8k4 per instruction). A (384, 96) is 288 KB and fits in no
+//    block's shared memory (232,448 B), so A stays in registers instead: a
+//    warp holds the fragments of 16 rows for all of K (96 registers at k 96),
+//    the blocks split A's rows in P parts of 8 x 16 rows (M 384: P = 3; M 96:
+//    P = 1, 6 warps busy), block b holding part b % P for all its items, and
+//    each X tile is read by P blocks, after the first mostly from L2. Per k8
+//    step a warp reads its 4 n8 subtiles' B fragments from the swizzled stage
+//    with 2 LDS.128 per k row and issues 4 DMMA; the fragments' k slots and
+//    the subtiles' columns are permuted (f64_kslot, f64_col) so that these
+//    loads are conflict-free. Each warp stages its 16 x 32 output tile as two
+//    TMA boxes and stores them as the wgmma paths do (direct 16-byte stores
+//    from the fragments would write half sectors per instruction).
+//  - float32 on the CUDA cores: register-blocked outer products, a thread
+//    RM = M / 32 rows x 8 columns (256 threads, one pass), A as a k-major copy
+//    (RM consecutive values of A a k: RM / 4 LDS.128), X's 8 columns two
+//    LDS.128 of the swizzled stage (conflict-free); 16-byte stores, 8 lanes a
+//    whole 128-byte row segment.
+// Shared memory (bytes; stages S of one K x W tile each, at most 4, as many
+// as fit beside A and the staging; staging doubled where 2 stages still fit):
+//   type (M, K) = (384, 96)   A                    stage    S   staging  total
+//   f32                       147,456 (k-major)    24,576   3   -        222,256
+//   tf32                      147,456 (3 chunks)   24,576   2   24,576   222,240
+//   bf16 K5 (bf16 X and O)     98,304 (2 chunks)   12,288   4   24,576   173,120
+//   bf16 K9 (float32 X, O)     98,304              24,576   3   49,152   222,256
+//   f64 (3 parts)             - (registers)        24,576   4   65,536   164,928
+// (each total with 1,024 B of alignment slack and the 2 S mbarriers).
+// Under ADAFLO_EMULATED (one thread per block) the float32 path runs with its
+// ring: the thread produces S items ahead and consumes them in turn.
 constexpr int kPrecF32 = 0, kPrecTF32 = 1, kPrecBF16 = 2, kPrecF64 = 3;
-constexpr int kDotRows = 32, kDotThreads = 128, kPadA = 4, kPadB = 8;
+constexpr int kSmemMax = 232448;                   // shared memory a block may use
+constexpr int kDotThreads = 288;  // 8 consumer warps + 1 producer warp
 
-template <int PREC>
-struct Stage;
-template <>
-struct Stage<kPrecF32> {
-  using T = float;
-  __device__ static float cvt(float v) { return v; }
+// F4/D2: 16-byte vectors (float4/double2 without the CUDA headers)
+struct alignas(16) F4 {
+  float x, y, z, w;
 };
-template <>
-struct Stage<kPrecF64> {
-  using T = double;
-  __device__ static double cvt(double v) { return v; }
+struct alignas(16) D2 {
+  double x, y;
 };
-#ifndef ADAFLO_EMULATED
-template <>
-struct Stage<kPrecTF32> {
-  using T = float;
-  __device__ static float cvt(float v) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-    return __uint_as_float(r);
-  }
+struct alignas(8) F2 {
+  float x, y;
 };
-template <>
-struct Stage<kPrecBF16> {
-  using T = __nv_bfloat16;
-  __device__ static T cvt(float v) { return __float2bfloat16_rn(v); }
-  __device__ static T cvt(__nv_bfloat16 v) { return v; }
+
+template <int PREC, int M, int K, int XS, int OS>  // XS, OS: bytes of an X, O element
+struct DotPlan {
+  static constexpr bool kSimt = PREC == kPrecF32, kF64 = PREC == kPrecF64;
+  static constexpr bool kMma = !kSimt && !kF64;
+  static constexpr int W = kF64 ? 32 : 64;  // columns of a work item
+  // float64: A's fragments live in registers, 16 rows a warp: the blocks split
+  // A's rows in P parts of MP rows, 8 warps (M 384: P = 3) or 6 (M 96)
+  static constexpr int P = kF64 && M == 384 ? 3 : 1;
+  static constexpr int MP = M / P;
+  static constexpr int WARPS = kDotThreads / 32 - 1;  // consumer warps
+  static constexpr int THREADS = kDotThreads;
+  static constexpr int STAGE = K * W * XS;  // W * XS / 128 swizzled chunks of K rows
+  static constexpr int CHUNKS = W * XS / 128;
+  static constexpr int AS = PREC == kPrecBF16 ? 2 : 4;  // staged A element (wgmma)
+  static constexpr int A_BYTES = kSimt ? K * M * 4 : kF64 ? 0 : (K * AS + 127) / 128 * M * 128;
+  // the epilogue's staging for its TMA stores, in boxes of 128 bytes x
+  // OUT_ROWS rows: a 48 x 64 chunk a warpgroup (wgmma), a 16 x 32 tile a
+  // warp (float64); two buffers where they leave room for 2 stages
+  static constexpr int OUT_ROWS = kF64 ? 16 : 48;
+  static constexpr int STG1 = kMma ? 2 * 48 * 64 * OS : kF64 ? WARPS * 16 * 32 * 8 : 0;
+  static constexpr int STG_BUFS = (kSmemMax - 1088 - A_BYTES - 2 * STG1) / STAGE >= 2 ? 2 : 1;
+  static constexpr int STAGING = STG_BUFS * STG1;
+  static constexpr int FIXED = 1024 + A_BYTES + STAGING + 64;
+  static constexpr int S = (kSmemMax - FIXED) / STAGE < 4 ? (kSmemMax - FIXED) / STAGE : 4;
+  static constexpr int A_OFF = S * STAGE, STG_OFF = A_OFF + A_BYTES,
+                       BAR_OFF = STG_OFF + STAGING;
+  static constexpr int SMEM = 1024 + BAR_OFF + 16 * S;
+  static_assert(S >= 2 && SMEM <= kSmemMax, "shared memory plan");
+  static_assert(M % 96 == 0 && K % 32 == 0 && STAGE % 1024 == 0, "shapes");
 };
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// A block's work items: the blocks of a part (block b: part b % P) stride
+// over the part's items from item b / P; n of them, the it-th is first + it
+// stride (K9: tile item % tiles of step item / tiles).
+struct DotSched {
+  long long first, stride, n;
+};
+__host__ __device__ constexpr DotSched dot_sched(long long block, long long grid, int parts,
+                                                 long long items) {
+  const long long first = block / parts, stride = grid / parts;
+  return {first, stride, first < items ? (items - first + stride - 1) / stride : 0};
+}
+
+// The consumers that share a loop: all of them on the card, one under the
+// emulation (whose single thread does every consumer's share).
+__device__ __forceinline__ int consumer_stride(int n) {
+#ifdef ADAFLO_EMULATED
+  (void)n;
+  return 1;
+#else
+  return n;
 #endif
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(double* p, double v) { *p = v; }
+}
 
-template <int K, typename TO>
-__device__ void dot_pass_simt(const float* sA, const float* sB, TO* O, long long ldo) {
-  constexpr int LDA = K + kPadA, LDB = kTile + kPadB;
-  for (int w = threadIdx.x; w < 128; w += blockDim.x) {
-    const int ty = w / 16, tx = w % 16;  // rows 4 ty .. 4 ty + 3, columns tx + 16 j
-    float acc[4][4];
+// a warp's release of a stage it has read
+__device__ __forceinline__ void release(uint64_t* empty) {
+  warp_sync();
+#ifndef ADAFLO_EMULATED
+  if (threadIdx.x % 32 == 0) bar_arrive(empty);
+#else
+  (void)empty;
+#endif
+}
+
+// ---- float32 on the CUDA cores -----------------------------------------------
+// A^T (K, M) in shared memory
+template <int M, int K>
+__device__ void load_a_simt(const float* __restrict__ A, float* sAt, int ctid, int nthr) {
+  for (int i = ctid; i < M * K; i += nthr) sAt[(i % K) * M + i / K] = A[i];
+}
+
+// Unit u = (row group rg, column group cg): rows rg RM .. rg RM + RM - 1,
+// columns 4 cg .. 4 cg + 3 (chunk 0) and 32 + 4 cg .. (chunk 1); 16-byte
+// unit cg of a stage row, which the swizzle keeps distinct across a
+// quarter-warp's lanes.
+template <int M, int K>
+__device__ void simt_tile(const unsigned char* st, const float* sAt, float* o, long long ldo,
+                          uint64_t* empty, int ctid, int nthr) {
+  constexpr int RM = M / 32;
+  for (int u = ctid; u < 256; u += nthr) {
+    const int rg = u / 8, cg = u % 8;
+    float acc[RM][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    const float* a = sAt + rg * RM;
 #pragma unroll 8
     for (int k = 0; k < K; ++k) {
-      float a[4], b[4];
+      float av[RM];
+      if constexpr (RM % 4 == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sA[(4 * ty + i) * LDA + k];
+        for (int i = 0; i < RM / 4; ++i) {
+          const F4 v = *reinterpret_cast<const F4*>(a + k * M + 4 * i);
+          av[4 * i] = v.x, av[4 * i + 1] = v.y, av[4 * i + 2] = v.z, av[4 * i + 3] = v.w;
+        }
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sB[k * LDB + tx + 16 * j];
+        for (int i = 0; i < RM; ++i) av[i] = a[k * M + i];
+      }
+      const int off = swz128(k, 16 * cg);
+      const F4 x0 = *reinterpret_cast<const F4*>(st + off);
+      const F4 x1 = *reinterpret_cast<const F4*>(st + K * 128 + off);
+      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+        for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * xv[j];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) put(O + (4 * ty + i) * ldo + tx + 16 * j, acc[i][j]);
+    for (int i = 0; i < RM; ++i) {
+      float* row = o + (rg * RM + i) * ldo + 4 * cg;
+      *reinterpret_cast<F4*>(row) = F4{acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
+      *reinterpret_cast<F4*>(row + 32) = F4{acc[i][4], acc[i][5], acc[i][6], acc[i][7]};
+    }
   }
+  release(empty);
 }
+
+// ---- float64 -------------------------------------------------------------------
+// The tile column of B's subtile j (0..3), column n (0..7) in the float64
+// path (W = 32): a permutation of the columns (a dot's output columns are
+// independent) such that a lane (g, t) reads the columns of its subtiles
+// j, j + 1 (j even) from consecutive addresses (one LDS.128 per k), and its
+// accumulators n = 2t, 2t + 1 of those subtiles are 4 consecutive columns of
+// a row (two 16-byte units of the staging row).
+__host__ __device__ constexpr int f64_col(int n, int j) {
+  return 8 * (n / 2) + 4 * (j / 2) + 2 * (n % 2) + j % 2;
+}
+
+// The k of fragment slot s (0..7) of the k8 step: slot t is k 2t, slot t + 4
+// is k 2t + 1 (a permutation of the k's, the same in A and B), so that a
+// lane's A values of a row are consecutive, and a quarter-warp's B rows
+// (2t, 2t + 1) XOR the swizzled units with 0, 2, 4, 6 (1, 3, 5, 7): with
+// f64_col, the 8 lanes' LDS.128 fall on 8 distinct 16-byte units.
+__host__ __device__ constexpr int f64_kslot(int s) { return s < 4 ? 2 * s : 2 * (s - 4) + 1; }
+
+// ---- wgmma (bf16, TF32): A as the K-major B operand --------------------------
+// A[m][k] of the staged type (AS bytes) in region k / E (E = 128 / AS values
+// of k a 128-byte row), row m, byte (k % E) AS, 128-byte swizzled; regions of
+// M rows, 1024-byte aligned.
+__host__ __device__ constexpr int mma_a_offset(int m, int k, int M, int AS) {
+  return (k * AS / 128) * M * 128 + swz128(m, (k * AS) % 128);
+}
+
+// wgmma's shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor
+// Format"): start address >> 4 in bits [0, 14), leading dimension byte offset
+// >> 4 in [16, 30), stride dimension byte offset >> 4 in [32, 46), base offset
+// 0 in [49, 52) (atoms 1024-byte aligned), layout 1 = 128-byte swizzle in
+// [62, 64).
+__host__ __device__ constexpr uint64_t wgmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// Byte offsets (from A's base) of the B operand (A^T, K-major) of n48 chunk q
+// of the warpgroup's rows n0 at the k-step ks of 32 bytes (k16 bf16, k8
+// TF32): LBO unused (swizzled K-major), SBO 1024 (8 rows of 128 bytes).
+__host__ __device__ constexpr uint32_t mma_b_start(int n0, int q, int ks, int M) {
+  return (uint32_t)((ks / 4) * M * 128 + (n0 + 48 * q) * 128 + (ks % 4) * 32);
+}
+
+// Byte offset (from the stage) of K5 bf16's A operand (X^T, MN-major: the
+// TMA box's 64 columns x K rows of 128 bytes) at k16 step ks: LBO the next
+// 64 columns (none), SBO 1024 (8 k rows).
+__host__ __device__ constexpr uint32_t mma_x_start(int ks) { return (uint32_t)(ks * 16 * 128); }
 
 #ifndef ADAFLO_EMULATED
-// mma.sync fragments (PTX ISA, "Matrix fragments for mma.m16n8k8/k16/m8n8k4"):
-// lane = 4 g + t; the accumulator of an m16n8 tile holds rows g, g + 8 and
-// columns 2 t, 2 t + 1.
-template <int K, typename TO>
-__device__ void dot_pass_tf32(const float* sA, const float* sB, TO* O, long long ldo) {
-  constexpr int LDA = K + kPadA, LDB = kTile + kPadB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wr = (warp / 2) * 16, wc = (warp % 2) * 32;
-  float acc[4][4] = {};
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// bf16 pair (lo, hi) rounded to nearest, lo in the low half
+__device__ __forceinline__ uint32_t to_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// one 16-byte unit of A (8 bf16 or 4 TF32 values of one row) per step, into
+// the swizzled layout; the async proxy (wgmma) reads it after the fence
+template <int PREC, int M, int K, typename TX>
+__device__ void load_a_mma(const TX* __restrict__ A, unsigned char* sA, int ctid, int nthr) {
+  constexpr int AS = PREC == kPrecBF16 ? 2 : 4, PER = 16 / AS, U = K / PER;
+  for (int i = ctid; i < M * U; i += nthr) {
+    const int m = i / U, k0 = (i % U) * PER;
+    uint32_t v[4];
+    if constexpr (sizeof(TX) == 2) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(A + m * K + k0);
+      v[0] = raw.x, v[1] = raw.y, v[2] = raw.z, v[3] = raw.w;
+    } else if constexpr (PREC == kPrecTF32) {
+      const float* a = reinterpret_cast<const float*>(A) + m * K + k0;
 #pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    uint32_t a[4];
-    a[0] = __float_as_uint(sA[(wr + g) * LDA + k0 + t]);
-    a[1] = __float_as_uint(sA[(wr + g + 8) * LDA + k0 + t]);
-    a[2] = __float_as_uint(sA[(wr + g) * LDA + k0 + t + 4]);
-    a[3] = __float_as_uint(sA[(wr + g + 8) * LDA + k0 + t + 4]);
+      for (int j = 0; j < 4; ++j) v[j] = to_tf32(a[j]);
+    } else {
+      const float* a = reinterpret_cast<const float*>(A) + m * K + k0;
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int col = wc + 8 * n + g;
-      const uint32_t b0 = __float_as_uint(sB[(k0 + t) * LDB + col]);
-      const uint32_t b1 = __float_as_uint(sB[(k0 + t + 4) * LDB + col]);
-      asm volatile(
-          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-          "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-          : "+f"(acc[n][0]), "+f"(acc[n][1]), "+f"(acc[n][2]), "+f"(acc[n][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      for (int j = 0; j < 4; ++j) v[j] = to_bf16x2(a[2 * j], a[2 * j + 1]);
+    }
+    *reinterpret_cast<uint4*>(sA + mma_a_offset(m, k0, M, AS)) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  fence_proxy_async();
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of the warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator accesses across wgmma's
+__device__ __forceinline__ void reg_fence(float (&d)[24]) {
+#pragma unroll
+  for (int i = 0; i < 24; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ADAFLO_D24                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23}"
+#define ADAFLO_D24_REGS(d)                                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+
+// D (64 x 48, float32) += A (64 x 16 bf16, shared memory, MN-major: the
+// transpose bit) B (16 x 48, shared memory, K-major)
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[24], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " ADAFLO_D24
+      ", %24, %25, p, 1, 1, 1, 0;\n}\n"
+      : ADAFLO_D24_REGS(d)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D (64 x 48) += A (64 x 16 bf16, registers) B (16 x 48, K-major)
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[24], const uint32_t (&a)[4], uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " ADAFLO_D24
+      ", {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : ADAFLO_D24_REGS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// D (64 x 48) += A (64 x 8 TF32, registers) B (8 x 48, K-major)
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[24], const uint32_t (&a)[4], uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 " ADAFLO_D24
+      ", {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : ADAFLO_D24_REGS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// shared-memory stores of the staging rows
+__device__ __forceinline__ void sts(uint32_t a, float lo, float hi) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(a), "f"(lo), "f"(hi) : "memory");
+}
+__device__ __forceinline__ void sts_bf16(uint32_t a, float v) {
+  const unsigned short h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(a), "h"(h) : "memory");
+}
+
+// One n48 chunk of the accumulator (O^T: row 16 w + g / g + 8 of the
+// warpgroup's 64 is tile column c_lo / c_hi, n 8 j + 2 t + {0, 1} is O's row)
+// into the warpgroup's staging rows as TMA store boxes (128-byte rows of
+// E = 128 / sizeof(TO) columns, swizzled: a store's lanes fall on distinct
+// banks), then one TMA store per box into O at (col0, row0): whole rows,
+// asynchronous, while the warpgroup goes on; BUFS staging buffers take turns.
+// PAIRED (float32 output): M'-rows g, g + 8 are columns 16 w + 2 g, + 1 (the
+// register A operand's order; float32 pairs in one 8-byte store); else
+// (K5's bf16) 16 w + g, + 8 (the stage's).
+template <bool PAIRED, typename TO, int BUFS>
+__device__ void store_chunk(const float (&d)[24], unsigned char* stg, const TileMap* omap, int col0,
+                            int row0, int wt, int bar_id, uint64_t policy) {
+  constexpr int S = sizeof(TO), E = 128 / S;
+  const int w = wt / 32, g = (wt % 32) / 4, t = wt % 4;
+  const int c_lo = PAIRED ? 16 * w + 2 * g : 16 * w + g, c_hi = PAIRED ? c_lo + 1 : c_lo + 8;
+  const uint32_t base = smem_u32(stg);
+  auto at = [&](int r, int c) { return base + (c / E) * 48 * 128 + swz128(r, (c % E) * S); };
+  if (wt == 0) bulk_wait_read<BUFS - 1>();  // the buffer's previous store has read it
+  named_sync(bar_id, 128);
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const int r = 8 * j + 2 * t;
+    if constexpr (S == 2) {
+      sts_bf16(at(r, c_lo), d[4 * j]), sts_bf16(at(r + 1, c_lo), d[4 * j + 1]);
+      sts_bf16(at(r, c_hi), d[4 * j + 2]), sts_bf16(at(r + 1, c_hi), d[4 * j + 3]);
+    } else {  // float32 output: the register order (TF32, K9 bf16)
+      static_assert(PAIRED, "float32 output comes in the paired column order");
+      sts(at(r, c_lo), d[4 * j], d[4 * j + 2]), sts(at(r + 1, c_lo), d[4 * j + 1], d[4 * j + 3]);
     }
   }
+  fence_proxy_async();  // the TMA (async proxy) reads what these stores wrote
+  named_sync(bar_id, 128);
+  if (wt == 0) {
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    const int col = wc + 8 * n + 2 * t;
-    put(O + (wr + g) * ldo + col, acc[n][0]);
-    put(O + (wr + g) * ldo + col + 1, acc[n][1]);
-    put(O + (wr + g + 8) * ldo + col, acc[n][2]);
-    put(O + (wr + g + 8) * ldo + col + 1, acc[n][3]);
+    for (int b = 0; b < 64 / E; ++b)
+      tma_store_2d(omap, col0 + b * E, row0, stg + b * 48 * 128, policy);
+    bulk_commit();
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-template <int K, typename TO>
-__device__ void dot_pass_bf16(const __nv_bfloat16* sA, const __nv_bfloat16* sB, TO* O,
-                              long long ldo) {
-  constexpr int LDA = K + kPadA, LDB = kTile + kPadB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wr = (warp / 2) * 16, wc = (warp % 2) * 32;
-  float acc[4][4] = {};
+// One work item of the wgmma paths: warpgroup wg computes O rows
+// [wg M / 2, (wg + 1) M / 2) of the tile's 64 columns as NQ = M / 96 n48
+// chunks, two accumulators in turn: chunk q + 1's wgmma group runs while
+// chunk q is staged and its TMA store issued.
+template <int PREC, int M, int K, typename TX, typename TO, int BUFS>
+__device__ void mma_tile(const unsigned char* st, const unsigned char* sA, const TileMap* omap,
+                         int col0, unsigned char* stg, int& nchunk, uint64_t* empty, int ctid,
+                         uint64_t policy) {
+  constexpr int NQ = M / 96;
+  constexpr bool SS = sizeof(TX) == 2;  // K5 bf16: X^T straight from the stage
+  constexpr bool TF = PREC == kPrecTF32;
+  constexpr int KS = TF ? K / 8 : K / 16;
+  const int wg = ctid / 128, wt = ctid % 128, w = wt / 32, g = (wt % 32) / 4, t = wt % 4;
+  const int n0 = wg * (M / 2);
+  const uint32_t a_base = smem_u32(sA), x_base = smem_u32(st);
+  float d[2][24];
+  uint32_t a[SS ? 1 : KS][4];
+  if constexpr (!SS) {
+    // X^T's fragments: M'-rows g and g + 8 of warp w are tile columns
+    // 16 w + 2 g and + 1, one LDS.64 per k
+    const int col = 16 * w + 2 * g;
+    const unsigned char* xc = st + (col / 32) * K * 128;
+    const int cb = (col % 32) * 4;
+    auto ld2 = [&](int k) { return *reinterpret_cast<const F2*>(xc + swz128(k, cb)); };
 #pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const __nv_bfloat16* r0 = sA + (wr + g) * LDA + k0 + 2 * t;
-    const __nv_bfloat16* r1 = sA + (wr + g + 8) * LDA + k0 + 2 * t;
-    const uint32_t a0 = pack_bf16(r0[0], r0[1]), a1 = pack_bf16(r1[0], r1[1]);
-    const uint32_t a2 = pack_bf16(r0[8], r0[9]), a3 = pack_bf16(r1[8], r1[9]);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const __nv_bfloat16* bc = sB + (k0 + 2 * t) * LDB + wc + 8 * n + g;
-      const uint32_t b0 = pack_bf16(bc[0], bc[LDB]);
-      const uint32_t b1 = pack_bf16(bc[8 * LDB], bc[9 * LDB]);
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-          "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-          : "+f"(acc[n][0]), "+f"(acc[n][1]), "+f"(acc[n][2]), "+f"(acc[n][3])
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    for (int ks = 0; ks < KS; ++ks) {
+      if constexpr (TF) {
+        const F2 v0 = ld2(8 * ks + t), v1 = ld2(8 * ks + t + 4);
+        a[ks][0] = to_tf32(v0.x), a[ks][1] = to_tf32(v0.y);
+        a[ks][2] = to_tf32(v1.x), a[ks][3] = to_tf32(v1.y);
+      } else {
+        const int k = 16 * ks + 2 * t;
+        const F2 v00 = ld2(k), v01 = ld2(k + 1), v10 = ld2(k + 8), v11 = ld2(k + 9);
+        a[ks][0] = to_bf16x2(v00.x, v01.x), a[ks][1] = to_bf16x2(v00.y, v01.y);
+        a[ks][2] = to_bf16x2(v10.x, v11.x), a[ks][3] = to_bf16x2(v10.y, v11.y);
+      }
     }
+    release(empty);
   }
+  auto issue = [&](int q, float (&acc)[24]) {
+    wgmma_fence();  // the registers were written (fragments) or read (epilogue)
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    const int col = wc + 8 * n + 2 * t;
-    put(O + (wr + g) * ldo + col, acc[n][0]);
-    put(O + (wr + g) * ldo + col + 1, acc[n][1]);
-    put(O + (wr + g + 8) * ldo + col, acc[n][2]);
-    put(O + (wr + g + 8) * ldo + col + 1, acc[n][3]);
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint64_t db = wgmma_desc(a_base + mma_b_start(n0, q, ks, M), 16, 1024);
+      if constexpr (SS)
+        wgmma_ss_bf16(acc, wgmma_desc(x_base + mma_x_start(ks), K * 128, 1024), db, ks > 0);
+      else if constexpr (TF)
+        wgmma_rs_tf32(acc, a[ks], db, ks > 0);
+      else
+        wgmma_rs_bf16(acc, a[ks], db, ks > 0);
+    }
+    wgmma_commit();
+  };
+  unsigned char* my_stg = stg + wg * BUFS * 48 * 64 * sizeof(TO);
+  auto store = [&](int q, const float (&acc)[24]) {
+    store_chunk<!SS, TO, BUFS>(acc, my_stg + (nchunk++ % BUFS) * 48 * 64 * sizeof(TO), omap, col0,
+                               n0 + 48 * q, wt, 2 + wg, policy);
+  };
+  issue(0, d[0]);
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    if (q + 1 < NQ) {
+      issue(q + 1, d[(q + 1) % 2]);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+      if constexpr (SS) release(empty);  // every wgmma of the tile has read the stage
+    }
+    reg_fence(d[q % 2]);
+    store(q, d[q % 2]);
   }
 }
 
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4], double b0, double b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// The float64 path's A fragments of warp w: rows 16 w .. 16 w + 15 of the
+// part (mma.sync m16n8k8 fragments, lane = 4 g + t: A (g, s), (g + 8, s),
+// (g, s + 4), (g + 8, s + 4) at slot s = t), loaded once; warps past the
+// part's rows (M 96: warps 6, 7) hold none.
 template <int K>
-__device__ void dot_pass_f64(const double* sA, const double* sB, double* O, long long ldo) {
-  constexpr int LDA = K + kPadA, LDB = kTile + kPadB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wr = (warp / 2) * 16, wc = (warp % 2) * 32;
-  double acc[2][4][2] = {};
+__device__ void load_a_f64(const double* __restrict__ A, double (&af)[K / 8][4], int rows,
+                           int ctid) {
+  const int w = ctid / 32, g = (ctid % 32) / 4, t = ctid % 4;
+  if (16 * w >= rows) return;
+  const double* a0 = A + (16 * w + g) * K + f64_kslot(t);
+  const double* a1 = a0 + 8 * K;
 #pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 4) {
-    const double a0 = sA[(wr + g) * LDA + k0 + t];
-    const double a1 = sA[(wr + 8 + g) * LDA + k0 + t];
+  for (int ks = 0; ks < K / 8; ++ks) {
+    af[ks][0] = a0[8 * ks], af[ks][1] = a1[8 * ks];
+    af[ks][2] = a0[8 * ks + 1], af[ks][3] = a1[8 * ks + 1];  // slot t + 4: k 2t + 1
+    // opaque values: the compiler keeps them in registers instead of
+    // reloading A from memory at every work item
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const double b = sB[(k0 + t) * LDB + wc + 8 * n + g];
-      asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
-                   : "+d"(acc[0][n][0]), "+d"(acc[0][n][1])
-                   : "d"(a0), "d"(b));
-      asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
-                   : "+d"(acc[1][n][0]), "+d"(acc[1][n][1])
-                   : "d"(a1), "d"(b));
-    }
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+d"(af[ks][i]));
   }
+}
+
+// One work item of the float64 path: warp w computes rows 16 w .. 16 w + 15
+// of the part x the tile's 32 columns (4 n8 subtiles) from its A fragments
+// in registers and B (C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1);
+// B (s, g), (s + 4, g)) from the swizzled stage: 2 conflict-free LDS.128 per
+// k row, 4 DMMA per k8 step. The warp stages its 16 x 32 tile (one of BUFS
+// buffers) as two TMA boxes and its lane 0 stores them.
+template <int K, int BUFS>
+__device__ void f64_tile(const unsigned char* st, const double (&af)[K / 8][4],
+                         const TileMap* omap, int col0, int row0, int rows, unsigned char* stg,
+                         int& nchunk, uint64_t* empty, int ctid, uint64_t policy) {
+  const int w = ctid / 32, lane = ctid % 32, g = lane / 4, t = lane % 4;
+  if (16 * w >= rows) {  // M 96: warps 6 and 7 hold no rows
+    release(empty);
+    return;
+  }
+  double acc[4][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      double* o = O + (wr + 8 * m + g) * ldo + wc + 8 * n + 2 * t;
-      o[0] = acc[m][n][0];
-      o[1] = acc[m][n][1];
-    }
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0;
+  auto at = [&](int row, int c) { return st + (c / 16) * K * 128 + swz128(row, (c % 16) * 8); };
+#pragma unroll  // af[ks] stays in registers only with constant indices
+  for (int ks = 0; ks < K / 8; ++ks) {
+    const int k = 8 * ks + 2 * t;  // slots t and t + 4
+    const D2 u0 = *reinterpret_cast<const D2*>(at(k, f64_col(g, 0)));
+    const D2 u2 = *reinterpret_cast<const D2*>(at(k, f64_col(g, 2)));
+    const D2 v0 = *reinterpret_cast<const D2*>(at(k + 1, f64_col(g, 0)));
+    const D2 v2 = *reinterpret_cast<const D2*>(at(k + 1, f64_col(g, 2)));
+    dmma(acc[0], af[ks], u0.x, v0.x);
+    dmma(acc[1], af[ks], u0.y, v0.y);
+    dmma(acc[2], af[ks], u2.x, v2.x);
+    dmma(acc[3], af[ks], u2.y, v2.y);
+  }
+  release(empty);
+  unsigned char* buf = stg + (w * BUFS + nchunk++ % BUFS) * 16 * 32 * 8;
+  if (lane == 0) bulk_wait_read<BUFS - 1>();  // the buffer's previous store has read it
+  warp_sync();
+#pragma unroll
+  for (int h = 0; h < 2; ++h)  // rows g, g + 8: accumulator entries 2h, 2h + 1
+#pragma unroll
+    for (int e = 0; e < 2; ++e)  // accumulator column n = 2t + e
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        const int c = f64_col(2 * t + e, j);
+        *reinterpret_cast<D2*>(buf + (c / 16) * 2048 + swz128(g + 8 * h, (c % 16) * 8)) =
+            D2{acc[j][2 * h + e], acc[j + 1][2 * h + e]};
+      }
+  fence_proxy_async();
+  warp_sync();
+  if (lane == 0) {
+    tma_store_2d(omap, col0, row0 + 16 * w, buf, policy);
+    tma_store_2d(omap, col0 + 16, row0 + 16 * w, buf + 2048, policy);
+    bulk_commit();
+  }
 }
 #endif  // ADAFLO_EMULATED
 
-template <int PREC, int M, int K>
-constexpr size_t dot_shared_bytes() {
-  return (size_t)(K * (kTile + kPadB) + kDotRows * (K + kPadA)) *
-         sizeof(typename Stage<PREC>::T);
-}
-
-template <int PREC, int M, int K, typename TI, typename TO>
+template <int PREC, int M, int K, typename TX, typename TO>
 __global__ void __launch_bounds__(kDotThreads)
-dense_dot_kernel(const TI* __restrict__ A, const TI* __restrict__ X, TO* __restrict__ O,
-                 long long ldx, int tiles) {
-  static_assert(M % kDotRows == 0 && K % 16 == 0, "M a multiple of 32, K of 16");
-  using S = typename Stage<PREC>::T;
-  constexpr int LDA = K + kPadA, LDB = kTile + kPadB;
-  S* sB = shared_base<S>();
-  S* sA = sB + K * LDB;
-  const long long c0 = (long long)(blockIdx.x % tiles) * kTile;
-  for (int i = threadIdx.x; i < K * kTile; i += blockDim.x)
-    sB[(i / kTile) * LDB + i % kTile] = Stage<PREC>::cvt(X[(i / kTile) * ldx + c0 + i % kTile]);
-#pragma unroll
-  for (int m0 = 0; m0 < M; m0 += kDotRows) {
-    __syncthreads();  // the previous pass has read sA
-    for (int i = threadIdx.x; i < kDotRows * K; i += blockDim.x)
-      sA[(i / K) * LDA + i % K] = Stage<PREC>::cvt(A[(m0 + i / K) * K + i % K]);
-    __syncthreads();
-    TO* o = O + m0 * ldx + c0;
-    if constexpr (PREC == kPrecF32) dot_pass_simt<K>(sA, sB, o, ldx);
-#ifndef ADAFLO_EMULATED
-    else if constexpr (PREC == kPrecTF32) dot_pass_tf32<K>(sA, sB, o, ldx);
-    else if constexpr (PREC == kPrecBF16) dot_pass_bf16<K>(sA, sB, o, ldx);
-    else dot_pass_f64<K>(sA, sB, o, ldx);
+dense_dot_kernel(const __grid_constant__ TileMap xmap, const __grid_constant__ TileMap omap,
+                 const TX* __restrict__ A, TO* __restrict__ O, long long ncols, long long tiles,
+                 long long items) {
+  using Pl = DotPlan<PREC, M, K, (int)sizeof(TX), (int)sizeof(TO)>;
+  unsigned char* raw = shared_base<unsigned char>();
+#ifdef ADAFLO_EMULATED
+  unsigned char* sm = raw + ((1024 - (uintptr_t)raw % 1024) % 1024);
+#else
+  unsigned char* sm = raw + ((1024 - smem_u32(raw) % 1024) % 1024);
 #endif
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Pl::BAR_OFF);
+  uint64_t* empty = full + Pl::S;
+  const int part = (int)(blockIdx.x % Pl::P);
+  const DotSched sched = dot_sched(blockIdx.x, gridDim.x, Pl::P, items);
+  const long long n = sched.n;
+  if (threadIdx.x == 0)
+    for (int s = 0; s < Pl::S; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, Pl::WARPS);
+    }
+  __syncthreads();
+  auto column = [&](long long it) { return (sched.first + it * sched.stride) % tiles * Pl::W; };
+  auto produce = [&](long long it) {
+    const int s = (int)(it % Pl::S);
+    const long long use = it / Pl::S;
+    if (use > 0) bar_wait(empty + s, (unsigned)((use - 1) & 1));
+    bar_arrive_expect(full + s, Pl::STAGE);
+    const int c0 = (int)column(it);
+    for (int ch = 0; ch < Pl::CHUNKS; ++ch)
+      tma_load_2d(sm + s * Pl::STAGE + ch * K * 128, &xmap, c0 + ch * (128 / (int)sizeof(TX)), 0,
+                  full + s);
+  };
+#ifndef ADAFLO_EMULATED
+  if (threadIdx.x >= 32 * Pl::WARPS) {  // the producer warp
+    if (threadIdx.x == 32 * Pl::WARPS)
+      for (long long it = 0; it < n; ++it) produce(it);
+    return;
   }
+#endif
+  const int ctid = threadIdx.x, nthr = consumer_stride(32 * Pl::WARPS);
+  unsigned char* sA = sm + Pl::A_OFF;
+  [[maybe_unused]] double af[Pl::kF64 ? K / 8 : 1][4];  // float64: A's fragments
+  if constexpr (Pl::kSimt) load_a_simt<M, K>((const float*)A, (float*)sA, ctid, nthr);
+#ifndef ADAFLO_EMULATED
+  else if constexpr (Pl::kF64)
+    load_a_f64<K>((const double*)A + (long long)part * Pl::MP * K, af, Pl::MP, ctid);
+  else
+    load_a_mma<PREC, M, K, TX>(A, sA, ctid, nthr);
+#endif
+  named_sync(1, 32 * Pl::WARPS);
+  [[maybe_unused]] int nchunk = 0;  // chunks (tiles) this thread's warpgroup (warp) has stored
+  // the output's TMA stores: written once, evicted from L2 first
+  [[maybe_unused]] const uint64_t policy = Pl::kSimt ? 0 : l2_evict_first();
+  auto consume = [&](long long it) {
+    const int s = (int)(it % Pl::S);
+    bar_wait(full + s, (unsigned)((it / Pl::S) & 1));
+    const unsigned char* st = sm + s * Pl::STAGE;
+    const int c0 = (int)column(it);
+    if constexpr (Pl::kSimt)
+      simt_tile<M, K>(st, (const float*)sA, (float*)O + c0, ncols, empty + s, ctid, nthr);
+#ifndef ADAFLO_EMULATED
+    else if constexpr (Pl::kF64)
+      f64_tile<K, Pl::STG_BUFS>(st, af, &omap, c0, part * Pl::MP, Pl::MP, sm + Pl::STG_OFF, nchunk,
+                                empty + s, ctid, policy);
+    else
+      mma_tile<PREC, M, K, TX, TO, Pl::STG_BUFS>(st, sA, &omap, c0, sm + Pl::STG_OFF, nchunk,
+                                                 empty + s, ctid, policy);
+#endif
+  };
+#ifdef ADAFLO_EMULATED
+  // one thread: the producer's copies run S items ahead of the consumer
+  for (long long it = 0; it < n && it < Pl::S; ++it) produce(it);
+  for (long long it = 0; it < n; ++it) {
+    consume(it);
+    if (it + Pl::S < n) produce(it + Pl::S);
+  }
+#else
+  for (long long it = 0; it < n; ++it) consume(it);
+  // the TMA stores (issued by a warpgroup's or a warp's first thread) have
+  // read the staging rows before the block ends
+  if (ctid % (Pl::kMma ? 128 : 32) == 0) bulk_wait_read<0>();
+#endif
 }
 
 // ---------------------------------------------------------------------------
@@ -527,25 +950,97 @@ int launch_row_copies(int n_rows, const void* x, void* out, int block, int nblk,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int PREC, int M, int K, typename TI, typename TO>
-int launch_dot_mk(const void* A, const void* X, void* O, long long ncols, long long blocks,
-                  cudaStream_t st) {
-  auto kern = dense_dot_kernel<PREC, M, K, TI, TO>;
-  const size_t smem = dot_shared_bytes<PREC, M, K>();
-  int rc = allow_shared(kern, smem);
-  if (rc != 0) return rc;
-  kern<<<(unsigned)blocks, kDotThreads, smem, st>>>((const TI*)A, (const TI*)X, (TO*)O, ncols, (int)(ncols / kTile));
-  return (int)cudaGetLastError();
+// The dot's instances: f(types, shape) for an entry's precision, streaming
+// and (m, k); float32, TF32 and float64 read and write their own type (TF32
+// float32), bf16 reads float32 (K9) or bf16 (K5, (384, 96) only).
+template <int PREC_, typename TX, typename TO>
+struct DotTypes {
+  static constexpr int PREC = PREC_;
+  using X = TX;
+  using O = TO;
+};
+template <int M_, int K_>
+struct DotShape {
+  static constexpr int M = M_, K = K_;
+};
+
+template <typename F>
+int with_shape(int m, int k, F f) {
+  if (m == 96 && k == 96) return f(DotShape<96, 96>{});
+  if (m == 384 && k == 96) return f(DotShape<384, 96>{});
+  if (m == 96 && k == 32) return f(DotShape<96, 32>{});
+  if (m == 384 && k == 32) return f(DotShape<384, 32>{});
+  return (int)cudaErrorInvalidValue;
 }
 
-template <int PREC, typename TI, typename TO>
-int launch_dot(int m, int k, const void* A, const void* X, void* O, long long ncols,
-               long long blocks, cudaStream_t st) {
-  if (m == 96 && k == 96) return launch_dot_mk<PREC, 96, 96, TI, TO>(A, X, O, ncols, blocks, st);
-  if (m == 384 && k == 96) return launch_dot_mk<PREC, 384, 96, TI, TO>(A, X, O, ncols, blocks, st);
-  if (m == 96 && k == 32) return launch_dot_mk<PREC, 96, 32, TI, TO>(A, X, O, ncols, blocks, st);
-  if (m == 384 && k == 32) return launch_dot_mk<PREC, 384, 32, TI, TO>(A, X, O, ncols, blocks, st);
+template <typename F>
+int with_dot(int prec, int m, int k, int streamed, F f) {
+  auto shapes = [&](auto types) { return with_shape(m, k, [&](auto mk) { return f(types, mk); }); };
+  if (prec == kPrecF32) return shapes(DotTypes<kPrecF32, float, float>{});
+#ifndef ADAFLO_EMULATED
+  if (prec == kPrecTF32) return shapes(DotTypes<kPrecTF32, float, float>{});
+  if (prec == kPrecF64) return shapes(DotTypes<kPrecF64, double, double>{});
+  if (prec == kPrecBF16 && !streamed) return shapes(DotTypes<kPrecBF16, float, float>{});
+  if (prec == kPrecBF16 && m == 384 && k == 96)
+    return f(DotTypes<kPrecBF16, __nv_bfloat16, __nv_bfloat16>{}, DotShape<384, 96>{});
+#endif
   return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory, resident blocks per SM (the occupancy calculator, after
+// allowing the shared memory) and SMs of an instance, queried once.
+struct DotResidency {
+  int smem, per_sm, sms;
+};
+
+template <typename Ty, typename Sh>
+int dot_residency(DotResidency* r) {
+  using Pl = DotPlan<Ty::PREC, Sh::M, Sh::K, (int)sizeof(typename Ty::X), (int)sizeof(typename Ty::O)>;
+  static DotResidency cached = {0, 0, 0};
+  if (cached.per_sm == 0) {
+    auto kern = dense_dot_kernel<Ty::PREC, Sh::M, Sh::K, typename Ty::X, typename Ty::O>;
+    int dev = 0, rc = allow_shared(kern, Pl::SMEM);
+    if (rc == 0) rc = (int)cudaGetDevice(&dev);
+    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&cached.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == 0)
+      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached.per_sm, kern, Pl::THREADS,
+                                                              Pl::SMEM);
+    if (rc != 0) return rc;
+    if (cached.per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    cached.smem = Pl::SMEM;
+  }
+  *r = cached;
+  return 0;
+}
+
+// One launch over `steps` grid steps (K5: 1) of the ncols columns of X.
+template <typename Ty, typename Sh>
+int launch_dot(const void* A, const void* X, void* O, long long ncols, long long steps,
+               cudaStream_t st) {
+  using TX = typename Ty::X;
+  using TO = typename Ty::O;
+  using Pl = DotPlan<Ty::PREC, Sh::M, Sh::K, (int)sizeof(TX), (int)sizeof(TO)>;
+  DotResidency res;
+  int rc = dot_residency<Ty, Sh>(&res);
+  if (rc != 0) return rc;
+  // the tile maps of the last X and O (rebuilt when an array changes): X in
+  // K-row boxes, O in the epilogue's boxes (OUT_ROWS rows)
+  static TileMap xmap, omap;
+  static const void *map_x = nullptr, *map_o = nullptr;
+  static long long map_cols = 0;
+  if (map_x != X || map_o != O || map_cols != ncols) {
+    rc = make_tile_map<TX>(&xmap, X, ncols, Sh::K, Sh::K);
+    if (rc == 0) rc = make_tile_map<TO>(&omap, O, ncols, Sh::M, Pl::OUT_ROWS);
+    if (rc != 0) return rc;
+    map_x = X, map_o = O, map_cols = ncols;
+  }
+  const long long tiles = ncols / Pl::W, items = tiles * steps;
+  const long long slots = (long long)res.per_sm * res.sms / Pl::P;
+  const long long grid = Pl::P * (items < slots ? items : slots);
+  auto kern = dense_dot_kernel<Ty::PREC, Sh::M, Sh::K, TX, TO>;
+  kern<<<(unsigned)grid, Pl::THREADS, Pl::SMEM, st>>>(xmap, omap, (const TX*)A, (TO*)O, ncols, tiles,
+                                                      items);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -598,23 +1093,55 @@ int adaflo_row_copies(int dtype, int n_rows, const void* x, void* out, int block
 // prec 0 f32, 1 tf32, 2 bf16, 3 f64. Resident: A, X float32 (float64 for
 // f64), O float32 (float64), nblk grid steps over the same X. Streamed: A, X
 // and O of one type, float32 (f32, tf32), bf16 or float64; m 384, k 96.
-// (m, k) in {96, 384} x {96, 32}; ncols a multiple of 64.
+// (m, k) in {96, 384} x {96, 32}; ncols a multiple of 64; A, X, O 16-byte
+// aligned.
 int adaflo_dense_dot(int prec, int m, int k, int streamed, const void* A, const void* X,
                      void* O, long long ncols, int nblk, void* stream) {
   if (ncols <= 0 || ncols % kTile != 0 || nblk <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long blocks = (ncols / kTile) * (streamed ? 1 : nblk);
-  if (prec == kPrecF32) return launch_dot<kPrecF32, float, float>(m, k, A, X, O, ncols, blocks, st);
-#ifndef ADAFLO_EMULATED
-  if (prec == kPrecTF32) return launch_dot<kPrecTF32, float, float>(m, k, A, X, O, ncols, blocks, st);
-  if (prec == kPrecF64) return launch_dot<kPrecF64, double, double>(m, k, A, X, O, ncols, blocks, st);
-  if (prec == kPrecBF16 && !streamed)
-    return launch_dot<kPrecBF16, float, float>(m, k, A, X, O, ncols, blocks, st);
-  if (prec == kPrecBF16 && m == 384 && k == 96)
-    return launch_dot_mk<kPrecBF16, 384, 96, __nv_bfloat16, __nv_bfloat16>(A, X, O, ncols, blocks, st);
-#endif
-  return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)A | (uintptr_t)X | (uintptr_t)O) % 16 != 0) return (int)cudaErrorInvalidValue;
+  const long long steps = streamed ? 1 : nblk;
+  return with_dot(prec, m, k, streamed, [&](auto ty, auto sh) {
+    return launch_dot<decltype(ty), decltype(sh)>(A, X, O, ncols, steps, (cudaStream_t)stream);
+  });
 }
+
+// The plan of a dot instance: out = [shared memory bytes, resident blocks per
+// SM, threads per block, columns of a work item, parts of A's rows, stages].
+int adaflo_dense_dot_plan(int prec, int m, int k, int streamed, int* out) {
+  return with_dot(prec, m, k, streamed, [&](auto ty, auto sh) {
+    using Ty = decltype(ty);
+    using Sh = decltype(sh);
+    using Pl = DotPlan<Ty::PREC, Sh::M, Sh::K, (int)sizeof(typename Ty::X),
+                       (int)sizeof(typename Ty::O)>;
+    DotResidency res;
+    const int rc = dot_residency<Ty, Sh>(&res);
+    if (rc != 0) return rc;
+    const int plan[6] = {Pl::SMEM, res.per_sm, Pl::THREADS, Pl::W, Pl::P, Pl::S};
+    for (int i = 0; i < 6; ++i) out[i] = plan[i];
+    return 0;
+  });
+}
+
+#ifdef ADAFLO_EMULATED
+// The dot's layout arithmetic, for the CPU tests to hold against the PTX
+// ISA's formulas.
+int adaflo_emu_swz128(int row, int byte) { return swz128(row, byte); }
+unsigned long long adaflo_emu_wgmma_desc(unsigned saddr, unsigned lbo, unsigned sbo) {
+  return wgmma_desc(saddr, lbo, sbo);
+}
+int adaflo_emu_mma_a_offset(int m, int k, int M, int AS) { return mma_a_offset(m, k, M, AS); }
+unsigned adaflo_emu_mma_b_start(int n0, int q, int ks, int M) { return mma_b_start(n0, q, ks, M); }
+unsigned adaflo_emu_mma_x_start(int ks) { return mma_x_start(ks); }
+int adaflo_emu_f64_kslot(int s) { return f64_kslot(s); }
+int adaflo_emu_f64_col(int n, int j) { return f64_col(n, j); }
+// the items of block `block` of `grid` (out[0..n)), returns n
+long long adaflo_emu_dot_items(long long block, long long grid, int parts, long long items,
+                               long long* out) {
+  const DotSched d = dot_sched(block, grid, parts, items);
+  for (long long it = 0; it < d.n; ++it) out[it] = d.first + it * d.stride;
+  return d.n;
+}
+#endif
 
 // K10. x (32, block + 2560), out (384, block); coeffs: host doubles
 // [V (3 axes z, y, x x 3 terms), D (3 x 3)].

@@ -3,14 +3,19 @@ interface (loaded with ctypes by the modules that wrap them).
 
 Each library is built with nvcc for sm_90a at first use, into
 ``build/adaflo_tpu_torch/`` under the repository root, as
-``lib<name>_<hash>.so``, the hash that of the source, so that an edited
-source is built anew and an unchanged one is built once.
+``lib<name>_<hash>.so``, the hash that of the source and of every file it
+includes from ``csrc/`` (``#include "..."``, followed through the headers),
+so that an edited source or header is built anew and an unchanged one is
+built once. The libraries link the CUDA runtime only: the driver functions
+they need (cuTensorMapEncodeTiled) come through the runtime's entry-point
+query.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -19,6 +24,32 @@ from pathlib import Path
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adaflo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def source_files(source: Path) -> list:
+    """`source` and the files it includes with ``#include "..."`` from its
+    own directory, their includes followed in turn, each once."""
+    files, todo = [], [Path(source)]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        todo += [f.parent / n for n in _INCLUDE.findall(f.read_text())
+                 if (f.parent / n).is_file()]
+    return files
+
+
+def source_tag(source: Path) -> str:
+    """The hash that names a library: of `source` and its included files
+    (source_files), each by name and content."""
+    h = hashlib.sha1()
+    for f in source_files(source):
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    return h.hexdigest()[:12]
 
 
 def nvcc() -> str:
@@ -33,9 +64,9 @@ def nvcc() -> str:
 
 def build_library(source: Path, name: str, info: dict) -> Path:
     """The path of the library built from `source`, building it when no
-    library of this source's hash exists; a build records its seconds and
-    nvcc's output (ptxas' registers and spills) in `info`."""
-    tag = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
+    library of this source's hash (source_tag) exists; a build records its
+    seconds and nvcc's output (ptxas' registers and spills) in `info`."""
+    tag = source_tag(source)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"lib{name}_{tag}.so"
     if not so.exists():

@@ -223,9 +223,10 @@ def bind(lib):
     lib.adaflo_row_fma.argtypes = [i, i, i, vp, vp, i, i, vp]
     lib.adaflo_row_copies.argtypes = [i, i, vp, vp, i, i, vp]
     lib.adaflo_dense_dot.argtypes = [i, i, i, i, vp, vp, vp, ll, i, vp]
+    lib.adaflo_dense_dot_plan.argtypes = [i, i, i, i, vp]
     lib.adaflo_sf_eval.argtypes = [i, vp, vp, i, i, vp, vp]
     for fn in (lib.adaflo_row_fma, lib.adaflo_row_copies, lib.adaflo_dense_dot,
-               lib.adaflo_sf_eval):
+               lib.adaflo_dense_dot_plan, lib.adaflo_sf_eval):
         fn.restype = i
     return lib
 
@@ -262,6 +263,21 @@ def _launch_dense_dot(A, X, out, precision, nblk, streamed):
         PRECISIONS.index(precision), A.shape[0], A.shape[1], int(streamed), A.data_ptr(),
         X.data_ptr(), out.data_ptr(), X.shape[1], nblk, _stream(X.device)),
         f"dense_dot[{precision}]")
+
+
+DOT_PLAN_KEYS = ("smem", "blocks_per_sm", "threads", "tile_cols", "parts", "stages")
+
+
+def dot_plan(precision: str, m: int, k: int, streamed: bool) -> dict:
+    """The dot instance's launch plan (DOT_PLAN_KEYS): shared memory per
+    block, resident blocks per SM (the occupancy calculator), threads per
+    block, columns of a work item, parts of A's rows over the blocks, ring
+    stages."""
+    out = np.zeros(len(DOT_PLAN_KEYS), np.int32)
+    _raise_on(load_library().adaflo_dense_dot_plan(
+        PRECISIONS.index(precision), m, k, int(streamed), out.ctypes.data),
+        f"dense_dot[{precision}] plan")
+    return dict(zip(DOT_PLAN_KEYS, (int(v) for v in out)))
 
 
 def _launch_sf_eval(x, out, nblk, coeffs):

@@ -2,16 +2,17 @@
 
 Counterpart of ``scripts/probe_mxu.py``: what the dot shape of the cell
 apply, (384, 96) @ (96, B) blocks, sustains against the library's products.
-Three blocks of lines, each with ms and TFLOP/s: ``torch.matmul`` at n x n
-(default 4096) in float32 (TF32 off), TF32 (on) and bf16; ``torch.matmul``
-of the stacked (384, 96) @ (96, cols) (default 110,592 columns) in the same
-three and in float64; and K5, ``dense_dot_streamed``, the hand-written dot
-over 64-column tiles of X, in f32 (CUDA cores), tf32, bf16 (bf16 in and
-out) and f64 (tensor cores), each against its plain version, its bound
-(probe_bounds.k5_bound) and the stacked product of its precision as its
-library call. TF32 is on only inside the TF32 library calls. Times: 20
-calls back to back between one pair of CUDA events, and one waited call
-(time_ms).
+Lines with ms and TFLOP/s: ``torch.matmul`` at n x n (default 4096) in
+float32 (TF32 off), TF32 (on) and bf16; then per precision the library
+call, ``torch.matmul`` of the stacked (384, 96) @ (96, cols) (default
+110,592 columns), and K5, ``dense_dot_streamed``, the hand-written dot
+(csrc/probe_kernels.cu) in f32 (CUDA cores), tf32, bf16 (bf16 in and out)
+and f64 (tensor cores), against its plain version and its bound
+(probe_bounds.k5_bound). TF32 is on only inside the TF32 library calls.
+Times: 20 calls back to back between one pair of CUDA events, and one
+waited call (time_ms); the kernel and its library call in 5 interleaved
+rounds (time_rounds, medians), so that their ratio comes from one card in
+one run.
 
 Run: python -m adaflo_tpu_torch.scripts.probe_mxu [--n 4096] [--cols 110592]
 [--reps 20] [--device cpu] [--seed 0]
@@ -26,7 +27,7 @@ import torch
 
 from adaflo_tpu_torch.device import resolve_device
 from adaflo_tpu_torch.ops import probe_kernels as pk
-from adaflo_tpu_torch.scripts import allow_tf32, sync, time_ms
+from adaflo_tpu_torch.scripts import allow_tf32, sync, time_ms, time_rounds
 from adaflo_tpu_torch.scripts.probe_bounds import k5_bound
 
 # tolerances of K5 against its plain version, max-abs error over max-abs:
@@ -83,22 +84,22 @@ def run(n: int = 4096, cols: int = 110592, reps: int = 20, device=None, seed: in
     flops = 2 * 384 * 96 * cols
     for prec in pk.PRECISIONS:
         A, X = rnd(384, 96, dt=TYPES[prec]), rnd(96, cols, dt=TYPES[prec])
-        t = time_ms(_matmul(A, X, prec), dev, reps)
-        res[f"matmul stacked {prec}"] = t
-        line(f"torch.matmul (384,96)@(96,{cols}) {prec}", t["ms"], flops)
-    for prec in pk.PRECISIONS:
-        A, X = rnd(384, 96, dt=TYPES[prec]), rnd(96, cols, dt=TYPES[prec])
         kern = lambda: pk.dense_dot_streamed(A, X, prec)
         plain = lambda: pk.dense_dot_streamed_plain(A, X, prec)
         got, ref = kern().double(), plain().double()
         sync(dev)
         max_abs = float((got - ref).abs().max())
+        rel = max_abs / max(float(ref.abs().max()), 1e-300)
         del got, ref
-        rec = dict(time_ms(kern, dev, reps), max_abs_err=max_abs,
-                   rel_err=max_abs / max(float(plain().double().abs().max()), 1e-300),
-                   tol=TOL[prec], counter=f"dense_dot_streamed[{prec}]",
+        # the kernel and its library call in turns, so that their ratio is
+        # taken on one card in one run
+        t = time_rounds({"kernel": kern, "library": _matmul(A, X, prec)}, dev, reps)
+        res[f"matmul stacked {prec}"] = t["library"]
+        line(f"torch.matmul (384,96)@(96,{cols}) {prec}", t["library"]["ms"], flops)
+        rec = dict(t["kernel"], max_abs_err=max_abs, rel_err=rel, tol=TOL[prec],
+                   counter=f"dense_dot_streamed[{prec}]",
                    plain_ms=time_ms(plain, dev, plain_reps, warmup=0)["ms"],
-                   library_ms=res[f"matmul stacked {prec}"]["ms"], **k5_bound(cols, prec))
+                   library_ms=t["library"]["ms"], **k5_bound(cols, prec))
         res[f"K5 {prec}"] = rec
         line(f"dense_dot_streamed (K5) {prec}", rec["ms"], flops,
              f", one waited call {rec['call_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "

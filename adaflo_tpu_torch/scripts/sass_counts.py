@@ -7,13 +7,17 @@ count (K7 n_ops), row count (K8 n_rows) and rows of A (K9/K5 M) as the work
 does. K13's schedules of the cell kernel must copy asynchronously: rowdma
 and unroll2 through cp.async (LDGSTS), pipe through bulk copies (UBLKCP)
 completing on an mbarrier (SYNCS); if nvcc turned a schedule's copies into
-plain loads, the counts show it. Runs ``cuobjdump -sass`` (CUDA toolkit)
-on the libraries of ``csrc/probe_kernels.cu`` and ``csrc/coupled_matvec.cu``,
-building them first if needed, and prints, per probe kernel instance and
-per schedule instance of the cell kernel (beside the production one-shot
-instance, "full"), the counts of FFMA, FMUL, FADD, DFMA, DMUL, DADD, HMMA,
-DMMA, LDS, LDG, STG, LDGSTS, UBLKCP and SYNCS; it fails if a schedule lacks
-its asynchronous copies.
+plain loads, the counts show it. The dense dot's instances (K5, K9) must
+hold their design: TMA tile loads (UTMALDG) and mbarriers (SYNCS) in every
+precision, wgmma (HGMMA) in bf16 and TF32, DMMA in float64. Runs
+``cuobjdump -sass`` (CUDA toolkit) on the libraries of
+``csrc/probe_kernels.cu`` and ``csrc/coupled_matvec.cu``, building them
+first if needed, and prints, per probe kernel instance and per schedule
+instance of the cell kernel (beside the production one-shot instance,
+"full"), the counts of FFMA, FMUL, FADD, DFMA, DMUL, DADD, HMMA, HGMMA,
+DMMA, LDS, STS, LDG, STG, LDGSTS, UBLKCP, UTMALDG, UTMASTG and SYNCS; it fails
+if a schedule lacks its asynchronous copies or a dot instance its
+instructions.
 
 Run: python -m adaflo_tpu_torch.scripts.sass_counts
 """
@@ -29,13 +33,19 @@ from pathlib import Path
 from adaflo_tpu_torch.ops import coupled_matvec as cm
 from adaflo_tpu_torch.ops import probe_kernels as pk
 
-OPS = ("FFMA", "FMUL", "FADD", "DFMA", "DMUL", "DADD", "HMMA", "DMMA", "LDS", "LDG", "STG",
-       "LDGSTS", "UBLKCP", "SYNCS")
+OPS = ("FFMA", "FMUL", "FADD", "DFMA", "DMUL", "DADD", "HMMA", "HGMMA", "DMMA", "LDS", "STS",
+       "LDG", "STG", "LDGSTS", "UBLKCP", "UTMALDG", "UTMASTG", "SYNCS")
 # the asynchronous copies each schedule must show
 SCHEDULE_OPS = {"rowdma": ("LDGSTS",), "pipe": ("UBLKCP", "SYNCS"), "unroll2": ("LDGSTS",)}
 # the mangled cell kernel <3, 3, 3, 2, true, kSrcTable, kStreamDofs,
 # kOutScatter, T, kPhAll, SCHED>: the probe configuration with every phase
 _CELL_KERNEL = re.compile(r"coupled_cell_kernelILi3ELi3ELi3ELi2ELb1ELi0ELi0ELi0E([df])Li63ELi(\d)EE")
+# the mangled dot kernel <PREC, M, K, TX, TO>: "<precision> (M, K) <X type>"
+_DOT_KERNEL = re.compile(r"dense_dot_kernelILi(\d)ELi(\d+)ELi(\d+)E(f|d|13__nv_bfloat16)")
+_DOT_TYPES = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
+# the instructions each dot instance must hold, by precision
+DOT_OPS = {"f32": ("UTMALDG", "SYNCS", "FFMA"), "tf32": ("UTMALDG", "SYNCS", "HGMMA"),
+           "bf16": ("UTMALDG", "SYNCS", "HGMMA"), "f64": ("UTMALDG", "SYNCS", "DMMA")}
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 
 
@@ -95,17 +105,71 @@ def schedule_counts(library: Path) -> dict:
     return {_schedule_key(n): c for n, c in _sass(library).items() if _schedule_key(n)}
 
 
-def schedule_registers(log: str) -> dict:
-    """{"<schedule> <dtype>": registers per thread} of the instances of
-    schedule_counts, from the ptxas lines of an nvcc -Xptxas -v build log."""
+def _ptxas(log: str, key_of) -> dict:
+    """{key: {"registers", "stack", "spill_stores", "spill_loads"}} of the
+    kernels of an nvcc -Xptxas -v build log that key_of (a mangled name ->
+    key or None) names; "stack" is the stack frame in bytes (local arrays
+    that did not stay in registers, and spills)."""
     out, key = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
-            key = _schedule_key(line)
+            key = key_of(line)
+            if key is not None:
+                out.setdefault(key, {"registers": None, "stack": 0, "spill_stores": 0,
+                                     "spill_loads": 0})
+        elif key is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            out[key]["stack"], out[key]["spill_stores"], out[key]["spill_loads"] = (
+                int(m.group(1)), int(m.group(2)), int(m.group(3)))
         elif key is not None and "Used " in line:
-            out[key] = int(line.split("Used ")[1].split()[0])
+            out[key]["registers"] = int(line.split("Used ")[1].split()[0])
             key = None
     return out
+
+
+def schedule_registers(log: str) -> dict:
+    """{"<schedule> <dtype>": registers per thread} of the instances of
+    schedule_counts, from the ptxas lines of an nvcc -Xptxas -v build log."""
+    return {k: v["registers"] for k, v in _ptxas(log, _schedule_key).items()
+            if v["registers"] is not None}
+
+
+def dot_key(mangled: str):
+    """"<precision> (M, K) <X type>" of a mangled dense_dot_kernel instance
+    (e.g. "bf16 (384, 96) bf16", K5's bf16 instance), or None."""
+    m = _DOT_KERNEL.search(mangled)
+    if m is None:
+        return None
+    prec = pk.PRECISIONS[int(m.group(1))]
+    return f"{prec} ({m.group(2)}, {m.group(3)}) {_DOT_TYPES[m.group(4)]}"
+
+
+def dot_counts(library: Path) -> dict:
+    """{dot_key: {opcode: count}} of the dense dot's instances in `library`
+    (probe_kernels')."""
+    return {dot_key(n): c for n, c in _sass(library).items() if dot_key(n)}
+
+
+def dot_ptxas(log: str) -> dict:
+    """{dot_key: {"registers", "stack", "spill_stores", "spill_loads"}} from
+    the ptxas lines of the probe library's build log."""
+    return _ptxas(log, dot_key)
+
+
+def dot_instances() -> list:
+    """The dot's instances: every precision at every (m, k) of DOT_SHAPES
+    (float32 inputs; float64 for f64), and K5's bf16 one, (384, 96) bf16."""
+    keys = [f"{p} ({m}, {k}) {'double' if p == 'f64' else 'float'}"
+            for p in pk.PRECISIONS for m, k in pk.DOT_SHAPES]
+    return keys + ["bf16 (384, 96) bf16"]
+
+
+def check_dot(res: dict) -> list:
+    """The dot instances missing from `res` or without the instructions of
+    their design (DOT_OPS)."""
+    return [k for k in dot_instances()
+            if not all(res.get(k, {}).get(op, 0) > 0 for op in DOT_OPS[k.split()[0]])]
 
 
 def check_schedules(res: dict) -> list:
@@ -123,11 +187,14 @@ def show(res: dict) -> None:
 
 def main() -> None:
     show(counts(pk.library_path()))
+    missing_dot = check_dot(dot_counts(pk.library_path()))
     sched = schedule_counts(cm.library_path())
     show(sched)
     missing = check_schedules(sched)
     if missing:
         raise SystemExit(f"schedules without their asynchronous copies: {missing}")
+    if missing_dot:
+        raise SystemExit(f"dot instances without their design's instructions: {missing_dot}")
 
 
 if __name__ == "__main__":

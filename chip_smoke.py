@@ -10,7 +10,12 @@ Phases:
      (LDGSTS), pipe bulk copies (UBLKCP) and mbarrier operations (SYNCS);
      beside it each schedule's registers, shared memory per block and
      resident blocks per SM (the occupancy calculator), and the one-shot
-     full apply's;
+     full apply's; the SASS of the dense dot's 17 instances (K5, K9): each
+     must hold TMA tile loads (UTMALDG) and mbarrier operations (SYNCS), and
+     wgmma (HGMMA) in bf16 and TF32, DMMA in float64, FFMA in float32
+     (sass_counts.DOT_OPS); beside it each instance's registers, stack and
+     spills (ptxas), shared memory, resident blocks per SM, threads, tile
+     columns, parts of A and ring stages (ops/probe_kernels.dot_plan);
   2. kernels against their plain PyTorch versions, on the card, max-abs error
      over max-abs <= 1e-12 (float64) / 1e-5 (float32), with the time per
      apply beside the plain version's time and the bound (bytes over the
@@ -41,10 +46,12 @@ Phases:
      - the contraction-rate probes (ops/probe_kernels: K7 row_fma, K8
        row_copies, K9 dense_dot and K5 dense_dot_streamed in f32, tf32, bf16
        and f64, K10 sf_eval) against their plain versions at block 256 and 2
-       steps, in every mode, and the modes the drivers do not time at the
-       scripts' defaults, errors only (phase 4 times and checks the rest);
-       the drivers' tolerances (float64 1e-12, float32 1e-5, TF32 2e-3, K5's
-       bf16 output 8e-3), K8 exact;
+       steps, in every mode, K9 at every (m, k) in every precision, K5 over
+       1,024, 64 (one work item) and 1,088 columns (17, an odd count); K7's
+       untimed mode and K9 at every (m, k) and precision also at the
+       scripts' defaults (block 4096, 29 steps), errors only (phase 4 times
+       and checks the rest); the drivers' tolerances (float64 1e-12, float32
+       1e-5, TF32 2e-3, K9 bf16 1e-5, K5's bf16 output 8e-3), K8 exact;
   3. the slice, each path driven with the launch counts set to 0 before it
      and read after it:
      - the port's Beltrami driver on tests/prms/beltrami_3d.prm in float64
@@ -62,9 +69,10 @@ Phases:
      phase attribution, K13's schedules beside full, K6's index_add_ and
      lattice-scatter times; then the
      contraction-rate probes (probe_sf K7-K10 at block 4096 and 29 steps in
-     float32 and float64, probe_mxu K5 at 110,592 columns beside
-     torch.matmul): per configuration ms, bound, plain and library ms, and
-     the marginal rates; every entry of ops/probe_kernels must launch.
+     float32 and float64, probe_mxu K5 at 110,592 columns, each precision in
+     5 rounds interleaved with its stacked torch.matmul): per configuration
+     ms, bound, plain and library ms, and the marginal rates; every entry of
+     ops/probe_kernels must launch.
 
 The last line is {"ok": true, "device": {...}}; a "kernels" JSON line and
 the nvidia-smi line come before it. Any failed phase raises and the script
@@ -539,13 +547,13 @@ def check_probe_entries(device):
     return records
 
 
-def sf_cases(device, block: int, nblk: int, cols: int, seed: int, timed: bool):
+def sf_cases(device, block: int, nblk: int, cols, seed: int, timed: bool):
     """Phase 2's cases of ops/probe_kernels: (label, counter, run, plain,
-    tolerance). With `timed`, the configurations that probe_sf times
+    tolerance). Always K7 at 72 statements, aligned and shifted (a mode the
+    drivers do not time), and K9 at every (m, k) of DOT_SHAPES in every
+    precision; with `timed`, also the configurations that probe_sf times
     (probe_sf.probes, float32 and float64) and K5 in every precision over
-    `cols` columns, as probe_mxu runs it; always the modes that the drivers
-    do not time: K7 at 72 statements, aligned and shifted, and the TF32 and
-    bf16 dots at k = 32. Tolerances: the drivers' (probe_sf.TOL and
+    each of `cols` columns. Tolerances: the drivers' (probe_sf.TOL and
     DOT_TOL, probe_mxu.TOL), K8 exact."""
     import torch
 
@@ -570,36 +578,39 @@ def sf_cases(device, block: int, nblk: int, cols: int, seed: int, timed: bool):
                           lambda sh=shifted, x=x7: pk.row_fma(x, 72, sh, nblk),
                           lambda sh=shifted, x=x7: pk.row_fma_plain(x, 72, sh, nblk),
                           probe_sf.TOL[d]))
-    for prec in ("tf32", "bf16"):
-        for m in (96, 384):
-            A, x = rnd(m, 32, dtype=torch.float32), rnd(32, block, dtype=torch.float32)
-            cases.append((f"dense_dot {prec} m={m} k=32", f"dense_dot[{prec}]",
+    for prec in pk.PRECISIONS:
+        dtype = torch.float64 if prec == "f64" else torch.float32
+        for m, k in pk.DOT_SHAPES:
+            A, x = rnd(m, k, dtype=dtype), rnd(k, block, dtype=dtype)
+            cases.append((f"dense_dot {prec} m={m} k={k}", f"dense_dot[{prec}]",
                           lambda A=A, x=x, p=prec: pk.dense_dot(A, x, p, nblk),
                           lambda A=A, x=x, p=prec: pk.dense_dot_plain(A, x, p, nblk),
                           probe_sf.DOT_TOL[prec]))
     if timed:
         for prec in pk.PRECISIONS:
-            A5, X5 = (rnd(*s, dtype=probe_mxu.TYPES[prec]) for s in ((384, 96), (96, cols)))
-            cases.append((f"dense_dot_streamed {prec} cols={cols}",
-                          f"dense_dot_streamed[{prec}]",
-                          lambda A=A5, X=X5, p=prec: pk.dense_dot_streamed(A, X, p),
-                          lambda A=A5, X=X5, p=prec: pk.dense_dot_streamed_plain(A, X, p),
-                          probe_mxu.TOL[prec]))
+            for n in cols:
+                A5, X5 = (rnd(*s, dtype=probe_mxu.TYPES[prec]) for s in ((384, 96), (96, n)))
+                cases.append((f"dense_dot_streamed {prec} cols={n}",
+                              f"dense_dot_streamed[{prec}]",
+                              lambda A=A5, X=X5, p=prec: pk.dense_dot_streamed(A, X, p),
+                              lambda A=A5, X=X5, p=prec: pk.dense_dot_streamed_plain(A, X, p),
+                              probe_mxu.TOL[prec]))
     return cases
 
 
 def check_sf_entries(device):
     """Phase 2, the contraction-rate probes (K5, K7-K10): every entry of
     ops/probe_kernels in every mode against its plain version on the card,
-    at a small shape (block 256, 2 steps, K5 over 1,024 columns), and the
-    modes that phase 4's drivers do not time also at the scripts' defaults
-    (block 4096, 29 steps); phase 4 holds the timed ones to the same
-    tolerances there. Returns the errors by (label, shape)."""
+    at a small shape (block 256, 2 steps; K5 over 1,024 columns, one tile of
+    64 and 1,088, 17 tiles: fewer work items than blocks, and an odd count),
+    and K7's untimed mode and K9 at every (m, k) and precision also at the
+    scripts' defaults (block 4096, 29 steps); phase 4 holds the timed ones
+    to the same tolerances there. Returns the errors by (label, shape)."""
     import torch
 
     records = {}
-    for shape, (block, nblk, cols, timed) in (("small", (256, 2, 1024, True)),
-                                              ("default", (4096, 29, 110592, False))):
+    for shape, (block, nblk, cols, timed) in (("small", (256, 2, (1024, 64, 1088), True)),
+                                              ("default", (4096, 29, (), False))):
         for label, counter, run, plain, tol in sf_cases(device, block, nblk, cols, 5, timed):
             got, ref = run(), plain()
             torch.cuda.synchronize()
@@ -725,6 +736,38 @@ def check_schedule_build(cm):
     missing = sass_counts.check_schedules(sass)
     if missing:
         raise AssertionError(f"schedules without their asynchronous copies: {missing}")
+    return out
+
+
+def check_dot_build(pk):
+    """Phase 1: the dense dot's instances (K5, K9) in the built library:
+    SASS counts, each instance holding its design's instructions
+    (scripts.sass_counts.DOT_OPS: TMA loads UTMALDG and mbarriers SYNCS;
+    HGMMA in bf16 and TF32, DMMA in float64), ptxas registers and spills,
+    and the launch plan (shared memory, resident blocks per SM, threads,
+    tile columns, parts of A, stages). Returns {instance: record}."""
+    from adaflo_tpu_torch.scripts import sass_counts
+
+    sass = sass_counts.dot_counts(pk.library_path())
+    ptxas = sass_counts.dot_ptxas(pk.build_info.get("log", ""))
+    out = {}
+    for key in sass_counts.dot_instances():
+        prec, rest = key.split(" ", 1)
+        m, k = (int(v) for v in rest.split(")")[0].strip("(").split(","))
+        c = sass.get(key, {})
+        out[key] = dict(sass=c, **ptxas.get(key, {}),
+                        **pk.dot_plan(prec, m, k, streamed=rest.endswith("bf16")))
+        r = out[key]
+        print(f"dot {key}: {r.get('registers')} registers, spills {r.get('spill_stores')} / "
+              f"{r.get('spill_loads')} B, {r['smem']} B shared, {r['blocks_per_sm']} blocks/SM, "
+              f"{r['threads']} threads, {r['tile_cols']}-column items, {r['parts']} part(s) of A, "
+              f"{r['stages']} stages; SASS " + ", ".join(
+                  f"{op} {c.get(op, 0)}"
+                  for op in ("HGMMA", "DMMA", "FFMA", "UTMALDG", "SYNCS", "LDS", "STS", "STG")),
+              flush=True)
+    missing = sass_counts.check_dot(sass)
+    if missing:
+        raise AssertionError(f"dot instances without their design's instructions: {missing}")
     return out
 
 
@@ -948,6 +991,7 @@ def main() -> int:
         for ln in spills:
             print(f"ptxas ({name}):", ln)
     sched_build = check_schedule_build(cm)
+    dot_build = check_dot_build(pk)
 
     # ---- phase 2: kernels against the plain versions -------------------------
     rec = check_kernels(device)
@@ -1029,6 +1073,12 @@ def main() -> int:
     kernels.append(probe_entry("scatter_cells", "scatter_cells", K6_REPLACES, "K6",
                                "scatter_cells", library="library_ms"))
     kernels += sf_kernel_entries(sf_probes, sf_rec)
+    for e in kernels:  # the dot's instances (phase 1); K5 shares f32, tf32, f64 with K9
+        if e["name"] == "dense_dot":
+            e["build"] = {k: v for k, v in dot_build.items() if k != "bf16 (384, 96) bf16"}
+        elif e["name"] == "dense_dot_streamed":
+            e["build"] = {k: v for k, v in dot_build.items()
+                          if "(384, 96)" in k and k != "bf16 (384, 96) float"}
     for title, r in (("beltrami_3d", slice_rec), ("periodic channel 16^3", channel_rec)):
         steps = r["steps"]
         n = len(steps)

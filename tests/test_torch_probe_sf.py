@@ -20,6 +20,10 @@ package's probe kernels, on the CPU.
   slab elements K8's copies read.
 - The drivers: CUDA needed unless ``--device cpu``, their CPU runs, and no
   import of JAX, the JAX package or ``scripts/``.
+- The build and SASS tooling of the dense dot (K5, K9): the library's hash
+  follows the headers a source includes (``ops/build.source_tag``), and
+  ``scripts/sass_counts`` keys the dot's instances and flags one without its
+  design's instructions.
 
 The JAX probe scripts set ADAFLO_* variables and sys.path when imported;
 they are loaded with both restored afterwards.
@@ -306,3 +310,65 @@ def test_probe_drivers_run_without_jax_the_jax_package_or_its_scripts():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "sfeval" in proc.stdout and "dense_dot_streamed (K5) bf16" in proc.stdout
+
+
+def test_library_hash_covers_the_headers_a_source_includes(tmp_path):
+    """build.source_tag hashes the source and every file it includes from
+    its directory (followed through the headers): an edited header names a
+    new library, an unrelated file does not; the port's sources include the
+    shared Hopper header."""
+    from adaflo_tpu_torch.ops import build
+
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// not included\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "a.cuh"\n#include "missing.cuh"\n')
+    assert [f.name for f in build.source_files(src)] == ["k.cu", "a.cuh", "b.cuh"]
+    tag = build.source_tag(src)
+    (tmp_path / "other.cuh").write_text("// edited\n")
+    assert build.source_tag(src) == tag
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert build.source_tag(src) != tag
+    csrc = Path(build.__file__).resolve().parents[1] / "csrc"
+    for name in ("probe_kernels.cu", "coupled_matvec.cu"):
+        assert [f.name for f in build.source_files(csrc / name)] == [name, "hopper.cuh"]
+
+
+def test_sass_counts_find_the_dot_instances():
+    """sass_counts keys the dense dot's instances by precision, (m, k) and X
+    type from their mangled names, reads their registers, stack and spills
+    from the ptxas lines, and flags an instance whose SASS lacks its
+    design's instructions (TMA loads and mbarriers everywhere, HGMMA for
+    bf16 and TF32, DMMA for float64, FFMA for float32)."""
+    from adaflo_tpu_torch.scripts import sass_counts as sc
+
+    name = "_ZN12_GLOBAL__N_116dense_dot_kernelILi{}ELi{}ELi{}E{}EEv14CUtensorMap_stS1_PKT2_PT3_xxx"
+    k5 = name.format(2, 384, 96, "13__nv_bfloat16S2_")
+    k9 = name.format(3, 96, 32, "dd")
+    assert sc.dot_key(k5) == "bf16 (384, 96) bf16"
+    assert sc.dot_key(k9) == "f64 (96, 32) double"
+    assert sc.dot_key(name.format(1, 384, 96, "ff")) == "tf32 (384, 96) float"
+    assert sc.dot_key("_ZN12_GLOBAL__N_114row_fma_kernelIfLi24ELb0EEEvPKT_PS1_iii") is None
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{k5}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {k5}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 119 registers, used 1 barriers, 384 bytes cmem[0]",
+        f"ptxas info    : Function properties for {k9}",
+        "    96 bytes stack frame, 92 bytes spill stores, 88 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]",
+    ])
+    assert sc.dot_ptxas(log) == {
+        "bf16 (384, 96) bf16": {"registers": 119, "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        "f64 (96, 32) double": {"registers": 168, "stack": 96, "spill_stores": 92,
+                                "spill_loads": 88}}
+    keys = sc.dot_instances()
+    assert len(keys) == 4 * len(pk.DOT_SHAPES) + 1 and "bf16 (384, 96) bf16" in keys
+    ok = {k: {op: 1 for op in sc.DOT_OPS[k.split()[0]]} for k in keys}
+    assert sc.check_dot(ok) == []
+    ok["bf16 (384, 96) bf16"]["HGMMA"] = 0
+    ok["f64 (96, 32) double"] = {"UTMALDG": 2, "SYNCS": 9, "DMMA": 0, "HMMA": 8}
+    del ok["f32 (384, 96) float"]
+    assert sc.check_dot(ok) == ["f32 (384, 96) float", "f64 (96, 32) double",
+                                "bf16 (384, 96) bf16"]

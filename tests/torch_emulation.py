@@ -40,6 +40,7 @@ using std::min;
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __align__(n) alignas(n)
+#define __grid_constant__
 struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };
 static emu_dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline void __syncthreads() {}
@@ -98,7 +99,8 @@ def build_emulated(source_name: str, workdir: Path) -> ctypes.CDLL:
     (workdir / "emu.cpp").write_text(translate((CSRC / source_name).read_text()))
     so = workdir / "libemu.so"
     subprocess.run(
-        [gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-o", str(so), str(workdir / "emu.cpp")],
+        [gxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-I", str(CSRC), "-o", str(so),
+         str(workdir / "emu.cpp")],
         check=True, capture_output=True, timeout=300,
     )
     return ctypes.CDLL(str(so))

@@ -50,17 +50,38 @@
 //
 // Design. The TPU kernel's parity packing, 128-lane blocks, 27->32 q-row
 // padding and ring DMA answer the TPU's vector memory and are not copied.
-// Here one thread block takes CPB cells. The cell's dofs (u, the frozen
-// linearization point u*, p) are gathered through an int32 cell->dof table
-// into shared memory, with constrained entries read as zero. Values and
-// gradients at the Gauss points come from sum factorization: one 1D
-// contraction per axis with the (Q1 x N1) basis values V and derivatives D.
-// The q-point terms follow NavierStokesOperator._q_point_terms for "vmult";
-// the transposed sum factorization integrates them. The 1D matrices travel
-// as a by-value kernel argument, which the hardware keeps in the constant
-// bank, and are staged into shared memory at block start. float64 and
-// float32 are template instances, as are the table sets 3D Q2/Q1, 2D Q2/Q1
-// and 3D Q3/Q2.
+// Here one thread block of 128 threads takes CPB cells, CPB a compile-time
+// constant of the instance (cells_per_block: 13 in float64 and 14 in float32
+// at 3D Q2/Q1). The cell's dofs (u, the frozen linearization point u*, p)
+// are gathered through an int32 cell->dof table into shared memory, with
+// constrained entries read as zero; consecutive threads take one local dof
+// of consecutive cells, so that a warp reads neighbouring lattice entries.
+// Values and gradients at the Gauss points come from sum factorization, one
+// 1D contraction per axis with the (Q1 x N1) basis values V and derivatives
+// D; the q-point terms follow NavierStokesOperator._q_point_terms for
+// "vmult"; the transposed sum factorization integrates them.
+//
+// The one-shot body (every production instance, K11, K12 and K13's phase
+// masks). Every extent is a template constant, so no stage indexes with a
+// runtime division. The work items are whole 1D lines of a cell: a thread
+// loads a line's N1 (or Q1) inputs of every field it needs into registers
+// once and writes the V and D contractions of that line (the transposed
+// stages pair V^T and D^T the same way). The 1D matrices are a by-value
+// kernel argument, read with compile-time indices, so that each FMA takes
+// its matrix operand from the constant bank. Each line is read and written
+// in place at the same positions of a cell's slots, so one cell needs only
+// its slots: 6 items x 3 fields + the pressure, 19 tensors of 27 values at
+// 3D Q2/Q1, 4,168 bytes in float64 with the bank padding (today's work area
+// was 13,824). The stages: gather; evaluation along x, along y (shared
+// memory); then one thread per (cell, q_x, q_y) column evaluates along z,
+// forms the q-point terms and integrates along z in registers, reading the
+// column's z-lines anew at each q_z (volatile loads, so that the compiler
+// keeps only one q point's fields live) and writing its results over its own
+// column; integration along y (shared memory); integration along x, whose
+// lines add their outputs into the nodal vectors (atomicAdd) or store the
+// cell block. Five barriers per group of cells (3D), three in 2D, where the
+// column runs along y. float64 and float32 are template instances, as are
+// the table sets 3D Q2/Q1, 2D Q2/Q1 and 3D Q3/Q2.
 //
 // Schedules (the SCHED template parameter; K13's TPU schedules, probe
 // instances only). The production schedule kSchedOnce gives each thread
@@ -69,7 +90,10 @@
 // probe's three schedules overlap them inside the kernel with DMAs into VMEM;
 // here they are asynchronous copies into shared memory, on a persistent grid
 // (as many blocks as fit resident, each looping over the cell groups
-// blockIdx.x, blockIdx.x + gridDim.x, ...):
+// blockIdx.x, blockIdx.x + gridDim.x, ...), and they run the staged body
+// that every instance ran before the one-shot body above (cell_staged: each
+// thread one output element of a 1D contraction, both operands from shared
+// memory, 64 slots of 27 values per cell, 2 float64 cells per block):
 //   kSchedRowAsync (rowdma)  every dof of the next group is one 4- or 8-byte
 //     cp.async from u, u* or p at the cell table's address into the other
 //     slot of a double-buffered staging area (a constrained entry is
@@ -102,19 +126,19 @@
 // needs 14,482 flops per cell (3D Q2/Q1; 14,067 without the pressure stages
 // of the velocity-only entry), 1.60 GFLOP at 48^3, 47 us at 34 TFLOP/s: the
 // kernel is bound by operations, about 1.8 times over (chip_smoke.py counts
-// both bounds from each run's shapes). The design
-// keeps every intermediate in shared memory, so that the only device-memory
-// traffic is the gather, the atomic scatter and the epilogue's read, modify
-// and write. It does not reach the bound: the gather is uncoalesced (one
-// cell's dofs are strided across the lattice), the 1D contraction loops are
-// 3 or 4 long, and the atomics serialize on shared vertices. Staging lattice
-// slabs through shared memory with TMA and moving the contractions onto DMMA
-// are later work. K3 moves more bytes per cell than K1 and does the same
-// operations (the q-field stream: fewer, without the u* evaluation): it reads
-// the (E, n_cols) block and the stream and writes the (E, n_cols) block, about
-// (89 + 81 + 89) values per 3D Q2/Q1 cell with the dof stream and
-// (89 + 324 + 89) with the q-field stream, so it is bound by bytes. K4 reads
-// K1's nodal inputs and writes K3's block; it is bound by operations.
+// both bounds from each run's shapes). The contractions stay on the CUDA
+// cores: a 3-long contraction fills a DMMA m8n8k4 tile to 3/8 x 3/4, and the
+// dense cell matrix costs 19 times the operations. What keeps the body from
+// the bound: the gather is uncoalesced (one cell's dofs are strided across
+// the lattice), the atomics serialize on shared vertices, and the column's
+// registers (its z-stage sums of every item and its integration's
+// accumulators) limit the blocks per SM. K3 moves more bytes per cell than
+// K1 and does the same operations (the q-field stream: fewer, without the
+// u* evaluation): it reads the (E, n_cols) block and the stream and writes
+// the (E, n_cols) block, about (89 + 81 + 89) values per 3D Q2/Q1 cell with
+// the dof stream and (89 + 324 + 89) with the q-field stream, so it is bound
+// by bytes. K4 reads K1's nodal inputs and writes K3's block; it is bound by
+// operations.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -352,17 +376,18 @@ __device__ __forceinline__ void pipe_assemble(T* stg, const unsigned char* slab,
   }
 }
 
-template <int DIM, int N1, int Q1, int P1>
-struct Shape {
-  static constexpr int NL = ipow(N1, DIM);   // velocity dofs per component
-  static constexpr int NQ = ipow(Q1, DIM);   // quadrature points
-  static constexpr int NP = ipow(P1, DIM);   // pressure dofs
-  static constexpr int NB = ipow(imax(N1, Q1), DIM);  // one buffer slot
-  // buffer regions per cell, in slots (see the stage comments below)
+// ---- the staged body: K13's schedules alone (3D Q2/Q1 with pressure, table
+//      source, u* dofs, constant coefficients, atomic scatter) ---------------
+
+// A cell's work area of the staged body: SLOTS slots of NB values (see the
+// stage comments of cell_staged)
+struct Staged {
+  static constexpr int DIM = 3, N1 = 3, Q1 = 3, P1 = 2;
+  static constexpr int NL = 27, NQ = 27, NP = 8, NB = 27;
   static constexpr int IN = 0;
   static constexpr int S1 = 2 * DIM + 1;
   static constexpr int S2 = S1 + 4 * DIM + 1;
-  static constexpr int F = DIM == 3 ? S2 + 6 * DIM + 1 : S2;
+  static constexpr int F = S2 + 6 * DIM + 1;
   static constexpr int SLOTS = F + (DIM + 1) * 2 * DIM + 1;
 };
 
@@ -398,38 +423,26 @@ __device__ __forceinline__ void axis_op(T* __restrict__ out, const T* in,
 }
 
 // The nodal gather of the cells [c0, c0 + nc) into dst (cell stride
-// dstride, item stride NB: u_0 .., u*_0 .., then p): u and p with their
-// constrained entries read as zero, u* plain. The addresses come from the
-// cell tables, from the lattice coordinates (LAT: consecutive threads take
-// one local dof of consecutive cells) or are contiguous (CONTIG: cell e,
-// local l reads entry (e n_loc + l) mod n). ASYNC: each value is one
-// cp.async, committed by the caller.
-template <int DIM, int N1, int P1, int NB, bool PRES, bool LAT, bool CONTIG, bool ASYNC,
-          typename T>
-__device__ __forceinline__ void gather_nodal(
+// dstride, item stride NB: u_0 .., u*_0 .., then p) as one cp.async per
+// value, committed by the caller: u and p with their constrained entries
+// zero-filled, u* plain, the addresses from the cell tables.
+template <typename T>
+__device__ __forceinline__ void gather_async(
     T* dst, int dstride, long long c0, int nc, const T* __restrict__ u,
     const T* __restrict__ p, const T* __restrict__ us, const int32_t* __restrict__ cell_u,
     const int32_t* __restrict__ cell_p, const uint8_t* __restrict__ mask_u,
-    const uint8_t* __restrict__ mask_p, long long n_u, ProbeArgs<T> pa) {
-  constexpr int NL = ipow(N1, DIM), NP = ipow(P1, DIM), NI = 2 * DIM;
-  constexpr int per_g = NI * NL + (PRES ? NP : 0);
+    const uint8_t* __restrict__ mask_p, long long n_u) {
+  constexpr int DIM = 3, NL = Staged::NL, NP = Staged::NP, NB = Staged::NB, NI = 2 * DIM;
+  constexpr int per_g = NI * NL + NP;
   for (int t = threadIdx.x; t < nc * per_g; t += blockDim.x) {
-    const int cell = LAT ? t % nc : t / per_g;
-    const int k = LAT ? t / nc : t % per_g;
+    const int cell = t / per_g, k = t % per_g;
     const long long e = c0 + cell;
     const T* src;
     bool zero = false;
     int at;
     if (k < NI * NL) {
       const int item = k / NL, l = k % NL;
-      long long dof;
-      if constexpr (LAT) {
-        dof = lattice_dof<N1>(e, l, pa.ncx, pa.ncy);
-      } else if constexpr (CONTIG) {
-        dof = (e * NL + l) % n_u;
-      } else {
-        dof = cell_u[e * NL + l];
-      }
+      const long long dof = cell_u[e * NL + l];
       if (item < DIM) {
         const long long g = item * n_u + dof;
         src = u + g;
@@ -440,92 +453,47 @@ __device__ __forceinline__ void gather_nodal(
       at = item * NB + l;
     } else {
       const int l = k - NI * NL;
-      long long dof;
-      if constexpr (LAT) {
-        dof = lattice_dof<P1>(e, l, pa.ncx, pa.ncy);
-      } else if constexpr (CONTIG) {
-        dof = (e * NP + l) % pa.n_p;
-      } else {
-        dof = cell_p[e * NP + l];
-      }
+      const long long dof = cell_p[e * NP + l];
       src = p + dof;
       zero = mask_p != nullptr && mask_p[dof];
       at = NI * NB + l;
     }
-    T* d = dst + cell * dstride + at;
-    if constexpr (ASYNC) {
-      async_copy(d, src, zero);
-    } else {
-      *d = zero ? T(0) : *src;
-    }
+    async_copy(dst + cell * dstride + at, src, zero);
   }
 }
 
-// PRES: the pressure input and the pressure rows; the velocity-only entry
-// (no pressure) skips the pressure evaluation and integration stages.
-// SRC, STREAM, DST: gather source, u* stream and output (see the top). With
-// SRC == kSrcBlock, u is the (E, LDX) cell block x and us the cell-major
-// stream (E, SLD); p, the cell tables and the masks are not read. With
-// DST == kOutBlock, out_u is the (E, LDX) output block and out_p is not used.
-// SRC == kSrcLattice (K11) reads like kSrcTable, with each dof's address
-// computed from the cell's lattice coordinates (lattice_dof) in place of the
-// tables; its gather and scatter give consecutive threads one local dof of
-// consecutive cells. PH: the phases run (kPhAll for every production entry).
-// SCHED: the schedule of the gather against the compute (kSchedOnce for
-// every production entry).
-template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM,
-          int DST, typename T, int PH = kPhAll, int SCHED = kSchedOnce>
-__global__ void __launch_bounds__(kThreads)
-coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
-                    const T* __restrict__ us, const int32_t* __restrict__ cell_u,
-                    const int32_t* __restrict__ cell_p,
-                    const uint8_t* __restrict__ mask_u,
-                    const uint8_t* __restrict__ mask_p,
-                    const T* __restrict__ rho, const T* __restrict__ mu,
-                    const T* __restrict__ damp, T* __restrict__ out_u,
-                    T* __restrict__ out_p, long long n_u, long long n_cells,
-                    int cpb, Tables<T> tab, Scalars<T> sc, ProbeArgs<T> pa) {
-  using S = Shape<DIM, N1, Q1, P1>;
+// K13's schedules: the apply of the cell groups of this block (sched_group)
+// with the next group's gather in flight (see the top). Each stage thread
+// computes one output element of a 1D contraction from shared memory
+// (axis_op); every intermediate stays in the cell's work area.
+template <typename T, int SCHED>
+__device__ __forceinline__ void cell_staged(
+    unsigned char* smem_raw, const T* __restrict__ u, const T* __restrict__ p,
+    const T* __restrict__ us, const int32_t* __restrict__ cell_u,
+    const int32_t* __restrict__ cell_p, const uint8_t* __restrict__ mask_u,
+    const uint8_t* __restrict__ mask_p, T* __restrict__ out_u, T* __restrict__ out_p,
+    long long n_u, long long n_cells, int cpb, const Tables<T>& tab, const Scalars<T>& sc,
+    const ProbeArgs<T>& pa) {
+  using S = Staged;
+  constexpr int DIM = S::DIM, N1 = S::N1, Q1 = S::Q1, P1 = S::P1;
   constexpr int NL = S::NL, NQ = S::NQ, NP = S::NP, NB = S::NB;
   constexpr int IN = S::IN, S1 = S::S1, S2 = S::S2, F = S::F;
   constexpr int CS = S::SLOTS * NB;  // per-cell stride in elements
   constexpr int FI = DIM + 1;        // final fields per item: value + grads
   constexpr int NI = 2 * DIM;        // items: u_0.., u*_0..
-  constexpr bool QF = STREAM == kStreamQFields;
-  constexpr int NEV = QF ? DIM : NI;  // items evaluated (q-field u* is not)
-  constexpr int LDX = DIM * NL + (PRES ? NP : 0);     // block row length
-  constexpr int SLD = QF ? DIM * FI * NQ : DIM * NL;  // stream row length
-  static_assert(SRC == kSrcBlock || !QF, "the q-field stream is a block");
-  constexpr bool LAT = SRC == kSrcLattice;
-  constexpr bool MDOT = (PH & kPhMDot) != 0;
-  constexpr bool GATHER = (PH & (kPhGather | kPhContig)) != 0;
-  // the evaluated items [I0, I1) and whether the pressure is evaluated
-  constexpr int I0 = (PH & kPhEvalU) ? 0 : DIM;
-  constexpr int I1 = (PH & kPhEvalUs) ? NEV : DIM;
-  constexpr int NE = I1 - I0;
-  constexpr bool PE = PRES && (PH & kPhEvalU);
-  static_assert(PH == kPhAll || (DIM == 3 && N1 == 3 && Q1 == 3 && P1 == 2 &&
-                                 PRES && SRC == kSrcTable && !QF && DST == kOutScatter),
-                "probe phases: 3D Q2/Q1 with pressure, nodal in and out only");
-  static_assert(!LAT || (DIM == 3 && !QF), "the lattice source is 3D, u* dofs");
-  static_assert(SCHED == kSchedOnce || (PH == kPhAll && DIM == 3 && N1 == 3 && Q1 == 3 &&
-                                        P1 == 2 && PRES && SRC == kSrcTable && !QF &&
-                                        DST == kOutScatter),
-                "schedules: 3D Q2/Q1 with pressure, nodal in and out only");
-  // staged schedules: stage x reads the gathered inputs in a staging slot
-  // of SG elements per cell (item stride NB, the pressure after the items)
+  constexpr int LDX = DIM * NL + NP;
+  // rowdma and pipe: stage x reads the gathered inputs in a staging slot of
+  // SG elements per cell (item stride NB, the pressure after the items)
   constexpr bool STAGED = SCHED == kSchedRowAsync || SCHED == kSchedPipe;
-  constexpr int SG = NI * NB + (PRES ? NP : 0);
+  constexpr int SG = NI * NB + NP;
 
-  // shared memory: the 1D tables, M89, the work area (two for kSchedPair),
-  // the two staging slots, the pipe's slab, its mbarrier and its tables;
-  // every region starts 16-byte aligned (see launch_schedule)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // shared memory: the 1D tables, the work area (two for kSchedPair), the two
+  // staging slots, the pipe's slab, its mbarrier and its tables; every region
+  // starts 16-byte aligned (see schedule_smem)
   T* sV = reinterpret_cast<T*>(smem_raw);
   T* sD = sV + kMaxTab;
   T* sVp = sD + kMaxTab;
-  T* sM = sVp + kMaxTab;  // kPhMDot: M89, (LDX, LDX) row-major
-  T* const work0 = sM + (MDOT ? LDX * LDX : 0);
+  T* const work0 = sVp + kMaxTab;
   T* const stg = work0 + (SCHED == kSchedPair ? 2 : 1) * cpb * CS;
   unsigned char* const slab = reinterpret_cast<unsigned char*>(stg + 2 * cpb * SG);
   unsigned char* const ptab =
@@ -541,22 +509,18 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     sD[i] = tab.D[i];
     sVp[i] = tab.Vp[i];
   }
-  if constexpr (MDOT) {
-    for (int i = tid; i < LDX * LDX; i += nth) sM[i] = pa.M[i];
-  }
   const long long n_groups = (n_cells + cpb - 1) / cpb;
   auto group_cells = [&](long long g) { return (int)min((long long)cpb, n_cells - g * cpb); };
   long long g = sched_group<SCHED>(0);
 
-  // ---- the schedules' prologue: the block's first group in flight (pipe:
-  //      copied and assembled into staging slot 0) ---------------------------
+  // ---- the prologue: the block's first group in flight (pipe: copied and
+  //      assembled into staging slot 0) ---------------------------------------
   if constexpr (SCHED == kSchedRowAsync || SCHED == kSchedPair) {
     if (g < n_groups)
-      gather_nodal<DIM, N1, P1, NB, PRES, false, false, true>(
-          SCHED == kSchedPair ? work0 + IN * NB : stg, SCHED == kSchedPair ? CS : SG,
-          g * cpb, group_cells(g), u, p, us, cell_u, cell_p, mask_u, mask_p, n_u, pa);
+      gather_async(SCHED == kSchedPair ? work0 + IN * NB : stg, SCHED == kSchedPair ? CS : SG,
+                   g * cpb, group_cells(g), u, p, us, cell_u, cell_p, mask_u, mask_p, n_u);
     async_commit();
-  } else if constexpr (SCHED == kSchedPipe) {
+  } else {
     if (tid == 0) bar_init(bar, nth);
     __syncthreads();
     if (g < n_groups) {
@@ -569,7 +533,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     __syncthreads();
   }
 
-  // one iteration per cell group of this block (kSchedOnce: one group)
+  // one iteration per cell group of this block
   for (long long it = 0; g < n_groups; ++it) {
     const long long gn = sched_group<SCHED>(it + 1);  // the block's next group
     const bool more = gn < n_groups;
@@ -584,388 +548,209 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
       // ---- the next group's gather in flight (into the other staging slot or
       //      work area), this group's landed ---------------------------------
       if (more) {
-        gather_nodal<DIM, N1, P1, NB, PRES, false, false, true>(
-            SCHED == kSchedPair ? work0 + ((it + 1) & 1) * cpb * CS + IN * NB
-                                : stg + ((it + 1) & 1) * cpb * SG,
-            SCHED == kSchedPair ? CS : SG, gn * cpb, group_cells(gn), u, p, us, cell_u,
-            cell_p, mask_u, mask_p, n_u, pa);
+        gather_async(SCHED == kSchedPair ? work0 + ((it + 1) & 1) * cpb * CS + IN * NB
+                                         : stg + ((it + 1) & 1) * cpb * SG,
+                     SCHED == kSchedPair ? CS : SG, gn * cpb, group_cells(gn), u, p, us,
+                     cell_u, cell_p, mask_u, mask_p, n_u);
         async_commit();
         async_wait<1>();
       } else {
         async_wait<0>();
       }
       __syncthreads();
-    } else if constexpr (SCHED == kSchedPipe) {
+    } else {
       // ---- the next group's bulk copies in flight; this group was assembled
       //      at the end of the last iteration -------------------------------
       if (more)
         pipe_start(slab, bar, pruns, pcells, gn * cpb, group_cells(gn), cpb, u, p, us, n_u,
                    pa.ncx, pa.ncy);
-    } else if constexpr (SRC != kSrcBlock && !GATHER) {
-      // ---- dropped gather: each item of a cell reads one value v, at the
-      //      cell's first dof, and spreads it as v (l + 1) over its local dofs l
-      //      (a field constant on each cell would leave the output at roundoff)
-      constexpr int NIP = NI + 1;
-      for (int t = tid; t < nc * NIP; t += nth) {
-        const int cell = t / NIP, item = t % NIP;
-        const long long e = c0 + cell;
-        T* cb = buf + cell * CS;
-        if (item < NI) {
-          const long long dof = cell_u[e * NL];
-          T v;
-          if (item < DIM) {
-            const long long g = item * n_u + dof;
-            v = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
-          } else {
-            v = us[(item - DIM) * n_u + dof];
-          }
-          for (int l = 0; l < NL; ++l) cb[(IN + item) * NB + l] = v * T(l + 1);
-        } else {
-          const long long dof = cell_p[e * NP];
-          const T v = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
-          for (int l = 0; l < NP; ++l) cb[(IN + NI) * NB + l] = v * T(l + 1);
-        }
-      }
-    } else if constexpr (SRC != kSrcBlock) {
-      // ---- gather: u (constrained entries read 0), u* (plain), p (masked) --
-      gather_nodal<DIM, N1, P1, NB, PRES, LAT, (PH & kPhContig) != 0, false>(
-          buf + IN * NB, CS, c0, nc, u, p, us, cell_u, cell_p, mask_u, mask_p, n_u, pa);
-    } else {
-      // ---- load the cell blocks: x row = [u_0 .. u_(DIM-1) | p], stream row
-      //      = u* dofs [u*_0 ..] or u* q-fields [(value, d/dx_0 ..) of u*_0,
-      //      ...] with physical gradients, straight into the final fields ----
-      constexpr int per_g = LDX + SLD;
-      for (int t = tid; t < nc * per_g; t += nth) {
-        const int cell = t / per_g;
-        const int k = t % per_g;
-        const long long e = c0 + cell;
-        T* cb = buf + cell * CS;
-        if (k < LDX) {
-          const T v = u[e * LDX + k];
-          if (k < DIM * NL) {
-            cb[(IN + k / NL) * NB + k % NL] = v;
-          } else {
-            cb[(IN + NI) * NB + (k - DIM * NL)] = v;
-          }
-        } else {
-          const int j = k - LDX;
-          const T v = us[e * SLD + j];
-          if constexpr (QF) {
-            cb[(F + FI * DIM + j / NQ) * NB + j % NQ] = v;
-          } else {
-            cb[(IN + DIM + j / NL) * NB + j % NL] = v;
-          }
-        }
-      }
     }
-    if constexpr (SCHED == kSchedOnce) __syncthreads();
 
     // ---- evaluation, stage x: A0 = Vx u, A1 = Dx u; pressure Vpx p ---------
     {
-      constexpr int n1 = ipow(N1, DIM - 1) * Q1, np1 = ipow(P1, DIM - 1) * Q1;
-      constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
-      constexpr int per = NE * 2 * n1 + (PE ? np1 : 0);
-      // (no work when a probe drops every item of the stage)
-      if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
+      constexpr int n1 = N1 * N1 * Q1, np1 = P1 * P1 * Q1;
+      constexpr int per = NI * 2 * n1 + np1;
+      for (int t = tid; t < nc * per; t += nth) {
         T* cb = buf + (t / per) * CS;
         int k = t % per;
-        if (k < NE * 2 * n1) {
-          const int item = I0 + k / (2 * n1), which = (k / n1) % 2, o = k % n1;
+        if (k < NI * 2 * n1) {
+          const int item = k / (2 * n1), which = (k / n1) % 2, o = k % n1;
           axis_op<T>(cb + (S1 + 2 * item + which) * NB,
                      gin + (t / per) * gstride + item * NB, which ? sD : sV, nullptr,
-                     nullptr, N1, false, 0, N1, N1, e2, Q1, o);
+                     nullptr, N1, false, 0, N1, N1, N1, Q1, o);
         } else {
-          k -= NE * 2 * n1;
+          k -= NI * 2 * n1;
           axis_op<T>(cb + (S1 + 2 * NI) * NB, gin + (t / per) * gstride + NI * NB, sVp,
-                     nullptr, nullptr, P1, false, 0, P1, P1, pe2, Q1, k);
+                     nullptr, nullptr, P1, false, 0, P1, P1, P1, Q1, k);
         }
       }
     }
     __syncthreads();
 
     // ---- evaluation, stage y: B00 = Vy A0, B01 = Dy A0, B10 = Vy A1 -------
-    // (2D: these are the final fields value, d/dy, d/dx, written to F)
     {
-      constexpr int n2 = ipow(Q1, 2) * (DIM == 3 ? N1 : 1);
-      constexpr int np2 = ipow(Q1, 2) * (DIM == 3 ? P1 : 1);
-      constexpr int e2 = DIM == 3 ? N1 : 1, pe2 = DIM == 3 ? P1 : 1;
-      constexpr int per = NE * 3 * n2 + (PE ? np2 : 0);
-      // (no work when a probe drops every item of the stage)
-      if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
+      constexpr int n2 = Q1 * Q1 * N1, np2 = Q1 * Q1 * P1;
+      constexpr int per = NI * 3 * n2 + np2;
+      for (int t = tid; t < nc * per; t += nth) {
         T* cb = buf + (t / per) * CS;
         int k = t % per;
-        if (k < NE * 3 * n2) {
-          const int item = I0 + k / (3 * n2), which = (k / n2) % 3, o = k % n2;
+        if (k < NI * 3 * n2) {
+          const int item = k / (3 * n2), which = (k / n2) % 3, o = k % n2;
           const T* src = cb + (S1 + 2 * item + (which == 2 ? 1 : 0)) * NB;
-          const T* M = which == 1 ? sD : sV;
-          T* dst;
-          if (DIM == 3) {
-            dst = cb + (S2 + 3 * item + which) * NB;
-          } else {
-            // value, d/dy (Dy Vx), d/dx (Vy Dx) -> F slots 0, 2, 1
-            const int f = which == 0 ? 0 : (which == 1 ? 2 : 1);
-            dst = cb + (F + FI * item + f) * NB;
-          }
-          axis_op<T>(dst, src, M, nullptr, nullptr, N1, false, 1, Q1, N1, e2, Q1,
-                     o);
+          axis_op<T>(cb + (S2 + 3 * item + which) * NB, src, which == 1 ? sD : sV, nullptr,
+                     nullptr, N1, false, 1, Q1, N1, N1, Q1, o);
         } else {
-          k -= NE * 3 * n2;
-          T* dst = DIM == 3 ? cb + (S2 + 3 * NI) * NB : cb + (F + FI * NI) * NB;
-          axis_op<T>(dst, cb + (S1 + 2 * NI) * NB, sVp, nullptr, nullptr, P1,
-                     false, 1, Q1, P1, pe2, Q1, k);
+          k -= NI * 3 * n2;
+          axis_op<T>(cb + (S2 + 3 * NI) * NB, cb + (S1 + 2 * NI) * NB, sVp, nullptr,
+                     nullptr, P1, false, 1, Q1, P1, P1, Q1, k);
         }
       }
     }
     __syncthreads();
 
-    // ---- evaluation, stage z (3D): value = Vz B00, d/dx = Vz B10,
-    //      d/dy = Vz B01, d/dz = Dz B00 ---------------------------------------
-    if constexpr (DIM == 3) {
-      constexpr int n3 = NQ;
-      constexpr int per = NE * 4 * n3 + (PE ? n3 : 0);
-      // (no work when a probe drops every item of the stage)
-      if constexpr (per > 0) for (int t = tid; t < nc * per; t += nth) {
+    // ---- evaluation, stage z: value = Vz B00, d/dx = Vz B10, d/dy = Vz B01,
+    //      d/dz = Dz B00 ------------------------------------------------------
+    {
+      constexpr int per = NI * 4 * NQ + NQ;
+      for (int t = tid; t < nc * per; t += nth) {
         T* cb = buf + (t / per) * CS;
         int k = t % per;
-        if (k < NE * 4 * n3) {
-          const int item = I0 + k / (4 * n3), which = (k / n3) % 4, o = k % n3;
+        if (k < NI * 4 * NQ) {
+          const int item = k / (4 * NQ), which = (k / NQ) % 4, o = k % NQ;
           const int src_slot = which == 1 ? 2 : (which == 2 ? 1 : 0);
           axis_op<T>(cb + (F + FI * item + which) * NB,
                      cb + (S2 + 3 * item + src_slot) * NB, which == 3 ? sD : sV,
                      nullptr, nullptr, N1, false, 2, Q1, Q1, N1, Q1, o);
         } else {
-          k -= NE * 4 * n3;
+          k -= NI * 4 * NQ;
           axis_op<T>(cb + (F + FI * NI) * NB, cb + (S2 + 3 * NI) * NB, sVp,
                      nullptr, nullptr, P1, false, 2, Q1, Q1, P1, Q1, k);
         }
       }
-      __syncthreads();
     }
+    __syncthreads();
 
-    // ---- dropped evaluation: each final field of an item not evaluated holds
-    //      the item's dofs (q < NQ = NL), the pressure field its dofs (q mod NP)
-    if constexpr (!MDOT && (PH & (kPhEvalU | kPhEvalUs)) != (kPhEvalU | kPhEvalUs)) {
-      constexpr int NU = (PH & kPhEvalU) ? 0 : DIM;   // u items copied
-      constexpr int NS = (PH & kPhEvalUs) ? 0 : DIM;  // u* items copied
-      constexpr int per = (NU + NS) * FI * NQ + (PE ? 0 : NQ);
+    // ---- q-point terms (NavierStokesOperator._q_point_terms, "vmult"),
+    //      constant coefficients; outputs into S1: value_c at +c, stress_cd at
+    //      +DIM+DIM c+d, prow at +DIM+DIM^2 ------------------------------------
+    for (int t = tid; t < nc * NQ; t += nth) {
+      const int q = t % NQ;
+      T* cb = buf + (t / NQ) * CS;
+      const int qx = q % Q1, qy = (q / Q1) % Q1, qz = q / (Q1 * Q1);
+      const T jxw = tab.w[qx] * tab.w[qy] * tab.w[qz] * tab.vol;
+      T uv[DIM], sv[DIM], ug[DIM][DIM], sg[DIM][DIM];
+      for (int c = 0; c < DIM; ++c) {
+        uv[c] = cb[(F + FI * c) * NB + q];
+        sv[c] = cb[(F + FI * (DIM + c)) * NB + q];
+        for (int d = 0; d < DIM; ++d) {
+          ug[c][d] = cb[(F + FI * c + 1 + d) * NB + q] * tab.inv_h[d];
+          sg[c][d] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q] * tab.inv_h[d];
+        }
+      }
+      const T pq = cb[(F + FI * NI) * NB + q];
+      T div = T(0), div_s = T(0);
+      for (int a = 0; a < DIM; ++a) {
+        div += ug[a][a];
+        div_s += sg[a][a];
+      }
+      const T tmu = sc.tau1 * sc.mu0;
+      for (int c = 0; c < DIM; ++c) {
+        T conv = sc.beta * (div * sv[c] + div_s * uv[c]);
+        for (int e = 0; e < DIM; ++e) conv += sv[e] * ug[c][e] + uv[e] * sg[c][e];
+        const T value = (sc.rho0 * sc.weight - sc.damp0) * uv[c] + sc.tau1 * sc.rho0 * conv;
+        cb[(S1 + c) * NB + q] = value * jxw;
+        for (int d = 0; d < DIM; ++d) {
+          T st = tmu * (ug[c][d] + ug[d][c]);
+          if (c == d) st += sc.tgd * div - pq;
+          cb[(S1 + DIM + DIM * c + d) * NB + q] = st * jxw * tab.inv_h[d];
+        }
+      }
+      cb[(S1 + DIM + DIM * DIM) * NB + q] = -div * jxw;
+    }
+    __syncthreads();
+
+    // ---- integration, stage x (transposed): a_c = Vx^T value_c + Dx^T st_cx,
+    //      b_c = Vx^T st_cy, cz_c = Vx^T st_cz into S2; pressure Vpx^T prow ---
+    {
+      constexpr int n1 = N1 * Q1 * Q1, np1 = P1 * Q1 * Q1;
+      constexpr int per = DIM * DIM * n1 + np1;
       for (int t = tid; t < nc * per; t += nth) {
         T* cb = buf + (t / per) * CS;
-        const int k = t % per;
-        if (k < (NU + NS) * FI * NQ) {
-          const int j = k / (FI * NQ), f = (k / NQ) % FI, q = k % NQ;
-          const int item = j < NU ? j : DIM + (j - NU);
-          cb[(F + FI * item + f) * NB + q] = cb[(IN + item) * NB + q];
+        int k = t % per;
+        if (k < DIM * DIM * n1) {
+          const int c = k / (DIM * n1), j = (k / n1) % DIM, o = k % n1;
+          const T* st = cb + (S1 + DIM + DIM * c) * NB;  // st_c0 .. st_c(DIM-1)
+          T* dst = cb + (S2 + DIM * c + j) * NB;
+          if (j == 0) {
+            axis_op<T>(dst, cb + (S1 + c) * NB, sV, st, sD, N1, true, 0, Q1, Q1, Q1, N1, o);
+          } else {
+            axis_op<T>(dst, st + j * NB, sV, nullptr, nullptr, N1, true, 0, Q1, Q1, Q1, N1, o);
+          }
         } else {
-          const int q = k - (NU + NS) * FI * NQ;
-          cb[(F + FI * NI) * NB + q] = cb[(IN + NI) * NB + q % NP];
+          k -= DIM * DIM * n1;
+          axis_op<T>(cb + (S2 + DIM * DIM) * NB, cb + (S1 + DIM + DIM * DIM) * NB, sVp,
+                     nullptr, nullptr, P1, true, 0, Q1, Q1, Q1, P1, k);
         }
       }
-      __syncthreads();
     }
+    __syncthreads();
 
-    if constexpr (!MDOT && (PH & kPhQPoint) != 0) {
-      // ---- q-point terms (NavierStokesOperator._q_point_terms, "vmult") -------
-      // outputs into S1: value_c at +c, stress_cd at +DIM+DIM c+d, prow at +DIM+DIM^2
-      // (the q-field stream's u* gradients are physical already)
-      for (int t = tid; t < nc * NQ; t += nth) {
-        const int cell = t / NQ, q = t % NQ;
-        T* cb = buf + cell * CS;
-        const int qx = q % Q1, qy = (q / Q1) % Q1, qz = q / (Q1 * Q1);
-        T jxw = tab.w[qx] * tab.w[qy] * tab.vol;
-        if (DIM == 3) jxw *= tab.w[qz];
-        T uv[DIM], sv[DIM], ug[DIM][DIM], sg[DIM][DIM];
-        for (int c = 0; c < DIM; ++c) {
-          uv[c] = cb[(F + FI * c) * NB + q];
-          sv[c] = cb[(F + FI * (DIM + c)) * NB + q];
-          for (int d = 0; d < DIM; ++d) {
-            ug[c][d] = cb[(F + FI * c + 1 + d) * NB + q] * tab.inv_h[d];
-            sg[c][d] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q] *
-                       (QF ? T(1) : tab.inv_h[d]);
+    // ---- integration, stage y: e_c = Vy^T a_c + Dy^T b_c, f_c = Vy^T cz_c
+    //      into IN ----------------------------------------------------------
+    {
+      constexpr int n2 = N1 * N1 * Q1, np2 = P1 * P1 * Q1;
+      constexpr int per = DIM * 2 * n2 + np2;
+      for (int t = tid; t < nc * per; t += nth) {
+        T* cb = buf + (t / per) * CS;
+        int k = t % per;
+        if (k < DIM * 2 * n2) {
+          const int c = k / (2 * n2), j = (k / n2) % 2, o = k % n2;
+          const T* src = cb + (S2 + DIM * c) * NB;
+          T* dst = cb + (IN + 2 * c + j) * NB;
+          if (j == 0) {
+            axis_op<T>(dst, src, sV, src + NB, sD, N1, true, 1, N1, Q1, Q1, N1, o);
+          } else {
+            axis_op<T>(dst, src + 2 * NB, sV, nullptr, nullptr, N1, true, 1, N1, Q1, Q1, N1, o);
           }
+        } else {
+          k -= DIM * 2 * n2;
+          axis_op<T>(cb + (IN + 2 * DIM) * NB, cb + (S2 + DIM * DIM) * NB, sVp, nullptr,
+                     nullptr, P1, true, 1, P1, Q1, Q1, P1, k);
         }
-        const T pq = PRES ? cb[(F + FI * NI) * NB + q] : T(0);
-        T div = T(0), div_s = T(0);
-        for (int a = 0; a < DIM; ++a) {
-          div += ug[a][a];
-          div_s += sg[a][a];
-        }
-        const bool variable = rho != nullptr || mu != nullptr || damp != nullptr;
-        const long long qi = (c0 + cell) * NQ + q;
-        const T r_q = rho != nullptr ? rho[qi] : sc.rho0;
-        const T m_q = mu != nullptr ? mu[qi] : sc.mu0;
-        const T d_q = damp != nullptr ? damp[qi] : sc.damp0;
-        const T tmu = sc.tau1 * m_q;
-        for (int c = 0; c < DIM; ++c) {
-          T conv = sc.beta * (div * sv[c] + div_s * uv[c]);
-          for (int e = 0; e < DIM; ++e) conv += sv[e] * ug[c][e] + uv[e] * sg[c][e];
-          const T value = variable
-              ? r_q * (sc.weight * uv[c] + sc.tau1 * conv) - d_q * uv[c]
-              : (sc.rho0 * sc.weight - sc.damp0) * uv[c] + sc.tau1 * sc.rho0 * conv;
-          cb[(S1 + c) * NB + q] = value * jxw;
-          for (int d = 0; d < DIM; ++d) {
-            T st = tmu * (ug[c][d] + ug[d][c]);
-            if (c == d) st += sc.tgd * div - pq;
-            cb[(S1 + DIM + DIM * c + d) * NB + q] = st * jxw * tab.inv_h[d];
-          }
-        }
-        if (PRES) cb[(S1 + DIM + DIM * DIM) * NB + q] = -div * jxw;
       }
-      __syncthreads();
-    } else if constexpr (!MDOT) {
-      // ---- dropped q-point terms: value_c = u_c, stress_cd = d_d u*_c,
-      //      prow = p (the final fields, copied) -----------------------------
-      for (int t = tid; t < nc * NQ; t += nth) {
-        T* cb = buf + (t / NQ) * CS;
-        const int q = t % NQ;
-        for (int c = 0; c < DIM; ++c) {
-          cb[(S1 + c) * NB + q] = cb[(F + FI * c) * NB + q];
-          for (int d = 0; d < DIM; ++d)
-            cb[(S1 + DIM + DIM * c + d) * NB + q] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q];
-        }
-        cb[(S1 + DIM + DIM * DIM) * NB + q] = cb[(F + FI * NI) * NB + q];
-      }
-      __syncthreads();
     }
+    __syncthreads();
 
-    constexpr int OUT = DIM == 3 ? S1 : IN;
-    if constexpr (!MDOT && (PH & kPhIntegrate) != 0) {
-      // ---- integration, stage x (transposed): a_c = Vx^T value_c + Dx^T st_cx,
-      //      b_c = Vx^T st_cy (, cz_c = Vx^T st_cz); pressure Vpx^T prow --------
-      // outputs: 3D into S2 (3 per component), 2D into F (2 per component)
-      {
-        constexpr int TX = DIM == 3 ? S2 : F;
-        constexpr int e2 = DIM == 3 ? Q1 : 1;
-        constexpr int n1 = N1 * ipow(Q1, DIM - 1), np1 = P1 * ipow(Q1, DIM - 1);
-        constexpr int per = DIM * DIM * n1 + (PRES ? np1 : 0);
-        for (int t = tid; t < nc * per; t += nth) {
-          T* cb = buf + (t / per) * CS;
-          int k = t % per;
-          if (k < DIM * DIM * n1) {
-            const int c = k / (DIM * n1), j = (k / n1) % DIM, o = k % n1;
-            const T* st = cb + (S1 + DIM + DIM * c) * NB;  // st_c0 .. st_c(DIM-1)
-            T* dst = cb + (TX + DIM * c + j) * NB;
-            if (j == 0) {
-              axis_op<T>(dst, cb + (S1 + c) * NB, sV, st, sD, N1, true, 0, Q1, Q1,
-                         e2, N1, o);
-            } else {
-              axis_op<T>(dst, st + j * NB, sV, nullptr, nullptr, N1, true, 0, Q1,
-                         Q1, e2, N1, o);
-            }
-          } else {
-            k -= DIM * DIM * n1;
-            axis_op<T>(cb + (TX + DIM * DIM) * NB, cb + (S1 + DIM + DIM * DIM) * NB,
-                       sVp, nullptr, nullptr, P1, true, 0, Q1, Q1, e2, P1, k);
-          }
+    // ---- integration, stage z: out_c = Vz^T e_c + Dz^T f_c into S1 ---------
+    {
+      constexpr int per = DIM * NL + NP;
+      for (int t = tid; t < nc * per; t += nth) {
+        T* cb = buf + (t / per) * CS;
+        int k = t % per;
+        if (k < DIM * NL) {
+          const int c = k / NL, o = k % NL;
+          axis_op<T>(cb + (S1 + c) * NB, cb + (IN + 2 * c) * NB, sV,
+                     cb + (IN + 2 * c + 1) * NB, sD, N1, true, 2, N1, N1, Q1, N1, o);
+        } else {
+          k -= DIM * NL;
+          axis_op<T>(cb + (S1 + DIM) * NB, cb + (IN + 2 * DIM) * NB, sVp, nullptr,
+                     nullptr, P1, true, 2, P1, P1, Q1, P1, k);
         }
       }
-      __syncthreads();
-
-      // ---- integration, stage y: 3D e_c = Vy^T a_c + Dy^T b_c, f_c = Vy^T cz_c
-      //      into IN; 2D out_c = Vy^T a_c + Dy^T b_c into IN -------------------
-      {
-        constexpr int TX = DIM == 3 ? S2 : F;
-        constexpr int e2 = DIM == 3 ? Q1 : 1;
-        constexpr int n2 = N1 * N1 * (DIM == 3 ? Q1 : 1);
-        constexpr int np2 = P1 * P1 * (DIM == 3 ? Q1 : 1);
-        constexpr int NO = DIM == 3 ? 2 : 1;  // outputs per component
-        constexpr int per = DIM * NO * n2 + (PRES ? np2 : 0);
-        for (int t = tid; t < nc * per; t += nth) {
-          T* cb = buf + (t / per) * CS;
-          int k = t % per;
-          if (k < DIM * NO * n2) {
-            const int c = k / (NO * n2), j = (k / n2) % NO, o = k % n2;
-            const T* src = cb + (TX + DIM * c) * NB;
-            T* dst = cb + (IN + NO * c + j) * NB;
-            if (j == 0) {
-              axis_op<T>(dst, src, sV, src + NB, sD, N1, true, 1, N1, Q1, e2, N1,
-                         o);
-            } else {
-              axis_op<T>(dst, src + 2 * NB, sV, nullptr, nullptr, N1, true, 1, N1,
-                         Q1, e2, N1, o);
-            }
-          } else {
-            k -= DIM * NO * n2;
-            axis_op<T>(cb + (IN + NO * DIM) * NB, cb + (TX + DIM * DIM) * NB, sVp,
-                       nullptr, nullptr, P1, true, 1, P1, Q1, e2, P1, k);
-          }
-        }
-      }
-      __syncthreads();
-
-      // ---- integration, stage z (3D): out_c = Vz^T e_c + Dz^T f_c into S1 -----
-      if constexpr (DIM == 3) {
-        constexpr int per = DIM * NL + (PRES ? NP : 0);
-        for (int t = tid; t < nc * per; t += nth) {
-          T* cb = buf + (t / per) * CS;
-          int k = t % per;
-          if (k < DIM * NL) {
-            const int c = k / NL, o = k % NL;
-            axis_op<T>(cb + (S1 + c) * NB, cb + (IN + 2 * c) * NB, sV,
-                       cb + (IN + 2 * c + 1) * NB, sD, N1, true, 2, N1, N1, Q1, N1,
-                       o);
-          } else {
-            k -= DIM * NL;
-            axis_op<T>(cb + (S1 + DIM) * NB, cb + (IN + 2 * DIM) * NB, sVp, nullptr,
-                       nullptr, P1, true, 2, P1, P1, Q1, P1, k);
-          }
-        }
-        __syncthreads();
-      }
-    } else if constexpr (!MDOT) {
-      // ---- dropped integration: out_c = value_c, already in place at S1 + c
-      //      (NL = NQ); out_p = prow ------------------------------------------
-      for (int t = tid; t < nc * NP; t += nth) {
-        T* cb = buf + (t / NP) * CS;
-        cb[(OUT + DIM) * NB + t % NP] = cb[(S1 + DIM + DIM * DIM) * NB + t % NP];
-      }
-      __syncthreads();
-    } else {
-      // ---- dense cell matrix: out = M89 x, x = [u_0 .. u_(DIM-1) | p] ------
-      for (int t = tid; t < nc * LDX; t += nth) {
-        T* cb = buf + (t / LDX) * CS;
-        const int k = t % LDX;
-        T acc = T(0);
-        for (int j = 0; j < DIM * NL; ++j)
-          acc += sM[k * LDX + j] * cb[(IN + j / NL) * NB + j % NL];
-        for (int j = 0; j < NP; ++j)
-          acc += sM[k * LDX + DIM * NL + j] * cb[(IN + NI) * NB + j];
-        cb[(OUT + (k < DIM * NL ? k / NL : DIM)) * NB + (k < DIM * NL ? k % NL : k - DIM * NL)] = acc;
-      }
-      __syncthreads();
     }
+    __syncthreads();
 
-    // ---- output: atomic adds into the nodal output, or the cell block (or,
-    //      without kPhScatter, plain stores of the owned dofs) ----------------
-    constexpr bool SCATTER = (PH & kPhScatter) != 0;
+    // ---- output: atomic adds into the nodal output -------------------------
     for (int t = tid; t < nc * LDX; t += nth) {
-      const int cell = LAT ? t % nc : t / LDX;
-      const int k = LAT ? t / nc : t % LDX;
+      const int cell = t / LDX, k = t % LDX;
       const long long e = c0 + cell;
       const T* cb = buf + cell * CS;
       if (k < DIM * NL) {
         const int c = k / NL, l = k % NL;
-        const T v = cb[(OUT + c) * NB + l];
-        if constexpr (DST == kOutBlock) {
-          out_u[e * LDX + k] = v;
-        } else if constexpr (LAT) {
-          atomicAdd(out_u + c * n_u + lattice_dof<N1>(e, l, pa.ncx, pa.ncy), v);
-        } else if constexpr (SCATTER) {
-          atomicAdd(out_u + c * n_u + cell_u[e * NL + l], v);
-        } else {
-          if (owned<DIM, N1>(l)) out_u[c * n_u + cell_u[e * NL + l]] = v;
-        }
+        atomicAdd(out_u + c * n_u + cell_u[e * NL + l], cb[(S1 + c) * NB + l]);
       } else {
         const int l = k - DIM * NL;
-        const T v = cb[(OUT + DIM) * NB + l];
-        if constexpr (DST == kOutBlock) {
-          out_u[e * LDX + k] = v;
-        } else if constexpr (LAT) {
-          atomicAdd(out_p + lattice_dof<P1>(e, l, pa.ncx, pa.ncy), v);
-        } else if constexpr (SCATTER) {
-          atomicAdd(out_p + cell_p[e * NP + l], v);
-        } else {
-          if (owned<DIM, P1>(l)) out_p[cell_p[e * NP + l]] = v;
-        }
+        atomicAdd(out_p + cell_p[e * NP + l], cb[(S1 + DIM) * NB + l]);
       }
     }
 
@@ -975,11 +760,657 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
       if (more) {
         bar_wait(bar, (unsigned)((it + 1) & 1));
         pipe_assemble<NB, SG>(stg + ((it + 1) & 1) * cpb * SG, slab, pruns, pcells,
-                            group_cells(gn), cpb, mask_u, mask_p, n_u);
+                              group_cells(gn), cpb, mask_u, mask_p, n_u);
       }
       __syncthreads();
     }
     g = gn;
+  }
+}
+
+// ---- the one-shot body: every production instance, K11, K12 and K13's
+//      phase masks ------------------------------------------------------------
+
+// Shared memory of a cell in the one-shot body: NS slots of NB values, each a
+// tensor of extents <= M1 per axis at the positions (z M1 + y) M1 + x, every
+// stage writing its lines over the lines it read. Item i (u_0 .., then u*_0
+// .. unless the u* stream is q-fields, which is read at the q points) holds
+// DIM slots i DIM + f: its dofs, then the fields of the evaluation stages
+// (f = 0 no derivative, f = 1 + a the derivative along axis a); the pressure
+// the slot PSLOT. The column writes the integration's fields of component c
+// into the slots c DIM + f, the pressure's into ZP.
+template <int DIM, int N1, int Q1, int P1, bool PRES, bool QF>
+struct Lines {
+  static constexpr int kDim = DIM, kN1 = N1, kQ1 = Q1, kP1 = P1;
+  static constexpr int M1 = imax(N1, Q1);
+  static constexpr int NB = ipow(M1, DIM);
+  static constexpr int NL = ipow(N1, DIM), NQ = ipow(Q1, DIM), NP = ipow(P1, DIM);
+  static constexpr int NEV = QF ? DIM : 2 * DIM;  // items in shared memory
+  static constexpr int PSLOT = NEV * DIM;
+  static constexpr int NS = PSLOT + (PRES ? 1 : 0);
+  static constexpr int ZP = DIM * DIM;
+  static constexpr int NCOL = ipow(Q1, DIM - 1);  // columns per cell
+  static constexpr int ZST = ipow(M1, DIM - 1);   // stride of the column's axis
+  // the cell stride: NS NB rounded up to NCOL modulo 32, so that the column
+  // threads of consecutive cells read consecutive banks
+  static constexpr int CS = NS * NB + ((NCOL - NS * NB) % 32 + 32) % 32;
+  static constexpr int LDX = DIM * NL + (PRES ? NP : 0);
+};
+
+// Cells per block of the one-shot body: one column thread per (cell, column)
+// of the block's threads, in at most kCellBytes of cells, at least one.
+constexpr int kCellBytes = 56 * 1024;
+template <typename L, typename T>
+__host__ __device__ constexpr int cells_per_block() {
+  const int by_threads = kThreads / L::NCOL;
+  const int by_bytes = kCellBytes / (L::CS * (int)sizeof(T));
+  const int c = by_threads < by_bytes ? by_threads : by_bytes;
+  return c > 1 ? c : 1;
+}
+
+// The least resident blocks per SM that ptxas keeps the one-shot body's
+// registers for (__launch_bounds__); the schedules ask for none.
+template <int DIM, int N1, typename T, int SCHED>
+constexpr int min_blocks() {
+  if (SCHED != kSchedOnce) return 1;
+  if (sizeof(T) == 8) return DIM == 2 ? 4 : (N1 == 4 ? 2 : 3);
+  return DIM == 2 ? 6 : (N1 == 4 ? 3 : 5);
+}
+
+// The slot position of local index l of a tensor with extent N per axis.
+template <int DIM, int N, int M1>
+__device__ __forceinline__ int lpos(int l) {
+  int at = 0, s = 1;
+#pragma unroll
+  for (int a = 0; a < DIM; ++a, s *= M1, l /= N) at += (l % N) * s;
+  return at;
+}
+
+// The slot position of the first element of line L along axis A: the other
+// axes' coordinates, the lowest fastest, axes below A of extent LO and above
+// A of extent HI.
+template <int DIM, int A, int LO, int HI, int M1>
+__device__ __forceinline__ int line_at(int L) {
+  int at = 0, s = 1;
+#pragma unroll
+  for (int b = 0; b < DIM; ++b, s *= M1) {
+    if (b == A) continue;
+    const int ext = b < A ? LO : HI;
+    at += (L % ext) * s;
+    L /= ext;
+  }
+  return at;
+}
+
+// a[i] for a small runtime i < N, read with compile-time indices
+template <int N, typename T, int K>
+__device__ __forceinline__ T pick(const T (&a)[K], int i) {
+  T r = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k)
+    if (i == k) r = a[k];
+  return r;
+}
+
+// Evaluation along axis A < DIM - 1 of the items [I0, I1) (and the pressure,
+// PE): a thread takes one line of one item of a cell, loads its A + 1 fields
+// (no derivative, the derivatives along the axes below A) at the N1 points of
+// the line and writes back at the Q1 points V of each and D of the first.
+template <typename L, int A, int I0, int I1, bool PE, typename T>
+__device__ __forceinline__ void eval_stage(T* cells, int nc, const Tables<T>& tab) {
+  constexpr int DIM = L::kDim, N1 = L::kN1, Q1 = L::kQ1, P1 = L::kP1;
+  constexpr int M1 = L::M1, NB = L::NB;
+  constexpr int ST = ipow(M1, A);
+  constexpr int LN = ipow(Q1, A) * ipow(N1, DIM - 1 - A);
+  constexpr int LP = PE ? ipow(Q1, A) * ipow(P1, DIM - 1 - A) : 0;
+  constexpr int per = (I1 - I0) * LN + LP;
+  if constexpr (per > 0)
+    for (int t = threadIdx.x; t < nc * per; t += blockDim.x) {
+      T* cb = cells + (t / per) * L::CS;
+      const int k = t % per;
+      if (k < (I1 - I0) * LN) {
+        T* f = cb + (I0 + k / LN) * DIM * NB + line_at<DIM, A, Q1, N1, M1>(k % LN);
+        T x[A + 1][N1];
+#pragma unroll
+        for (int g = 0; g <= A; ++g)
+#pragma unroll
+          for (int s = 0; s < N1; ++s) x[g][s] = f[g * NB + s * ST];
+#pragma unroll
+        for (int q = 0; q < Q1; ++q) {
+          T d = T(0);
+#pragma unroll
+          for (int s = 0; s < N1; ++s) d += tab.D[q * N1 + s] * x[0][s];
+#pragma unroll
+          for (int g = 0; g <= A; ++g) {
+            T v = T(0);
+#pragma unroll
+            for (int s = 0; s < N1; ++s) v += tab.V[q * N1 + s] * x[g][s];
+            f[g * NB + q * ST] = v;
+          }
+          f[(A + 1) * NB + q * ST] = d;
+        }
+      } else {
+        T* f = cb + L::PSLOT * NB + line_at<DIM, A, Q1, P1, M1>(k - (I1 - I0) * LN);
+        T x[P1];
+#pragma unroll
+        for (int s = 0; s < P1; ++s) x[s] = f[s * ST];
+#pragma unroll
+        for (int q = 0; q < Q1; ++q) {
+          T v = T(0);
+#pragma unroll
+          for (int s = 0; s < P1; ++s) v += tab.Vp[q * P1 + s] * x[s];
+          f[q * ST] = v;
+        }
+      }
+    }
+}
+
+// Integration along axis A, 0 < A < DIM - 1 (3D: y), transposed: a thread
+// takes one line of one component of a cell, loads its A + 2 fields (no
+// derivative, the derivatives along the axes up to A) at the Q1 points of the
+// line and writes back at the N1 points V^T f_0 + D^T f_(A+1) and V^T of the
+// others; the pressure V^T.
+template <typename L, int A, bool PRES, typename T>
+__device__ __forceinline__ void integ_stage(T* cells, int nc, const Tables<T>& tab) {
+  constexpr int DIM = L::kDim, N1 = L::kN1, Q1 = L::kQ1, P1 = L::kP1;
+  constexpr int M1 = L::M1, NB = L::NB;
+  constexpr int ST = ipow(M1, A);
+  constexpr int LN = ipow(Q1, A) * ipow(N1, DIM - 1 - A);
+  constexpr int LP = PRES ? ipow(Q1, A) * ipow(P1, DIM - 1 - A) : 0;
+  constexpr int per = DIM * LN + LP;
+  for (int t = threadIdx.x; t < nc * per; t += blockDim.x) {
+    T* cb = cells + (t / per) * L::CS;
+    const int k = t % per;
+    if (k < DIM * LN) {
+      T* f = cb + (k / LN) * DIM * NB + line_at<DIM, A, Q1, N1, M1>(k % LN);
+      T x[A + 2][Q1];
+#pragma unroll
+      for (int g = 0; g < A + 2; ++g)
+#pragma unroll
+        for (int q = 0; q < Q1; ++q) x[g][q] = f[g * NB + q * ST];
+#pragma unroll
+      for (int i = 0; i < N1; ++i) {
+        T v = T(0);
+#pragma unroll
+        for (int q = 0; q < Q1; ++q) v += tab.V[q * N1 + i] * x[0][q] + tab.D[q * N1 + i] * x[A + 1][q];
+        f[i * ST] = v;
+#pragma unroll
+        for (int g = 1; g <= A; ++g) {
+          T w = T(0);
+#pragma unroll
+          for (int q = 0; q < Q1; ++q) w += tab.V[q * N1 + i] * x[g][q];
+          f[g * NB + i * ST] = w;
+        }
+      }
+    } else {
+      T* f = cb + L::ZP * NB + line_at<DIM, A, Q1, P1, M1>(k - DIM * LN);
+      T x[Q1];
+#pragma unroll
+      for (int q = 0; q < Q1; ++q) x[q] = f[q * ST];
+#pragma unroll
+      for (int i = 0; i < P1; ++i) {
+        T v = T(0);
+#pragma unroll
+        for (int q = 0; q < Q1; ++q) v += tab.Vp[q * P1 + i] * x[q];
+        f[i * ST] = v;
+      }
+    }
+  }
+}
+
+// The one-shot body: the group of cells blockIdx.x of CPB cells (the last
+// one may be shorter) in `cells`, with the matrix M89 of kPhMDot in sM. See
+// the top for the stages; the phase mask PH drops phases as kPh* says.
+template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM, int DST,
+          typename T, int PH>
+__device__ __forceinline__ void cell_lines(
+    T* const cells, const T* const sM, const T* __restrict__ u, const T* __restrict__ p,
+    const T* __restrict__ us, const int32_t* __restrict__ cell_u,
+    const int32_t* __restrict__ cell_p, const uint8_t* __restrict__ mask_u,
+    const uint8_t* __restrict__ mask_p, const T* __restrict__ rho, const T* __restrict__ mu,
+    const T* __restrict__ damp, T* __restrict__ out_u, T* __restrict__ out_p, long long n_u,
+    long long n_cells, const Tables<T>& tab, const Scalars<T>& sc, const ProbeArgs<T>& pa) {
+  constexpr bool QF = STREAM == kStreamQFields;
+  using L = Lines<DIM, N1, Q1, P1, PRES, QF>;
+  constexpr int M1 = L::M1, NB = L::NB, NL = L::NL, NQ = L::NQ, NP = L::NP;
+  constexpr int NEV = L::NEV, PSLOT = L::PSLOT, ZP = L::ZP, NCOL = L::NCOL, ZST = L::ZST;
+  constexpr int CS = L::CS, LDX = L::LDX;
+  constexpr int CPB = cells_per_block<L, T>();
+  constexpr int NI = 2 * DIM, FI = DIM + 1;
+  constexpr int SLD = QF ? DIM * FI * NQ : DIM * NL;  // stream row length
+  constexpr bool LAT = SRC == kSrcLattice;
+  constexpr bool MDOT = (PH & kPhMDot) != 0;
+  constexpr bool GATHER = (PH & (kPhGather | kPhContig)) != 0;
+  constexpr bool QPOINT = (PH & kPhQPoint) != 0;
+  constexpr bool INTEG = (PH & kPhIntegrate) != 0;
+  constexpr bool SCATTER = (PH & kPhScatter) != 0;
+  // the evaluated items [I0, I1) and whether the pressure is evaluated
+  constexpr int I0 = (PH & kPhEvalU) ? 0 : DIM;
+  constexpr int I1 = (PH & kPhEvalUs) ? NEV : DIM;
+  constexpr bool PE = PRES && (PH & kPhEvalU);
+  static_assert(PH == kPhAll || (DIM == 3 && N1 == 3 && Q1 == 3 && P1 == 2 && PRES &&
+                                 SRC == kSrcTable && !QF && DST == kOutScatter),
+                "probe phases: 3D Q2/Q1 with pressure, nodal in and out only");
+  static_assert(SRC == kSrcBlock || !QF, "the q-field stream is a block");
+  static_assert(!LAT || (DIM == 3 && PRES), "the lattice source is 3D with pressure");
+
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const long long c0 = (long long)blockIdx.x * CPB;
+  const int nc = (int)min((long long)CPB, n_cells - c0);
+
+  // an output of cell e: velocity component c, local dof l; or pressure l
+  auto emit_u = [&](long long e, int c, int l, T v) {
+    if constexpr (DST == kOutBlock) {
+      out_u[e * LDX + c * NL + l] = v;
+    } else if constexpr (LAT) {
+      atomicAdd(out_u + c * n_u + lattice_dof<N1>(e, l, pa.ncx, pa.ncy), v);
+    } else if constexpr (SCATTER) {
+      atomicAdd(out_u + c * n_u + cell_u[e * NL + l], v);
+    } else {
+      if (owned<DIM, N1>(l)) out_u[c * n_u + cell_u[e * NL + l]] = v;
+    }
+  };
+  auto emit_p = [&](long long e, int l, T v) {
+    if constexpr (DST == kOutBlock) {
+      out_u[e * LDX + DIM * NL + l] = v;
+    } else if constexpr (LAT) {
+      atomicAdd(out_p + lattice_dof<P1>(e, l, pa.ncx, pa.ncy), v);
+    } else if constexpr (SCATTER) {
+      atomicAdd(out_p + cell_p[e * NP + l], v);
+    } else {
+      if (owned<DIM, P1>(l)) out_p[cell_p[e * NP + l]] = v;
+    }
+  };
+
+  // ---- gather into the items' first slots and the pressure slot ----------
+  if constexpr (SRC == kSrcBlock) {
+    // x row = [u_0 .. u_(DIM-1) | p], the u* dof stream [u*_0 ..] (a q-field
+    // stream is read by the column)
+    constexpr int per = LDX + (QF ? 0 : SLD);
+    for (int t = tid; t < nc * per; t += nth) {
+      const int cell = t / per, k = t % per;
+      const long long e = c0 + cell;
+      T* cb = cells + cell * CS;
+      if (k < DIM * NL) {
+        cb[(k / NL) * DIM * NB + lpos<DIM, N1, M1>(k % NL)] = u[e * LDX + k];
+      } else if (k < LDX) {
+        cb[PSLOT * NB + lpos<DIM, P1, M1>(k - DIM * NL)] = u[e * LDX + k];
+      } else {
+        const int j = k - LDX;
+        cb[(DIM + j / NL) * DIM * NB + lpos<DIM, N1, M1>(j % NL)] = us[e * SLD + j];
+      }
+    }
+  } else if constexpr (!GATHER) {
+    // dropped gather: each item of a cell reads one value v, at the cell's
+    // first dof, and spreads it as v (l + 1) over its local dofs l (a field
+    // constant on each cell would leave the output at roundoff)
+    for (int t = tid; t < nc * (NI + 1); t += nth) {
+      const int cell = t / (NI + 1), item = t % (NI + 1);
+      const long long e = c0 + cell;
+      T* cb = cells + cell * CS;
+      if (item < NI) {
+        const long long dof = cell_u[e * NL];
+        T v;
+        if (item < DIM) {
+          const long long g = item * n_u + dof;
+          v = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
+        } else {
+          v = us[(item - DIM) * n_u + dof];
+        }
+        for (int l = 0; l < NL; ++l) cb[item * DIM * NB + lpos<DIM, N1, M1>(l)] = v * T(l + 1);
+      } else {
+        const long long dof = cell_p[e * NP];
+        const T v = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
+        for (int l = 0; l < NP; ++l) cb[PSLOT * NB + lpos<DIM, P1, M1>(l)] = v * T(l + 1);
+      }
+    }
+  } else {
+    // nodal u (constrained entries read 0), u* (plain), p (masked) at the
+    // cell tables' addresses, the lattice's (LAT) or contiguous ones (kPhContig:
+    // cell e, local l reads entry (e n_loc + l) mod n); consecutive threads
+    // take one local dof of consecutive cells, each thread every item of it
+    constexpr bool CONTIG = (PH & kPhContig) != 0;
+    constexpr int NW = NL + (PRES ? NP : 0);
+    for (int t = tid; t < CPB * NW; t += nth) {
+      const int cell = t % CPB, k = t / CPB;
+      if (cell >= nc) continue;
+      const long long e = c0 + cell;
+      T* cb = cells + cell * CS;
+      if (k < NL) {
+        long long dof;
+        if constexpr (LAT) {
+          dof = lattice_dof<N1>(e, k, pa.ncx, pa.ncy);
+        } else if constexpr (CONTIG) {
+          dof = (e * NL + k) % n_u;
+        } else {
+          dof = cell_u[e * NL + k];
+        }
+        const int at = lpos<DIM, N1, M1>(k);
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+          const long long g = c * n_u + dof;
+          cb[c * DIM * NB + at] = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
+          cb[(DIM + c) * DIM * NB + at] = us[g];
+        }
+      } else {
+        const int l = k - NL;
+        long long dof;
+        if constexpr (LAT) {
+          dof = lattice_dof<P1>(e, l, pa.ncx, pa.ncy);
+        } else if constexpr (CONTIG) {
+          dof = (e * NP + l) % pa.n_p;
+        } else {
+          dof = cell_p[e * NP + l];
+        }
+        cb[PSLOT * NB + lpos<DIM, P1, M1>(l)] =
+            (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
+      }
+    }
+  }
+  __syncthreads();
+
+  if constexpr (MDOT) {
+    // ---- dense cell matrix: out = M89 x, x = [u_0 .. u_(DIM-1) | p] -------
+    for (int t = tid; t < nc * LDX; t += nth) {
+      const int cell = t / LDX, k = t % LDX;
+      const T* cb = cells + cell * CS;
+      T acc = T(0);
+      for (int j = 0; j < DIM * NL; ++j)
+        acc += sM[k * LDX + j] * cb[(j / NL) * DIM * NB + lpos<DIM, N1, M1>(j % NL)];
+      for (int j = 0; j < NP; ++j)
+        acc += sM[k * LDX + DIM * NL + j] * cb[PSLOT * NB + lpos<DIM, P1, M1>(j)];
+      if (k < DIM * NL) {
+        emit_u(c0 + cell, k / NL, k % NL, acc);
+      } else {
+        emit_p(c0 + cell, k - DIM * NL, acc);
+      }
+    }
+    return;
+  }
+
+  // ---- evaluation along x (and y in 3D); items not evaluated keep their
+  //      dofs -------------------------------------------------------------------
+  eval_stage<L, 0, I0, I1, PE>(cells, nc, tab);
+  __syncthreads();
+  if constexpr (DIM == 3) {
+    eval_stage<L, 1, I0, I1, PE>(cells, nc, tab);
+    __syncthreads();
+  }
+
+  // ---- the column: evaluation along the last axis, the q-point terms
+  //      (NavierStokesOperator._q_point_terms, "vmult") and integration along
+  //      the last axis, one thread per (cell, q_x[, q_y]) -----------------------
+  for (int t = tid; t < nc * NCOL; t += nth) {
+    const int cell = t / NCOL, col = t % NCOL;
+    const int qx = col % Q1, qy = col / Q1;
+    const long long e = c0 + cell;
+    T* const cb = cells + cell * CS;
+    const int at = qy * M1 + qx;  // the column's first position (qy = 0 in 2D)
+    const volatile T* vb = cb + at;
+    T wxy = pick<Q1>(tab.w, qx) * tab.vol;
+    if constexpr (DIM == 3) wxy *= pick<Q1>(tab.w, qy);
+    const bool variable = rho != nullptr || mu != nullptr || damp != nullptr;
+    T Z[DIM][DIM][N1], Zp[P1];  // the integration along the column
+    T keep[DIM + 1][Q1];        // dropped integration: value_c and prow
+#pragma unroll
+    for (int c = 0; c < DIM; ++c)
+#pragma unroll
+      for (int f = 0; f < DIM; ++f)
+#pragma unroll
+        for (int k = 0; k < N1; ++k) Z[c][f][k] = T(0);
+#pragma unroll
+    for (int k = 0; k < P1; ++k) Zp[k] = T(0);
+#pragma unroll
+    for (int qz = 0; qz < Q1; ++qz) {
+      const int q = col + NCOL * qz;
+      // value and reference gradients of every item at q; an item not
+      // evaluated reads its dof q (N1 == Q1)
+      T fd[NI][FI];
+#pragma unroll
+      for (int i = 0; i < NEV; ++i) {
+        if (i >= I0 && i < I1) {
+          T x[DIM][N1];
+#pragma unroll
+          for (int g = 0; g < DIM; ++g)
+#pragma unroll
+            for (int k = 0; k < N1; ++k) x[g][k] = vb[(i * DIM + g) * NB + k * ZST];
+#pragma unroll
+          for (int f = 0; f < FI; ++f) fd[i][f] = T(0);
+#pragma unroll
+          for (int k = 0; k < N1; ++k) {
+            const T vk = tab.V[qz * N1 + k];
+            fd[i][0] += vk * x[0][k];
+#pragma unroll
+            for (int b = 0; b + 1 < DIM; ++b) fd[i][1 + b] += vk * x[1 + b][k];
+            fd[i][DIM] += tab.D[qz * N1 + k] * x[0][k];
+          }
+        } else {
+          const T v = vb[i * DIM * NB + qz * ZST];
+#pragma unroll
+          for (int f = 0; f < FI; ++f) fd[i][f] = v;
+        }
+      }
+      if constexpr (QF) {
+        // u* value and physical gradients at q from the stream
+#pragma unroll
+        for (int c = 0; c < DIM; ++c)
+#pragma unroll
+          for (int f = 0; f < FI; ++f) fd[DIM + c][f] = us[e * SLD + (c * FI + f) * NQ + q];
+      }
+      T pq = T(0);
+      if constexpr (PE) {
+#pragma unroll
+        for (int k = 0; k < P1; ++k) pq += tab.Vp[qz * P1 + k] * vb[PSLOT * NB + k * ZST];
+      } else if constexpr (PRES) {
+        // dropped evaluation: the pressure field holds its dofs (q mod NP)
+        pq = cb[PSLOT * NB + lpos<DIM, P1, M1>(q % NP)];
+      }
+
+      T val[DIM], st[DIM][DIM], prow;
+      if constexpr (QPOINT) {
+        const T jxw = wxy * tab.w[qz];
+        T uv[DIM], sv[DIM], ug[DIM][DIM], sg[DIM][DIM];
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+          uv[c] = fd[c][0];
+          sv[c] = fd[DIM + c][0];
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) {
+            ug[c][d] = fd[c][1 + d] * tab.inv_h[d];
+            sg[c][d] = QF ? fd[DIM + c][1 + d] : fd[DIM + c][1 + d] * tab.inv_h[d];
+          }
+        }
+        T div = T(0), div_s = T(0);
+#pragma unroll
+        for (int a = 0; a < DIM; ++a) {
+          div += ug[a][a];
+          div_s += sg[a][a];
+        }
+        const long long qi = e * NQ + q;
+        const T r_q = rho != nullptr ? rho[qi] : sc.rho0;
+        const T m_q = mu != nullptr ? mu[qi] : sc.mu0;
+        const T d_q = damp != nullptr ? damp[qi] : sc.damp0;
+        const T tmu = sc.tau1 * m_q;
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+          T conv = sc.beta * (div * sv[c] + div_s * uv[c]);
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) conv += sv[d] * ug[c][d] + uv[d] * sg[c][d];
+          const T value = variable
+              ? r_q * (sc.weight * uv[c] + sc.tau1 * conv) - d_q * uv[c]
+              : (sc.rho0 * sc.weight - sc.damp0) * uv[c] + sc.tau1 * sc.rho0 * conv;
+          val[c] = value * jxw;
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) {
+            T s = tmu * (ug[c][d] + ug[d][c]);
+            if (c == d) s += sc.tgd * div - pq;
+            st[c][d] = s * jxw * tab.inv_h[d];
+          }
+        }
+        prow = -div * jxw;
+      } else {
+        // dropped q-point terms: value_c = u_c, stress_cd = d_d u*_c (the
+        // fields as they are), prow = p
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+          val[c] = fd[c][0];
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) st[c][d] = fd[DIM + c][1 + d];
+        }
+        prow = pq;
+      }
+
+      if constexpr (INTEG) {
+        // Z_c0 += V value_c + D st_c,last; Z_c(1+b) += V st_cb (b < DIM - 1)
+#pragma unroll
+        for (int k = 0; k < N1; ++k) {
+          const T vk = tab.V[qz * N1 + k], dk = tab.D[qz * N1 + k];
+#pragma unroll
+          for (int c = 0; c < DIM; ++c) {
+            Z[c][0][k] += vk * val[c] + dk * st[c][DIM - 1];
+#pragma unroll
+            for (int b = 0; b + 1 < DIM; ++b) Z[c][1 + b][k] += vk * st[c][b];
+          }
+        }
+        if constexpr (PRES) {
+#pragma unroll
+          for (int k = 0; k < P1; ++k) Zp[k] += tab.Vp[qz * P1 + k] * prow;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) keep[c][qz] = val[c];
+        keep[DIM][qz] = prow;
+      }
+    }
+    // the column's results over its own positions, which no other thread
+    // of this stage reads
+    if constexpr (INTEG) {
+#pragma unroll
+      for (int c = 0; c < DIM; ++c)
+#pragma unroll
+        for (int f = 0; f < DIM; ++f)
+#pragma unroll
+          for (int k = 0; k < N1; ++k) cb[(c * DIM + f) * NB + at + k * ZST] = Z[c][f][k];
+      if constexpr (PRES) {
+#pragma unroll
+        for (int k = 0; k < P1; ++k) cb[ZP * NB + at + k * ZST] = Zp[k];
+      }
+    } else {
+#pragma unroll
+      for (int qz = 0; qz < Q1; ++qz) {
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) cb[c * DIM * NB + at + qz * ZST] = keep[c][qz];
+        if constexpr (PRES) cb[ZP * NB + at + qz * ZST] = keep[DIM][qz];
+      }
+    }
+  }
+  __syncthreads();
+
+  if constexpr (!INTEG) {
+    // ---- dropped integration: out_c = value_c at q = l (NL = NQ), out_p =
+    //      prow at q = l ----------------------------------------------------
+    for (int t = tid; t < nc * LDX; t += nth) {
+      const int cell = t / LDX, k = t % LDX;
+      const T* cb = cells + cell * CS;
+      if (k < DIM * NL) {
+        emit_u(c0 + cell, k / NL, k % NL, cb[(k / NL) * DIM * NB + lpos<DIM, N1, M1>(k % NL)]);
+      } else {
+        emit_p(c0 + cell, k - DIM * NL, cb[ZP * NB + lpos<DIM, Q1, M1>(k - DIM * NL)]);
+      }
+    }
+    return;
+  }
+
+  // ---- integration along y (3D), then along x, whose lines emit the
+  //      outputs --------------------------------------------------------------
+  if constexpr (DIM == 3) {
+    integ_stage<L, 1, PRES>(cells, nc, tab);
+    __syncthreads();
+  }
+  {
+    constexpr int LN = ipow(N1, DIM - 1), LP = PRES ? ipow(P1, DIM - 1) : 0;
+    constexpr int per = DIM * LN + LP;
+    for (int t = tid; t < nc * per; t += nth) {
+      const int cell = t / per, k = t % per;
+      const long long e = c0 + cell;
+      const T* cb = cells + cell * CS;
+      if (k < DIM * LN) {
+        const int c = k / LN, ln = k % LN;
+        const T* f = cb + c * DIM * NB + line_at<DIM, 0, Q1, N1, M1>(ln);
+        T x0[Q1], x1[Q1];
+#pragma unroll
+        for (int q = 0; q < Q1; ++q) {
+          x0[q] = f[q];
+          x1[q] = f[NB + q];
+        }
+#pragma unroll
+        for (int i = 0; i < N1; ++i) {
+          T v = T(0);
+#pragma unroll
+          for (int q = 0; q < Q1; ++q) v += tab.V[q * N1 + i] * x0[q] + tab.D[q * N1 + i] * x1[q];
+          emit_u(e, c, i + N1 * ln, v);
+        }
+      } else {
+        const int ln = k - DIM * LN;
+        const T* f = cb + ZP * NB + line_at<DIM, 0, Q1, P1, M1>(ln);
+        T x[Q1];
+#pragma unroll
+        for (int q = 0; q < Q1; ++q) x[q] = f[q];
+#pragma unroll
+        for (int i = 0; i < P1; ++i) {
+          T v = T(0);
+#pragma unroll
+          for (int q = 0; q < Q1; ++q) v += tab.Vp[q * P1 + i] * x[q];
+          emit_p(e, i + P1 * ln, v);
+        }
+      }
+    }
+  }
+}
+
+// PRES: the pressure input and the pressure rows; the velocity-only entry
+// (no pressure) skips the pressure evaluation and integration stages.
+// SRC, STREAM, DST: gather source, u* stream and output (see the top). With
+// SRC == kSrcBlock, u is the (E, LDX) cell block x and us the cell-major
+// stream (E, SLD); p, the cell tables and the masks are not read. With
+// DST == kOutBlock, out_u is the (E, LDX) output block and out_p is not used.
+// SRC == kSrcLattice (K11) reads like kSrcTable, with each dof's address
+// computed from the cell's lattice coordinates (lattice_dof) in place of the
+// tables. PH: the phases run (kPhAll for every production entry). SCHED: the
+// schedule of the gather against the compute: kSchedOnce (every production
+// entry, K11, K12, K13's phase masks) runs the one-shot body cell_lines with
+// its compile-time CPB cells per block (cpb is then unused); K13's
+// schedules run cell_staged with cpb cells per group.
+template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM,
+          int DST, typename T, int PH = kPhAll, int SCHED = kSchedOnce>
+__global__ void __launch_bounds__(kThreads, (min_blocks<DIM, N1, T, SCHED>()))
+coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
+                    const T* __restrict__ us, const int32_t* __restrict__ cell_u,
+                    const int32_t* __restrict__ cell_p,
+                    const uint8_t* __restrict__ mask_u,
+                    const uint8_t* __restrict__ mask_p,
+                    const T* __restrict__ rho, const T* __restrict__ mu,
+                    const T* __restrict__ damp, T* __restrict__ out_u,
+                    T* __restrict__ out_p, long long n_u, long long n_cells,
+                    int cpb, Tables<T> tab, Scalars<T> sc, ProbeArgs<T> pa) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (SCHED == kSchedOnce) {
+    // shared memory: M89 (kPhMDot, (LDX, LDX) row-major), then the cells
+    constexpr int LDX = Lines<DIM, N1, Q1, P1, PRES, STREAM == kStreamQFields>::LDX;
+    constexpr bool MDOT = (PH & kPhMDot) != 0;
+    T* const sM = reinterpret_cast<T*>(smem_raw);
+    if constexpr (MDOT) {
+      for (int i = threadIdx.x; i < LDX * LDX; i += blockDim.x) sM[i] = pa.M[i];
+    }
+    cell_lines<DIM, N1, Q1, P1, PRES, SRC, STREAM, DST, T, PH>(
+        sM + (MDOT ? LDX * LDX : 0), sM, u, p, us, cell_u, cell_p, mask_u, mask_p, rho, mu,
+        damp, out_u, out_p, n_u, n_cells, tab, sc, pa);
+  } else {
+    static_assert(PH == kPhAll && DIM == 3 && N1 == 3 && Q1 == 3 && P1 == 2 && PRES &&
+                      SRC == kSrcTable && STREAM == kStreamDofs && DST == kOutScatter,
+                  "schedules: 3D Q2/Q1 with pressure, nodal in and out only");
+    cell_staged<T, SCHED>(smem_raw, u, p, us, cell_u, cell_p, mask_u, mask_p, out_u, out_p,
+                          n_u, n_cells, cpb, tab, sc, pa);
   }
 }
 
@@ -1039,14 +1470,6 @@ coupled_epilogue_kernel(T* __restrict__ out_u, T* __restrict__ out_p,
   if (threadIdx.x == 0) atomicAdd(norm, part[0]);
 }
 
-// The instance of the cell kernel for an entry (mode, see adaflo_coupled_cells)
-template <int DIM, int N1, int Q1, int P1, int SRC, int STREAM, int DST,
-          typename T>
-auto pick_kernel(bool pres) {
-  return pres ? coupled_cell_kernel<DIM, N1, Q1, P1, true, SRC, STREAM, DST, T>
-              : coupled_cell_kernel<DIM, N1, Q1, P1, false, SRC, STREAM, DST, T>;
-}
-
 // The kernel's 1D tables and per-step scalars from the host doubles.
 template <int DIM, int N1, int Q1, int P1, typename T>
 Tables<T> make_tables(const double* tab) {
@@ -1071,57 +1494,6 @@ Scalars<T> make_scalars(const double* scal) {
                     (T)scal[4], (T)scal[5], (T)scal[6]};
 }
 
-// Launch one instance of the cell kernel: CPB cells per block in 32 KB of
-// cell buffers, plus the staged tables and `extra` elements (M89).
-template <int DIM, int N1, int Q1, int P1, typename T, typename K>
-int launch_instance(K kern, int extra, const void* u, const void* p, const void* us,
-                    const int32_t* cell_u, const int32_t* cell_p,
-                    const uint8_t* mask_u, const uint8_t* mask_p, const void* rho,
-                    const void* mu, const void* damp, void* out_u, void* out_p,
-                    long long n_u, long long n_cells, const double* tab,
-                    const double* scal, ProbeArgs<T> pa, cudaStream_t stream) {
-  using S = Shape<DIM, N1, Q1, P1>;
-  const size_t cell_bytes = (size_t)S::SLOTS * S::NB * sizeof(T);
-  int cpb = (int)(32768 / cell_bytes);
-  if (cpb < 1) cpb = 1;
-  const size_t smem = (3 * kMaxTab + extra) * sizeof(T) + cpb * cell_bytes;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (n_cells > 0) {
-    const long long grid = (n_cells + cpb - 1) / cpb;
-    kern<<<(unsigned)grid, kThreads, smem, stream>>>(
-        (const T*)u, (const T*)p, (const T*)us, cell_u, cell_p, mask_u, mask_p,
-        (const T*)rho, (const T*)mu, (const T*)damp, (T*)out_u, (T*)out_p, n_u,
-        n_cells, cpb, make_tables<DIM, N1, Q1, P1, T>(tab), make_scalars<T>(scal), pa);
-  }
-  return (int)cudaGetLastError();
-}
-
-// Launch a K13 schedule of the cell kernel (3D Q2/Q1, table source, atomic
-// scatter, constant coefficients) on a persistent grid: as many blocks as
-// fit resident on the card, at most one per cell group (kSchedPair: per pair
-// of groups). Shared memory: the tables, one work area of CPB cells (two for
-// kSchedPair), two staging slots of CPB cells (kSchedRowAsync, kSchedPipe),
-// the pipe's slab, its mbarrier and tables; each region a multiple of 16
-// bytes.
-template <typename T>
-size_t schedule_smem(int sched, int ncx, int* cpb_out) {
-  using S = Shape<3, 3, 3, 2>;
-  const size_t cell_bytes = (size_t)S::SLOTS * S::NB * sizeof(T);
-  int cpb = (int)(32768 / cell_bytes);
-  if (cpb < 1) cpb = 1;
-  size_t smem = 3 * kMaxTab * sizeof(T) + (sched == kSchedPair ? 2 : 1) * cpb * cell_bytes;
-  if (sched == kSchedRowAsync || sched == kSchedPipe)
-    smem += 2 * (size_t)cpb * (6 * S::NB + S::NP) * sizeof(T);
-  if (sched == kSchedPipe)
-    smem += pipe_slab_bytes(cpb, ncx, sizeof(T)) + pipe_table_bytes(cpb, ncx);
-  if (cpb_out != nullptr) *cpb_out = cpb;
-  return smem;
-}
-
 // The blocks of `kern` with `smem` bytes of shared memory that one SM holds
 // (the occupancy calculator), after allowing that shared memory.
 template <typename K>
@@ -1134,14 +1506,117 @@ cudaError_t resident_blocks(K kern, size_t smem, int* per_sm) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, kThreads, smem);
 }
 
-// The probe configuration's cell kernel (3D Q2/Q1 with pressure, table
-// source, atomic scatter, every phase) under schedule `sched`, passed to f.
+// An instance of the cell kernel with the one-shot body and its launch
+// geometry: CPB cells per block; SMEM bytes of shared memory per block (M89
+// for kPhMDot, then the cells).
+template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM, int DST,
+          typename T, int PH = kPhAll>
+struct Once {
+  using L = Lines<DIM, N1, Q1, P1, PRES, STREAM == kStreamQFields>;
+  static constexpr int CPB = cells_per_block<L, T>();
+  static constexpr int SMEM =
+      (((PH & kPhMDot) ? L::LDX * L::LDX : 0) + CPB * L::CS) * (int)sizeof(T);
+  static auto kernel() {
+    return coupled_cell_kernel<DIM, N1, Q1, P1, PRES, SRC, STREAM, DST, T, PH>;
+  }
+  static Tables<T> tables(const double* tab) { return make_tables<DIM, N1, Q1, P1, T>(tab); }
+};
+
+// Launch a one-shot instance I: one block per group of I::CPB cells.
+template <typename I, typename T>
+int launch_once(const void* u, const void* p, const void* us, const int32_t* cell_u,
+                const int32_t* cell_p, const uint8_t* mask_u, const uint8_t* mask_p,
+                const void* rho, const void* mu, const void* damp, void* out_u, void* out_p,
+                long long n_u, long long n_cells, const double* tab, const double* scal,
+                ProbeArgs<T> pa, cudaStream_t stream) {
+  auto kern = I::kernel();
+  if (I::SMEM > 48 * 1024) {
+    // once per instance (a CUDA graph may capture the launches)
+    static const cudaError_t allowed = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, I::SMEM);
+    if (allowed != cudaSuccess) return (int)allowed;
+  }
+  if (n_cells > 0) {
+    const long long grid = (n_cells + I::CPB - 1) / I::CPB;
+    kern<<<(unsigned)grid, kThreads, I::SMEM, stream>>>(
+        (const T*)u, (const T*)p, (const T*)us, cell_u, cell_p, mask_u, mask_p,
+        (const T*)rho, (const T*)mu, (const T*)damp, (T*)out_u, (T*)out_p, n_u, n_cells,
+        I::CPB, I::tables(tab), make_scalars<T>(scal), pa);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The production instance of an entry (mode, pres; see adaflo_coupled_cells),
+// passed to f as a value of its Once type.
+template <typename T, int DIM, int N1, int Q1, int P1, bool PRES, typename F>
+int with_mode(int mode, F f) {
+  switch (mode) {
+    case 0: return f(Once<DIM, N1, Q1, P1, PRES, kSrcTable, kStreamDofs, kOutScatter, T>{});
+    case 1: return f(Once<DIM, N1, Q1, P1, PRES, kSrcBlock, kStreamDofs, kOutBlock, T>{});
+    case 2: return f(Once<DIM, N1, Q1, P1, PRES, kSrcBlock, kStreamQFields, kOutBlock, T>{});
+    case 3: return f(Once<DIM, N1, Q1, P1, PRES, kSrcTable, kStreamDofs, kOutBlock, T>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, typename F>
+int with_cells(int mode, int pres, int dim, int degree, F f) {
+#define ADAFLO_SET(D, N, Q, P) \
+  (pres ? with_mode<T, D, N, Q, P, true>(mode, f) : with_mode<T, D, N, Q, P, false>(mode, f))
+  if (dim == 3 && degree == 2) return ADAFLO_SET(3, 3, 3, 2);
+  if (dim == 2 && degree == 2) return ADAFLO_SET(2, 3, 3, 2);
+  if (dim == 3 && degree == 3) return ADAFLO_SET(3, 4, 4, 3);
+#undef ADAFLO_SET
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_cells(int mode, int pres, int dim, int degree, const void* u, const void* p,
+                 const void* us, const int32_t* cell_u, const int32_t* cell_p,
+                 const uint8_t* mask_u, const uint8_t* mask_p, const void* rho,
+                 const void* mu, const void* damp, void* out_u, void* out_p,
+                 long long n_u, long long n_cells, const double* tab,
+                 const double* scal, cudaStream_t stream) {
+  // nodal pressure in and out exactly when the entry has pressure rows
+  const bool p_in = mode == 0 || mode == 3 ? (bool)pres : false;
+  const bool p_out = mode == 0 ? (bool)pres : false;
+  if ((p != nullptr) != p_in || (out_p != nullptr) != p_out || us == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return with_cells<T>(mode, pres, dim, degree, [&](auto inst) {
+    return launch_once<decltype(inst), T>(u, p, us, cell_u, cell_p, mask_u, mask_p, rho, mu,
+                                          damp, out_u, out_p, n_u, n_cells, tab, scal,
+                                          ProbeArgs<T>{nullptr, 0, 0, 0}, stream);
+  });
+}
+
+// Launch a K13 schedule of the cell kernel (3D Q2/Q1, table source, atomic
+// scatter, constant coefficients) on a persistent grid: as many blocks as
+// fit resident on the card, at most one per cell group (kSchedPair: per pair
+// of groups). Shared memory: the tables, one work area of CPB cells (two for
+// kSchedPair), two staging slots of CPB cells (kSchedRowAsync, kSchedPipe),
+// the pipe's slab, its mbarrier and tables; each region a multiple of 16
+// bytes.
+template <typename T>
+size_t schedule_smem(int sched, int ncx, int* cpb_out) {
+  using S = Staged;
+  const size_t cell_bytes = (size_t)S::SLOTS * S::NB * sizeof(T);
+  int cpb = (int)(32768 / cell_bytes);
+  if (cpb < 1) cpb = 1;
+  size_t smem = 3 * kMaxTab * sizeof(T) + (sched == kSchedPair ? 2 : 1) * cpb * cell_bytes;
+  if (sched == kSchedRowAsync || sched == kSchedPipe)
+    smem += 2 * (size_t)cpb * (6 * S::NB + S::NP) * sizeof(T);
+  if (sched == kSchedPipe)
+    smem += pipe_slab_bytes(cpb, ncx, sizeof(T)) + pipe_table_bytes(cpb, ncx);
+  if (cpb_out != nullptr) *cpb_out = cpb;
+  return smem;
+}
+
+// K13's schedule `sched` of the probe configuration's cell kernel, passed to f.
 template <typename T, typename F>
 int with_schedule(int sched, F f) {
 #define ADAFLO_SCHED(s) \
   coupled_cell_kernel<3, 3, 3, 2, true, kSrcTable, kStreamDofs, kOutScatter, T, kPhAll, s>
   switch (sched) {
-    case kSchedOnce: return f(ADAFLO_SCHED(kSchedOnce));
     case kSchedRowAsync: return f(ADAFLO_SCHED(kSchedRowAsync));
     case kSchedPipe: return f(ADAFLO_SCHED(kSchedPipe));
     case kSchedPair: return f(ADAFLO_SCHED(kSchedPair));
@@ -1176,31 +1651,10 @@ int launch_schedule(K kern, int sched, const void* u, const void* p, const void*
   return (int)cudaGetLastError();
 }
 
-template <int DIM, int N1, int Q1, int P1, typename T>
-int launch_cells(int mode, int pres, const void* u, const void* p, const void* us,
-                 const int32_t* cell_u, const int32_t* cell_p,
-                 const uint8_t* mask_u, const uint8_t* mask_p, const void* rho,
-                 const void* mu, const void* damp, void* out_u, void* out_p,
-                 long long n_u, long long n_cells, const double* tab,
-                 const double* scal, cudaStream_t stream) {
-  // nodal pressure in and out exactly when the entry has pressure rows
-  const bool p_in = mode == 0 || mode == 3 ? (bool)pres : false;
-  const bool p_out = mode == 0 ? (bool)pres : false;
-  if ((p != nullptr) != p_in || (out_p != nullptr) != p_out || us == nullptr)
-    return (int)cudaErrorInvalidValue;
-  auto kern = pick_kernel<DIM, N1, Q1, P1, kSrcTable, kStreamDofs, kOutScatter, T>(pres);
-  if (mode == 1)
-    kern = pick_kernel<DIM, N1, Q1, P1, kSrcBlock, kStreamDofs, kOutBlock, T>(pres);
-  else if (mode == 2)
-    kern = pick_kernel<DIM, N1, Q1, P1, kSrcBlock, kStreamQFields, kOutBlock, T>(pres);
-  else if (mode == 3)
-    kern = pick_kernel<DIM, N1, Q1, P1, kSrcTable, kStreamDofs, kOutBlock, T>(pres);
-  else if (mode != 0)
-    return (int)cudaErrorInvalidValue;
-  return launch_instance<DIM, N1, Q1, P1, T>(
-      kern, 0, u, p, us, cell_u, cell_p, mask_u, mask_p, rho, mu, damp, out_u,
-      out_p, n_u, n_cells, tab, scal, ProbeArgs<T>{nullptr, 0, 0, 0}, stream);
-}
+// The probe configuration (3D Q2/Q1 with pressure, table source, atomic
+// scatter) with the phases PH, one-shot
+template <typename T, int PH>
+using ProbeOnce = Once<3, 3, 3, 2, true, kSrcTable, kStreamDofs, kOutScatter, T, PH>;
 
 // K12/K13 and K11: 3D Q2/Q1 with pressure, nodal in and out, constant
 // coefficients; a phase mask PH (table source), the lattice source, or one
@@ -1211,12 +1665,11 @@ int launch_variant(int phases, int lattice, int sched, const void* u, const void
                    const uint8_t* mask_u, const uint8_t* mask_p, void* out_u,
                    void* out_p, long long n_u, long long n_cells, const double* tab,
                    const double* scal, ProbeArgs<T> pa, cudaStream_t stream) {
-  auto go = [&](auto kern, int extra) {
-    return launch_instance<3, 3, 3, 2, T>(kern, extra, u, p, us, cell_u, cell_p, mask_u,
-                                          mask_p, nullptr, nullptr, nullptr, out_u,
-                                          out_p, n_u, n_cells, tab, scal, pa, stream);
+  auto go = [&](auto inst) {
+    return launch_once<decltype(inst), T>(u, p, us, cell_u, cell_p, mask_u, mask_p, nullptr,
+                                          nullptr, nullptr, out_u, out_p, n_u, n_cells, tab,
+                                          scal, pa, stream);
   };
-#define ADAFLO_PH(ph) coupled_cell_kernel<3, 3, 3, 2, true, kSrcTable, kStreamDofs, kOutScatter, T, ph>
   if (p == nullptr || out_p == nullptr || us == nullptr) return (int)cudaErrorInvalidValue;
   if (sched != kSchedOnce) {
     if (lattice || phases != kPhAll || cell_u == nullptr || cell_p == nullptr)
@@ -1230,38 +1683,55 @@ int launch_variant(int phases, int lattice, int sched, const void* u, const void
   }
   if (lattice) {
     if (phases != kPhAll) return (int)cudaErrorInvalidValue;
-    return go(coupled_cell_kernel<3, 3, 3, 2, true, kSrcLattice, kStreamDofs, kOutScatter, T>, 0);
+    return go(Once<3, 3, 3, 2, true, kSrcLattice, kStreamDofs, kOutScatter, T>{});
   }
   if (phases != kPhAll && (cell_u == nullptr || cell_p == nullptr)) return (int)cudaErrorInvalidValue;
   switch (phases) {
-    case kPhAll: return go(ADAFLO_PH(kPhAll), 0);
-    case kPhAll & ~kPhGather: return go(ADAFLO_PH(kPhAll & ~kPhGather), 0);
-    case kPhAll & ~kPhEvalU: return go(ADAFLO_PH(kPhAll & ~kPhEvalU), 0);
-    case kPhAll & ~kPhEvalUs: return go(ADAFLO_PH(kPhAll & ~kPhEvalUs), 0);
-    case kPhAll & ~kPhQPoint: return go(ADAFLO_PH(kPhAll & ~kPhQPoint), 0);
-    case kPhAll & ~kPhIntegrate: return go(ADAFLO_PH(kPhAll & ~kPhIntegrate), 0);
-    case kPhAll & ~kPhScatter: return go(ADAFLO_PH(kPhAll & ~kPhScatter), 0);
-    case kPhGather: return go(ADAFLO_PH(kPhGather), 0);
-    case kPhGather | kPhScatter: return go(ADAFLO_PH(kPhGather | kPhScatter), 0);
-    case kPhContig | kPhScatter: return go(ADAFLO_PH(kPhContig | kPhScatter), 0);
+    case kPhAll: return go(ProbeOnce<T, kPhAll>{});
+    case kPhAll & ~kPhGather: return go(ProbeOnce<T, kPhAll & ~kPhGather>{});
+    case kPhAll & ~kPhEvalU: return go(ProbeOnce<T, kPhAll & ~kPhEvalU>{});
+    case kPhAll & ~kPhEvalUs: return go(ProbeOnce<T, kPhAll & ~kPhEvalUs>{});
+    case kPhAll & ~kPhQPoint: return go(ProbeOnce<T, kPhAll & ~kPhQPoint>{});
+    case kPhAll & ~kPhIntegrate: return go(ProbeOnce<T, kPhAll & ~kPhIntegrate>{});
+    case kPhAll & ~kPhScatter: return go(ProbeOnce<T, kPhAll & ~kPhScatter>{});
+    case kPhGather: return go(ProbeOnce<T, kPhGather>{});
+    case kPhGather | kPhScatter: return go(ProbeOnce<T, kPhGather | kPhScatter>{});
+    case kPhContig | kPhScatter: return go(ProbeOnce<T, kPhContig | kPhScatter>{});
     case kPhGather | kPhMDot | kPhScatter:
       if (pa.M == nullptr) return (int)cudaErrorInvalidValue;
-      return go(ADAFLO_PH(kPhGather | kPhMDot | kPhScatter), 89 * 89);
+      return go(ProbeOnce<T, kPhGather | kPhMDot | kPhScatter>{});
     case kPhGather | kPhEvalU | kPhEvalUs | kPhScatter:
-      return go(ADAFLO_PH(kPhGather | kPhEvalU | kPhEvalUs | kPhScatter), 0);
+      return go(ProbeOnce<T, kPhGather | kPhEvalU | kPhEvalUs | kPhScatter>{});
     default: return (int)cudaErrorInvalidValue;
   }
-#undef ADAFLO_PH
 }
 
-// Shared memory of one block and resident blocks per SM of a schedule.
+// Shared memory of one block and resident blocks per SM of a schedule (the
+// one-shot full apply for kSchedOnce).
 template <typename T>
 int residency(int sched, int ncx, int* smem, int* blocks_per_sm) {
+  if (sched == kSchedOnce) {
+    using I = ProbeOnce<T, kPhAll>;
+    *smem = I::SMEM;
+    return (int)resident_blocks(I::kernel(), I::SMEM, blocks_per_sm);
+  }
   if (sched == kSchedPipe && ncx < 1) return (int)cudaErrorInvalidValue;
   const size_t bytes = schedule_smem<T>(sched, ncx, nullptr);
   *smem = (int)bytes;
   return with_schedule<T>(sched, [&](auto kern) {
     return (int)resident_blocks(kern, bytes, blocks_per_sm);
+  });
+}
+
+// Cells per block, shared memory per block and resident blocks per SM of a
+// production instance.
+template <typename T>
+int geometry(int mode, int pres, int dim, int degree, int* cpb, int* smem, int* blocks_per_sm) {
+  return with_cells<T>(mode, pres, dim, degree, [&](auto inst) {
+    using I = decltype(inst);
+    *cpb = I::CPB;
+    *smem = I::SMEM;
+    return (int)resident_blocks(I::kernel(), I::SMEM, blocks_per_sm);
   });
 }
 
@@ -1277,28 +1747,6 @@ int launch_scatter(const void* block, const int32_t* cell_u, const int32_t* cell
   kern<<<(unsigned)blocks, 256, 0, stream>>>((const T*)block, cell_u, cell_p, (T*)out_u,
                                              (T*)out_p, n_u, n_cells);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_set(int mode, int pres, int dim, int degree, const void* u, const void* p,
-               const void* us, const int32_t* cell_u, const int32_t* cell_p,
-               const uint8_t* mask_u, const uint8_t* mask_p, const void* rho,
-               const void* mu, const void* damp, void* out_u, void* out_p,
-               long long n_u, long long n_cells, const double* tab,
-               const double* scal, cudaStream_t stream) {
-  if (dim == 3 && degree == 2)
-    return launch_cells<3, 3, 3, 2, T>(mode, pres, u, p, us, cell_u, cell_p, mask_u, mask_p,
-                                       rho, mu, damp, out_u, out_p, n_u, n_cells,
-                                       tab, scal, stream);
-  if (dim == 2 && degree == 2)
-    return launch_cells<2, 3, 3, 2, T>(mode, pres, u, p, us, cell_u, cell_p, mask_u, mask_p,
-                                       rho, mu, damp, out_u, out_p, n_u, n_cells,
-                                       tab, scal, stream);
-  if (dim == 3 && degree == 3)
-    return launch_cells<3, 4, 4, 3, T>(mode, pres, u, p, us, cell_u, cell_p, mask_u, mask_p,
-                                       rho, mu, damp, out_u, out_p, n_u, n_cells,
-                                       tab, scal, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1327,13 +1775,13 @@ int adaflo_coupled_cells(int dtype, int mode, int pres, int dim, int degree, con
                          const double* scal, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch_set<double>(mode, pres, dim, degree, u, p, us, cell_u, cell_p, mask_u,
-                              mask_p, rho, mu, damp, out_u, out_p, n_u, n_cells,
-                              tab, scal, st);
+    return launch_cells<double>(mode, pres, dim, degree, u, p, us, cell_u, cell_p, mask_u,
+                                mask_p, rho, mu, damp, out_u, out_p, n_u, n_cells,
+                                tab, scal, st);
   if (dtype == 0)
-    return launch_set<float>(mode, pres, dim, degree, u, p, us, cell_u, cell_p, mask_u,
-                             mask_p, rho, mu, damp, out_u, out_p, n_u, n_cells,
-                             tab, scal, st);
+    return launch_cells<float>(mode, pres, dim, degree, u, p, us, cell_u, cell_p, mask_u,
+                               mask_p, rho, mu, damp, out_u, out_p, n_u, n_cells,
+                               tab, scal, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1399,6 +1847,17 @@ int adaflo_coupled_variant(int dtype, int phases, int lattice, int sched, const 
 int adaflo_coupled_residency(int dtype, int sched, int ncx, int* smem, int* blocks_per_sm) {
   if (dtype == 1) return residency<double>(sched, ncx, smem, blocks_per_sm);
   if (dtype == 0) return residency<float>(sched, ncx, smem, blocks_per_sm);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The production instance of entry `mode` (pres, dim, degree as
+// adaflo_coupled_cells): its cells per block (cpb), the dynamic shared memory
+// of one block (smem, bytes) and the blocks of 128 threads one SM holds (the
+// occupancy calculator).
+int adaflo_coupled_geometry(int dtype, int mode, int pres, int dim, int degree, int* cpb,
+                            int* smem, int* blocks_per_sm) {
+  if (dtype == 1) return geometry<double>(mode, pres, dim, degree, cpb, smem, blocks_per_sm);
+  if (dtype == 0) return geometry<float>(mode, pres, dim, degree, cpb, smem, blocks_per_sm);
   return (int)cudaErrorInvalidValue;
 }
 

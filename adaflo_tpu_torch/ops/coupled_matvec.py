@@ -696,6 +696,8 @@ def bind(lib):
     ip = ctypes.POINTER(ctypes.c_int)
     lib.adaflo_coupled_residency.argtypes = [i, i, i, ip, ip]
     lib.adaflo_coupled_residency.restype = i
+    lib.adaflo_coupled_geometry.argtypes = [i] * 5 + [ip] * 3
+    lib.adaflo_coupled_geometry.restype = i
     return lib
 
 
@@ -965,10 +967,10 @@ def coupled_apply_ablated(u, p, u_star, cells: CoupledCells, sc: ApplyScalars, p
 
 def schedule_residency(dtype, name: str, ncx: int) -> dict:
     """The cell kernel in the probe configuration under K13's schedule
-    `name` (or "full", the one-shot schedule): the shared memory of one
-    block in bytes ("smem") and the blocks of 128 threads one SM holds
-    ("blocks_per_sm", the CUDA occupancy calculator), on a lattice of ncx
-    cells along x. Needs the kernel library (a CUDA device)."""
+    `name` (or "full", the one-shot body of K1's instance): the shared
+    memory of one block in bytes ("smem") and the blocks of 128 threads one
+    SM holds ("blocks_per_sm", the CUDA occupancy calculator), on a lattice
+    of ncx cells along x. Needs the kernel library (a CUDA device)."""
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     rc = load_library().adaflo_coupled_residency(
         1 if dtype == torch.float64 else 0, K13_SCHEDULES.get(name, SCHED_ONCE), ncx,
@@ -977,6 +979,38 @@ def schedule_residency(dtype, name: str, ncx: int) -> dict:
     if rc != 0:
         raise RuntimeError(f"coupled apply residency query failed (CUDA error {rc})")
     return {"smem": smem.value, "blocks_per_sm": blocks.value}
+
+
+# the production instances of the cell kernel: (entry, mode, pres) per table
+# set (dim, degree) and dtype; their launch counters are the entries' names
+PRODUCTION_ENTRIES = (
+    ("coupled_apply", MODE_NODAL, True),
+    ("coupled_apply_velocity", MODE_NODAL, False),
+    ("coupled_apply_cells", MODE_CELLS, True),
+    ("coupled_apply_cells_velocity", MODE_CELLS, False),
+    ("coupled_apply_cells_qfields", MODE_CELLS_QFIELDS, True),
+    ("coupled_apply_cells_qfields_velocity", MODE_CELLS_QFIELDS, False),
+    ("coupled_apply_gather", MODE_GATHER, True),
+    ("coupled_apply_gather_velocity", MODE_GATHER, False),
+)
+TABLE_SETS = ((3, 2), (2, 2), (3, 3))
+
+
+def cell_geometry(dtype, mode: int, pres: bool, dim: int, degree: int) -> dict:
+    """The launch geometry of a production instance of the cell kernel (an
+    entry of PRODUCTION_ENTRIES at a table set): its cells per block
+    ("cpb", a compile-time constant of the instance), the shared memory of
+    one block in bytes ("smem") and the blocks of 128 threads one SM holds
+    ("blocks_per_sm", the CUDA occupancy calculator). Needs the kernel
+    library."""
+    cpb, smem, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    rc = load_library().adaflo_coupled_geometry(
+        1 if dtype == torch.float64 else 0, mode, 1 if pres else 0, dim, degree,
+        ctypes.byref(cpb), ctypes.byref(smem), ctypes.byref(blocks),
+    )
+    if rc != 0:
+        raise RuntimeError(f"coupled apply geometry query failed (CUDA error {rc})")
+    return {"cpb": cpb.value, "smem": smem.value, "blocks_per_sm": blocks.value}
 
 
 def coupled_apply_lattice(u, p, u_star, cells: CoupledCells, sc: ApplyScalars):

@@ -15,9 +15,11 @@ precision, wgmma (HGMMA) in bf16 and TF32, DMMA in float64. Runs
 first if needed, and prints, per probe kernel instance and per schedule
 instance of the cell kernel (beside the production one-shot instance,
 "full"), the counts of FFMA, FMUL, FADD, DFMA, DMUL, DADD, HMMA, HGMMA,
-DMMA, LDS, STS, LDG, STG, LDGSTS, UBLKCP, UTMALDG, UTMASTG and SYNCS; it fails
-if a schedule lacks its asynchronous copies or a dot instance its
-instructions.
+DMMA, LDS, STS, LDG, STG, LDGSTS, UBLKCP, UTMALDG, UTMASTG and SYNCS, and the
+same of every production instance of the cell kernel (each entry at each
+table set, float64 and float32; their LDS against DFMA or FFMA show how many
+of the one-shot body's operands come from shared memory); it fails if a
+schedule lacks its asynchronous copies or a dot instance its instructions.
 
 Run: python -m adaflo_tpu_torch.scripts.sass_counts
 """
@@ -40,6 +42,13 @@ SCHEDULE_OPS = {"rowdma": ("LDGSTS",), "pipe": ("UBLKCP", "SYNCS"), "unroll2": (
 # the mangled cell kernel <3, 3, 3, 2, true, kSrcTable, kStreamDofs,
 # kOutScatter, T, kPhAll, SCHED>: the probe configuration with every phase
 _CELL_KERNEL = re.compile(r"coupled_cell_kernelILi3ELi3ELi3ELi2ELb1ELi0ELi0ELi0E([df])Li63ELi(\d)EE")
+# the mangled cell kernel's production instances <DIM, N1, Q1, P1, PRES, SRC,
+# STREAM, DST, T, kPhAll, kSchedOnce>
+_PRODUCTION = re.compile(r"coupled_cell_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)ELb([01])ELi(\d)ELi(\d)"
+                         r"ELi(\d)E([df])Li63ELi0EE")
+# (SRC, STREAM, DST) of each entry mode (csrc/coupled_matvec.cu with_mode)
+_MODE_OF = {(0, 0, 0): cm.MODE_NODAL, (1, 0, 1): cm.MODE_CELLS, (1, 1, 1): cm.MODE_CELLS_QFIELDS,
+            (0, 0, 1): cm.MODE_GATHER}
 # the mangled dot kernel <PREC, M, K, TX, TO>: "<precision> (M, K) <X type>"
 _DOT_KERNEL = re.compile(r"dense_dot_kernelILi(\d)ELi(\d+)ELi(\d+)E(f|d|13__nv_bfloat16)")
 _DOT_TYPES = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
@@ -135,6 +144,46 @@ def schedule_registers(log: str) -> dict:
             if v["registers"] is not None}
 
 
+def production_name(entry: str, dim: int, degree: int, dtype: str) -> str:
+    """The key of a production instance: "<entry> <dim>D Q<degree>/Q<degree - 1>
+    <double|float>"."""
+    return f"{entry} {dim}D Q{degree}/Q{degree - 1} {dtype}"
+
+
+def production_instances() -> list:
+    """The keys of every production instance of the cell kernel: each entry
+    of coupled_matvec.PRODUCTION_ENTRIES at each table set, float64 and
+    float32."""
+    return [production_name(entry, dim, deg, t) for dim, deg in cm.TABLE_SETS
+            for entry, _, _ in cm.PRODUCTION_ENTRIES for t in ("double", "float")]
+
+
+def production_key(mangled: str):
+    """The production_name of a mangled production instance of the cell
+    kernel, or None for another kernel."""
+    m = _PRODUCTION.search(mangled)
+    if m is None:
+        return None
+    dim, n1, pres = int(m.group(1)), int(m.group(2)), m.group(5) == "1"
+    mode = _MODE_OF.get(tuple(int(m.group(i)) for i in (6, 7, 8)))
+    entry = next((e for e, md, pr in cm.PRODUCTION_ENTRIES if md == mode and pr == pres), None)
+    if entry is None:
+        return None
+    return production_name(entry, dim, n1 - 1, "double" if m.group(9) == "d" else "float")
+
+
+def production_counts(library: Path) -> dict:
+    """{production_key: {opcode: count}} of the cell kernel's production
+    instances in `library` (coupled_matvec's)."""
+    return {production_key(n): c for n, c in _sass(library).items() if production_key(n)}
+
+
+def production_ptxas(log: str) -> dict:
+    """{production_key: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from the ptxas lines of the coupled_matvec library's build log."""
+    return _ptxas(log, production_key)
+
+
 def dot_key(mangled: str):
     """"<precision> (M, K) <X type>" of a mangled dense_dot_kernel instance
     (e.g. "bf16 (384, 96) bf16", K5's bf16 instance), or None."""
@@ -186,6 +235,7 @@ def show(res: dict) -> None:
 
 
 def main() -> None:
+    show(production_counts(cm.library_path()))
     show(counts(pk.library_path()))
     missing_dot = check_dot(dot_counts(pk.library_path()))
     sched = schedule_counts(cm.library_path())

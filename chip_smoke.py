@@ -118,6 +118,13 @@ K7_REPLACES = "scripts/probe_sf.py:83"  # run_vpu kernel
 K8_REPLACES = "scripts/probe_sf.py:142"  # run_copies kernel
 K9_REPLACES = "scripts/probe_sf.py:169"  # run_mxu kernel
 K10_REPLACES = "scripts/probe_sf.py:295"  # run_sfeval kernel
+# the main-path instances at 16^3 whose device time phase 2 also takes in
+# a CUDA graph of 20 applies (graph_ms): back to back, the host's issue of
+# an apply hides it
+GRAPH_TIMED = (
+    "3D Q2/Q1 16^3 f64 const+ids",
+    "coupled_apply_cells_velocity 3D Q2/Q1 16^3 periodic f64",
+)
 BLOCK_ENTRIES = (
     "coupled_apply_cells",
     "coupled_apply_cells_velocity",
@@ -366,14 +373,17 @@ def check_kernels(device):
         max_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
         t = cuda_ms(run)
         ms = t["ms"]
+        if label in GRAPH_TIMED:
+            t["graph_ms"] = graph_ms(run)
         plain_ms = cuda_ms(plain, warmup=1, reps=5)["ms"]
         nbytes, flops, bms, by = bound(
             cells, dname, u.shape[1], p.shape[0], mode == "velocity", variable
         )
         print(
             f"kernel {label}: rel err {err:.3e} (max abs {max_abs:.3e}), "
-            f"{ms:.4f} ms/apply (one waited call {t['call_ms']:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"{ms:.4f} ms/apply (one waited call {t['call_ms']:.4f} ms"
+            + (f", in a CUDA graph {t['graph_ms']:.4f} ms" if "graph_ms" in t else "")
+            + f"), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
             f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)",
             flush=True,
         )
@@ -382,6 +392,7 @@ def check_kernels(device):
         records[label] = dict(
             max_abs_err=max_abs, rel_err=err, ms=ms, call_ms=t["call_ms"], plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
+            graph_ms=t.get("graph_ms"),
         )
     return records
 
@@ -441,12 +452,15 @@ def check_block_entries(device):
             max_abs = float((got - ref).abs().max())
             t = cuda_ms(run)
             ms = t["ms"]
+            if f"{name} {label}" in GRAPH_TIMED:
+                t["graph_ms"] = graph_ms(run)
             plain_ms = cuda_ms(plain, warmup=1, reps=5)["ms"]
             nbytes, flops, bms, by = bound_block(name, cells, dname, u.shape[1], p.shape[0])
             print(
                 f"kernel {name} {label}: rel err {err:.3e} (max abs {max_abs:.3e}), "
-                f"{ms:.4f} ms/apply (one waited call {t['call_ms']:.4f} ms), plain "
-                f"{plain_ms:.4f} ms, bound {bms:.4f} ms "
+                f"{ms:.4f} ms/apply (one waited call {t['call_ms']:.4f} ms"
+                + (f", in a CUDA graph {t['graph_ms']:.4f} ms" if "graph_ms" in t else "")
+                + f"), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
                 f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)",
                 flush=True,
             )
@@ -455,6 +469,7 @@ def check_block_entries(device):
             records[(name, label)] = dict(
                 max_abs_err=max_abs, rel_err=err, ms=ms, call_ms=t["call_ms"], plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
+                graph_ms=t.get("graph_ms"),
             )
         if dim == 3 and degree == 2 and dname == "float64":
             check_routes(label, op, u, p, tw, lin)
@@ -739,6 +754,70 @@ def check_schedule_build(cm):
     return out
 
 
+def check_cell_build(cm):
+    """Phase 1: every production instance of the cell kernel's one-shot body
+    (each entry at each table set, float64 and float32) in the built
+    library: ptxas registers, stack and spills, SASS LDS against DFMA and
+    FFMA, and the launch geometry (cells per block, shared memory per block,
+    resident blocks per SM). No instance may spill or be missing. Returns
+    {instance: record}."""
+    import torch
+
+    from adaflo_tpu_torch.scripts import sass_counts
+
+    sass = sass_counts.production_counts(cm.library_path())
+    ptxas = sass_counts.production_ptxas(cm.build_info.get("log", ""))
+    out = {}
+    for dim, degree in cm.TABLE_SETS:
+        for entry, mode, pres in cm.PRODUCTION_ENTRIES:
+            for t, dtype in (("double", torch.float64), ("float", torch.float32)):
+                key = sass_counts.production_name(entry, dim, degree, t)
+                c = sass.get(key, {})
+                r = out[key] = dict(sass=c, **ptxas.get(key, {}),
+                                    **cm.cell_geometry(dtype, mode, pres, dim, degree))
+                print(f"cell {key}: {r.get('registers')} registers, stack {r.get('stack')} B, "
+                      f"spills {r.get('spill_stores')} / {r.get('spill_loads')} B, {r['cpb']} "
+                      f"cells/block, {r['smem']} B shared, {r['blocks_per_sm']} blocks/SM "
+                      f"({r['cpb'] * r['blocks_per_sm']} cells/SM); SASS " + ", ".join(
+                          f"{op} {c.get(op, 0)}" for op in ("LDS", "STS", "DFMA", "FFMA", "LDG",
+                                                            "STG")), flush=True)
+    bad = [k for k, r in out.items()
+           if r.get("registers") is None or not r["sass"] or r.get("spill_stores")
+           or r.get("spill_loads")]
+    if bad:
+        raise AssertionError(f"cell kernel instances missing or spilling registers: {bad}")
+    return out
+
+
+def graph_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """The device time of one apply: CUDA events around one replay of a CUDA
+    graph of `reps` applies, the median over `rounds` replays, per apply
+    (no host work between the applies)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(rounds):
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def check_dot_build(pk):
     """Phase 1: the dense dot's instances (K5, K9) in the built library:
     SASS counts, each instance holding its design's instructions
@@ -990,6 +1069,7 @@ def main() -> int:
               f"thread, {len(spills)} with spills")
         for ln in spills:
             print(f"ptxas ({name}):", ln)
+    cell_build = check_cell_build(cm)
     sched_build = check_schedule_build(cm)
     dot_build = check_dot_build(pk)
 
@@ -1014,9 +1094,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "shape": main_label, "call_ms": r["call_ms"],
+            "shape": main_label, "call_ms": r["call_ms"], "graph_ms": r["graph_ms"],
             "at_48": {k: b[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
                                         "bound_by")},
+            "build": {k: v for k, v in cell_build.items() if k.split()[0] == name},
         }
 
     kernels = [

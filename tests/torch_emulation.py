@@ -38,7 +38,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 #define __grid_constant__
 struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };

@@ -71,8 +71,8 @@
 // its matrix operand from the constant bank. Each line is read and written
 // in place at the same positions of a cell's slots, so one cell needs only
 // its slots: 6 items x 3 fields + the pressure, 19 tensors of 27 values at
-// 3D Q2/Q1, 4,168 bytes in float64 with the bank padding (today's work area
-// was 13,824). The stages: gather; evaluation along x, along y (shared
+// 3D Q2/Q1, 4,168 bytes in float64 with the bank padding (the staged body
+// below takes 13,824). The stages: gather; evaluation along x, along y (shared
 // memory); then one thread per (cell, q_x, q_y) column evaluates along z,
 // forms the q-point terms and integrates along z in registers, reading the
 // column's z-lines anew at each q_z (volatile loads, so that the compiler
@@ -80,7 +80,9 @@
 // column; integration along y (shared memory); integration along x, whose
 // lines add their outputs into the nodal vectors (atomicAdd) or store the
 // cell block. Five barriers per group of cells (3D), three in 2D, where the
-// column runs along y. float64 and float32 are template instances, as are
+// column runs along y. The column's registers set the blocks per SM
+// (min_blocks): at 3D Q2/Q1 3 in float64 with the pressure, 4 without it
+// and 7 in float32, so 39, 56 and 98 cells per SM. float64 and float32 are template instances, as are
 // the table sets 3D Q2/Q1, 2D Q2/Q1 and 3D Q3/Q2.
 //
 // Schedules (the SCHED template parameter; K13's TPU schedules, probe
@@ -226,9 +228,8 @@ __device__ __forceinline__ bool owned(int l) {
   return true;
 }
 
-// The cell group of a block's it-th iteration: strided by the grid (one
-// iteration per block for kSchedOnce, whose grid is the group count), or
-// for kSchedPair pairs of consecutive groups.
+// The cell group of a schedule's block at its it-th iteration: strided by
+// the persistent grid, or for kSchedPair pairs of consecutive groups.
 template <int SCHED>
 __device__ __forceinline__ long long sched_group(long long it) {
   if constexpr (SCHED == kSchedPair)
@@ -809,12 +810,16 @@ __host__ __device__ constexpr int cells_per_block() {
 }
 
 // The least resident blocks per SM that ptxas keeps the one-shot body's
-// registers for (__launch_bounds__); the schedules ask for none.
-template <int DIM, int N1, typename T, int SCHED>
-constexpr int min_blocks() {
+// registers for (__launch_bounds__: at most 65,536 / (128 x blocks) per
+// thread), the most that each instance reaches without spilling (chip_smoke.py
+// phase 1 checks it): at 3D Q2/Q1 the float64 column with the pressure
+// needs about 163 registers (3 blocks), without it 128 (4); float32 72 (7).
+// The schedules ask for none.
+template <int DIM, int N1, bool PRES, typename T, int SCHED>
+__host__ __device__ constexpr int min_blocks() {
   if (SCHED != kSchedOnce) return 1;
-  if (sizeof(T) == 8) return DIM == 2 ? 4 : (N1 == 4 ? 2 : 3);
-  return DIM == 2 ? 6 : (N1 == 4 ? 3 : 5);
+  if (sizeof(T) == 8) return DIM == 2 ? 4 : (N1 == 4 ? 2 : (PRES ? 3 : 4));
+  return DIM == 2 ? 6 : (N1 == 4 ? 3 : 7);
 }
 
 // The slot position of local index l of a tensor with extent N per axis.
@@ -1163,40 +1168,38 @@ __device__ __forceinline__ void cell_lines(
 #pragma unroll
     for (int qz = 0; qz < Q1; ++qz) {
       const int q = col + NCOL * qz;
-      // value and reference gradients of every item at q; an item not
-      // evaluated reads its dof q (N1 == Q1)
-      T fd[NI][FI];
+      // the value and reference gradients of item i at q: from its z-lines
+      // (evaluated), its dof q (not evaluated; N1 == Q1), or, for u* with the
+      // q-field stream, the stream's value and physical gradients
+      auto fields = [&](int i, T(&f)[FI]) {
+        if (QF && i >= DIM) {
 #pragma unroll
-      for (int i = 0; i < NEV; ++i) {
-        if (i >= I0 && i < I1) {
+          for (int g = 0; g < FI; ++g) f[g] = us[e * SLD + ((i - DIM) * FI + g) * NQ + q];
+        } else if (i >= I0 && i < I1) {
           T x[DIM][N1];
 #pragma unroll
           for (int g = 0; g < DIM; ++g)
 #pragma unroll
             for (int k = 0; k < N1; ++k) x[g][k] = vb[(i * DIM + g) * NB + k * ZST];
 #pragma unroll
-          for (int f = 0; f < FI; ++f) fd[i][f] = T(0);
+          for (int g = 0; g < FI; ++g) f[g] = T(0);
 #pragma unroll
           for (int k = 0; k < N1; ++k) {
             const T vk = tab.V[qz * N1 + k];
-            fd[i][0] += vk * x[0][k];
+            f[0] += vk * x[0][k];
 #pragma unroll
-            for (int b = 0; b + 1 < DIM; ++b) fd[i][1 + b] += vk * x[1 + b][k];
-            fd[i][DIM] += tab.D[qz * N1 + k] * x[0][k];
+            for (int b = 0; b + 1 < DIM; ++b) f[1 + b] += vk * x[1 + b][k];
+            f[DIM] += tab.D[qz * N1 + k] * x[0][k];
           }
         } else {
           const T v = vb[i * DIM * NB + qz * ZST];
 #pragma unroll
-          for (int f = 0; f < FI; ++f) fd[i][f] = v;
+          for (int g = 0; g < FI; ++g) f[g] = v;
         }
-      }
-      if constexpr (QF) {
-        // u* value and physical gradients at q from the stream
+      };
+      T uf[DIM][FI];  // the u items
 #pragma unroll
-        for (int c = 0; c < DIM; ++c)
-#pragma unroll
-          for (int f = 0; f < FI; ++f) fd[DIM + c][f] = us[e * SLD + (c * FI + f) * NQ + q];
-      }
+      for (int c = 0; c < DIM; ++c) fields(c, uf[c]);
       T pq = T(0);
       if constexpr (PE) {
 #pragma unroll
@@ -1209,22 +1212,29 @@ __device__ __forceinline__ void cell_lines(
       T val[DIM], st[DIM][DIM], prow;
       if constexpr (QPOINT) {
         const T jxw = wxy * tab.w[qz];
-        T uv[DIM], sv[DIM], ug[DIM][DIM], sg[DIM][DIM];
+        T uv[DIM], ug[DIM][DIM], div = T(0);
 #pragma unroll
         for (int c = 0; c < DIM; ++c) {
-          uv[c] = fd[c][0];
-          sv[c] = fd[DIM + c][0];
+          uv[c] = uf[c][0];
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) ug[c][d] = uf[c][1 + d] * tab.inv_h[d];
+          div += ug[c][c];
+        }
+        // u*: its values, div u*, and sum_d u_d d_d u*_c, each gradient row
+        // folded in as its item is evaluated (the registers of the column)
+        T sv[DIM], su[DIM], div_s = T(0);
+#pragma unroll
+        for (int c = 0; c < DIM; ++c) {
+          T f[FI];
+          fields(DIM + c, f);
+          sv[c] = f[0];
+          su[c] = T(0);
 #pragma unroll
           for (int d = 0; d < DIM; ++d) {
-            ug[c][d] = fd[c][1 + d] * tab.inv_h[d];
-            sg[c][d] = QF ? fd[DIM + c][1 + d] : fd[DIM + c][1 + d] * tab.inv_h[d];
+            const T g = QF ? f[1 + d] : f[1 + d] * tab.inv_h[d];
+            su[c] += uv[d] * g;
+            if (d == c) div_s += g;
           }
-        }
-        T div = T(0), div_s = T(0);
-#pragma unroll
-        for (int a = 0; a < DIM; ++a) {
-          div += ug[a][a];
-          div_s += sg[a][a];
         }
         const long long qi = e * NQ + q;
         const T r_q = rho != nullptr ? rho[qi] : sc.rho0;
@@ -1233,9 +1243,9 @@ __device__ __forceinline__ void cell_lines(
         const T tmu = sc.tau1 * m_q;
 #pragma unroll
         for (int c = 0; c < DIM; ++c) {
-          T conv = sc.beta * (div * sv[c] + div_s * uv[c]);
+          T conv = sc.beta * (div * sv[c] + div_s * uv[c]) + su[c];
 #pragma unroll
-          for (int d = 0; d < DIM; ++d) conv += sv[d] * ug[c][d] + uv[d] * sg[c][d];
+          for (int d = 0; d < DIM; ++d) conv += sv[d] * ug[c][d];
           const T value = variable
               ? r_q * (sc.weight * uv[c] + sc.tau1 * conv) - d_q * uv[c]
               : (sc.rho0 * sc.weight - sc.damp0) * uv[c] + sc.tau1 * sc.rho0 * conv;
@@ -1253,9 +1263,11 @@ __device__ __forceinline__ void cell_lines(
         // fields as they are), prow = p
 #pragma unroll
         for (int c = 0; c < DIM; ++c) {
-          val[c] = fd[c][0];
+          T f[FI];
+          fields(DIM + c, f);
+          val[c] = uf[c][0];
 #pragma unroll
-          for (int d = 0; d < DIM; ++d) st[c][d] = fd[DIM + c][1 + d];
+          for (int d = 0; d < DIM; ++d) st[c][d] = f[1 + d];
         }
         prow = pq;
       }
@@ -1383,7 +1395,7 @@ __device__ __forceinline__ void cell_lines(
 // schedules run cell_staged with cpb cells per group.
 template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM,
           int DST, typename T, int PH = kPhAll, int SCHED = kSchedOnce>
-__global__ void __launch_bounds__(kThreads, (min_blocks<DIM, N1, T, SCHED>()))
+__global__ void __launch_bounds__(kThreads, (min_blocks<DIM, N1, PRES, T, SCHED>()))
 coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ us, const int32_t* __restrict__ cell_u,
                     const int32_t* __restrict__ cell_p,
@@ -1706,15 +1718,9 @@ int launch_variant(int phases, int lattice, int sched, const void* u, const void
   }
 }
 
-// Shared memory of one block and resident blocks per SM of a schedule (the
-// one-shot full apply for kSchedOnce).
+// Shared memory of one block and resident blocks per SM of a schedule.
 template <typename T>
 int residency(int sched, int ncx, int* smem, int* blocks_per_sm) {
-  if (sched == kSchedOnce) {
-    using I = ProbeOnce<T, kPhAll>;
-    *smem = I::SMEM;
-    return (int)resident_blocks(I::kernel(), I::SMEM, blocks_per_sm);
-  }
   if (sched == kSchedPipe && ncx < 1) return (int)cudaErrorInvalidValue;
   const size_t bytes = schedule_smem<T>(sched, ncx, nullptr);
   *smem = (int)bytes;
@@ -1840,10 +1846,10 @@ int adaflo_coupled_variant(int dtype, int phases, int lattice, int sched, const 
   return (int)cudaErrorInvalidValue;
 }
 
-// K13's schedules and the one-shot full apply (sched 0) in the probe
-// configuration: the dynamic shared memory of one block (smem, bytes) and
-// the blocks of 128 threads one SM holds (the occupancy calculator); ncx:
-// the lattice's cells along x (the pipe's slab depends on it).
+// K13's schedules (sched kSchedRowAsync, kSchedPipe, kSchedPair) in the
+// probe configuration: the dynamic shared memory of one block (smem, bytes)
+// and the blocks of 128 threads one SM holds (the occupancy calculator);
+// ncx: the lattice's cells along x (the pipe's slab depends on it).
 int adaflo_coupled_residency(int dtype, int sched, int ncx, int* smem, int* blocks_per_sm) {
   if (dtype == 1) return residency<double>(sched, ncx, smem, blocks_per_sm);
   if (dtype == 0) return residency<float>(sched, ncx, smem, blocks_per_sm);

@@ -971,9 +971,12 @@ def schedule_residency(dtype, name: str, ncx: int) -> dict:
     memory of one block in bytes ("smem") and the blocks of 128 threads one
     SM holds ("blocks_per_sm", the CUDA occupancy calculator), on a lattice
     of ncx cells along x. Needs the kernel library (a CUDA device)."""
+    if name == "full":
+        g = cell_geometry(dtype, MODE_NODAL, True, 3, 2)
+        return {"smem": g["smem"], "blocks_per_sm": g["blocks_per_sm"]}
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     rc = load_library().adaflo_coupled_residency(
-        1 if dtype == torch.float64 else 0, K13_SCHEDULES.get(name, SCHED_ONCE), ncx,
+        1 if dtype == torch.float64 else 0, K13_SCHEDULES[name], ncx,
         ctypes.byref(smem), ctypes.byref(blocks),
     )
     if rc != 0:

@@ -5,7 +5,11 @@ Phases:
   1. device: nvidia-smi name and power limit, CUDA version; the two kernel
      libraries (csrc/coupled_matvec.cu, csrc/probe_kernels.cu) built by one
      nvcc each, started together, with each build's time and ptxas'
-     registers and spills; the SASS of K13's three schedules of the cell
+     registers and spills; every production instance of the cell kernel's
+     one-shot body (each entry at each table set, float64 and float32): its
+     registers, stack and spills (ptxas), cells per block, shared memory per
+     block and resident blocks per SM (cm.cell_geometry), and its SASS LDS
+     against DFMA/FFMA; none may spill; the SASS of K13's three schedules of the cell
      kernel (scripts/sass_counts): rowdma and unroll2 must hold cp.async
      (LDGSTS), pipe bulk copies (UBLKCP) and mbarrier operations (SYNCS);
      beside it each schedule's registers, shared memory per block and
@@ -22,7 +26,9 @@ Phases:
      HBM rate against operations over the peak rate of the number type,
      adaflo_tpu_torch.scripts.PEAK_FLOPS): CUDA events around 20 applies
      issued back to back, and the median of 20 single applies each waited
-     for (adaflo_tpu_torch.scripts.time_ms);
+     for (adaflo_tpu_torch.scripts.time_ms); K1 and K3-velocity at 16^3 also
+     in a CUDA graph of 20 applies (graph_ms: the device time that the
+     back-to-back figure hides behind the host's issue);
      - the nodal entries (K1 coupled_apply, K2 coupled_apply_velocity) at
        the 16^3-cell lattice and at the 48^3-cell Q2/Q1 lattice (2,855,668
        dofs), with Dirichlet boundary rows and a pressure-fix dof, in every

@@ -14,7 +14,11 @@ on a periodic lattice (wrapped cell tables); and the probe instances on a
 `coupled_apply_ablated_plain`, K11's table-free lattice source against
 `coupled_apply_plain`, K6's scatter against `scatter_cells_plain`), and K13's
 three schedules on a persistent grid smaller than their group count, against
-full's plain version. What this cannot show: that nvcc accepts the source,
+full's plain version; every production entry at each table set and
+precision on a lattice whose last cell group is short (a tail group of the
+one-shot body's compile-time cells per block), and the geometry entry's
+cells per block and shared memory against hand-worked numbers. What this
+cannot show: that nvcc accepts the source,
 what many threads do, and that the copies are asynchronous; `chip_smoke.py`
 checks all three on the card. Skips where g++ is missing."""
 
@@ -49,12 +53,11 @@ def monkeypatch_module():
         yield mp
 
 
-def _case(dim, degree, dtype, constrained, periodic=False):
+def _case(dim, degree, dtype, constrained, periodic=False, shape=None):
     rng = np.random.default_rng(dim * 10 + degree)
-    if dim == 3:
-        mesh = StructuredMesh((3, 4, 2), (0.0, 0.0, 0.0), (1.0, 1.3, 0.7))
-    else:
-        mesh = StructuredMesh((4, 3), (0.0, 0.0), (1.0, 1.3))
+    if shape is None:
+        shape = (3, 4, 2) if dim == 3 else (4, 3)
+    mesh = StructuredMesh(shape, (0.0,) * dim, (1.0, 1.3, 0.7)[:dim])
     if periodic:
         for axis in (0, 2)[: dim - 1]:
             mesh.set_periodic(axis)
@@ -242,23 +245,119 @@ def test_emulated_schedule_entry_refuses_what_it_does_not_instance(emulated):
 
 
 def test_emulated_residency_counts_each_schedules_shared_memory(emulated):
-    """The residency entry's shared memory per block at 48 cells along x:
-    the 1D tables (3 x 16 values) and CPB = 32768 // 13,824 (float64) or
-    // 6,912 (float32) cells of 64 x 27-value work slots (two work areas for
-    unroll2), two staging slots of CPB x 170 values (rowdma, pipe), and the
-    pipe's slab (2 segments of 54 velocity and 4 pressure run slots, each
-    the 16-byte aligned size of a run plus 15 bytes) with its mbarrier and
-    tables (8 + 2 x 58 x 8 + CPB x 8 bytes, to 16). The emulated card holds
-    one block per SM."""
+    """The residency entry's shared memory per block at 48 cells along x.
+    The schedules (the staged body): the 1D tables (3 x 16 values) and CPB =
+    32768 // 13,824 (float64) or // 6,912 (float32) cells of 64 x 27-value
+    work slots (two work areas for unroll2), two staging slots of CPB x 170
+    values (rowdma, pipe), and the pipe's slab (2 segments of 54 velocity and
+    4 pressure run slots, each the 16-byte aligned size of a run plus 15
+    bytes) with its mbarrier and tables (8 + 2 x 58 x 8 + CPB x 8 bytes, to
+    16). "full" (the one-shot body of K1's instance): 13 cells (float64) or
+    14 (float32) of 521 values (test_emulated_geometry_of_production_instances).
+    The emulated card holds one block per SM."""
     expect = {
-        torch.float64: {"full": 28032, "rowdma": 33472, "pipe": 33472 + 2 * 3648 + 960,
+        torch.float64: {"full": 13 * 521 * 8, "rowdma": 33472, "pipe": 33472 + 2 * 3648 + 960,
                         "unroll2": 55680},
-        torch.float32: {"full": 27840, "rowdma": 33280, "pipe": 33280 + 2 * 3648 + 976,
+        torch.float32: {"full": 14 * 521 * 4, "rowdma": 33280, "pipe": 33280 + 2 * 3648 + 976,
                         "unroll2": 55488},
     }
     for dtype, names in expect.items():
         for name, smem in names.items():
             assert cm.schedule_residency(dtype, name, 48) == {"smem": smem, "blocks_per_sm": 1}
+
+
+def _slots(dim, degree, mode, pres):
+    """The one-shot body's slots per cell and columns per cell: 2 dim items
+    (dim with the q-field stream) of dim slots, the pressure's, of
+    (degree + 1)^dim values."""
+    items = dim if mode == cm.MODE_CELLS_QFIELDS else 2 * dim
+    return items * dim + (1 if pres else 0), (degree + 1) ** dim, (degree + 1) ** (dim - 1)
+
+
+def test_emulated_geometry_of_production_instances(emulated):
+    """The geometry entry's cells per block and shared memory per block of
+    every production instance. Each cell holds its slots (_slots), the
+    cell stride padded up to the columns per cell modulo 32; CPB is the
+    least of 128 // columns and 56 KB // the cell's bytes. Worked out by
+    hand: 3D Q2/Q1 with pressure 19 x 27 = 513 values, padded to 521 (= 9
+    mod 32): 13 float64 cells of 4,168 B, 14 float32 (128 // 9); velocity
+    only 18 slots, 489 values, 14 cells; the q-field stream 10 slots, 297
+    values; 2D Q2/Q1 (4 items of 2 slots) 9 x 9 = 81, padded to 99 (= 3
+    mod 32), 42 cells (128 // 3);
+    3D Q3/Q2 19 x 64 = 1,216, padded to 1,232 (= 16 mod 32), 5 float64
+    cells and 8 float32 (128 // 16). The emulated card holds one block per
+    SM."""
+    by_hand = {
+        (torch.float64, cm.MODE_NODAL, True, 3, 2): (13, 13 * 521 * 8),
+        (torch.float32, cm.MODE_NODAL, True, 3, 2): (14, 14 * 521 * 4),
+        (torch.float64, cm.MODE_NODAL, False, 3, 2): (14, 14 * 489 * 8),
+        (torch.float64, cm.MODE_CELLS_QFIELDS, True, 3, 2): (14, 14 * 297 * 8),
+        (torch.float64, cm.MODE_GATHER, True, 2, 2): (42, 42 * 99 * 8),
+        (torch.float64, cm.MODE_CELLS, True, 3, 3): (5, 5 * 1232 * 8),
+        (torch.float32, cm.MODE_CELLS, True, 3, 3): (8, 8 * 1232 * 4),
+    }
+    for (dtype, mode, pres, dim, degree), (cpb, smem) in by_hand.items():
+        assert cm.cell_geometry(dtype, mode, pres, dim, degree) == {
+            "cpb": cpb, "smem": smem, "blocks_per_sm": 1}
+    for dim, degree in cm.TABLE_SETS:
+        for _, mode, pres in cm.PRODUCTION_ENTRIES:
+            for dtype in (torch.float64, torch.float32):
+                g = cm.cell_geometry(dtype, mode, pres, dim, degree)
+                slots, nb, ncol = _slots(dim, degree, mode, pres)
+                stride = slots * nb + (ncol - slots * nb) % 32
+                size = 8 if dtype == torch.float64 else 4
+                assert g["cpb"] == max(1, min(128 // ncol, 56 * 1024 // (stride * size)))
+                assert g["smem"] == g["cpb"] * stride * size
+
+
+# the production entries, each at its own cells per block (a tail group)
+TAIL_ENTRIES = [e for e, _, _ in cm.PRODUCTION_ENTRIES]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("entry", TAIL_ENTRIES)
+@pytest.mark.parametrize("dim,degree", SETS, ids=["3d-q2", "2d-q2", "3d-q3"])
+def test_emulated_tail_group_matches_plain_version(emulated, dim, degree, entry, dtype):
+    """Every production entry on a lattice of 2 CPB + 2 cells ((CPB + 1) x 2
+    [x 1], CPB the instance's cells per block), with Dirichlet rows: two
+    full groups and a last one of 2 cells, which the one-shot body masks.
+    K1 in its variable-coefficient mode with identity rows, scale and norm;
+    K2 with its identity rows; K3 and K4 as their plain versions."""
+    mode, pres = next((m, pr) for e, m, pr in cm.PRODUCTION_ENTRIES if e == entry)
+    cpb = cm.cell_geometry(dtype, mode, pres, dim, degree)["cpb"]
+    shape = (cpb + 1, 2, 1)[:dim]
+    cells, u, p, s, coeffs = _case(dim, degree, dtype, True, shape=shape)
+    assert cells.n_cells % cpb == 2 and cells.n_cells > 2 * cpb
+    sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
+    rng = np.random.default_rng(17)
+    E, nl, npl = cells.n_cells, cells.ev_u.n_local, cells.ev_p.n_local
+    t = lambda *sh: torch.tensor(rng.standard_normal(sh), dtype=dtype)
+    if entry == "coupled_apply":
+        kw = dict(identity=True, scale=0.37)
+        ref = list(cm.coupled_apply_plain(u, p, s, cells, sc, coeffs=coeffs, want_norm=True,
+                                          **kw))
+        got = [torch.zeros_like(u), torch.zeros_like(p), torch.zeros((), dtype=dtype)]
+        cm._launch_cells(cm.MODE_NODAL, True, u, p, s, cells, sc, coeffs, *got[:2])
+        cm._launch_epilogue(u, p, cells, *got[:2], True, 0.37, got[2])
+    elif entry == "coupled_apply_velocity":
+        ref = [cm.coupled_apply_plain(u, None, s, cells, sc, velocity_only=True)]
+        got = [torch.zeros_like(u)]
+        cm._launch_cells(cm.MODE_NODAL, False, u, None, s, cells, sc, None, got[0], None)
+        cm._launch_epilogue(u, None, cells, got[0], None, True, None, None)
+    elif entry.startswith("coupled_apply_gather"):
+        pp = p if pres else None
+        ref = [cm.coupled_apply_gather_plain(u, pp, s, cells, sc)]
+        got = [torch.full_like(ref[0], float("nan"))]
+        cm._launch_cells(cm.MODE_GATHER, pres, u, pp, s, cells, sc, None, got[0], None)
+    else:
+        x = t(E, dim * nl + (npl if pres else 0))
+        stream = t(E, dim * (dim + 1), cells.n_q) if mode == cm.MODE_CELLS_QFIELDS else t(E, dim * nl)
+        ref = [cm.coupled_apply_cells_plain(x, stream, cells, sc, velocity_only=not pres)]
+        got = [torch.full_like(ref[0], float("nan"))]
+        cm._launch_cells(mode, pres, x, None, stream, cells, sc, None, got[0], None)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    scale = max(float(b.abs().max()) for b in ref)
+    assert err <= (1e-12 if dtype == torch.float64 else 1e-5) * scale
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])

@@ -150,14 +150,6 @@ def production_name(entry: str, dim: int, degree: int, dtype: str) -> str:
     return f"{entry} {dim}D Q{degree}/Q{degree - 1} {dtype}"
 
 
-def production_instances() -> list:
-    """The keys of every production instance of the cell kernel: each entry
-    of coupled_matvec.PRODUCTION_ENTRIES at each table set, float64 and
-    float32."""
-    return [production_name(entry, dim, deg, t) for dim, deg in cm.TABLE_SETS
-            for entry, _, _ in cm.PRODUCTION_ENTRIES for t in ("double", "float")]
-
-
 def production_key(mangled: str):
     """The production_name of a mangled production instance of the cell
     kernel, or None for another kernel."""

@@ -51,7 +51,7 @@
 // Design. The TPU kernel's parity packing, 128-lane blocks, 27->32 q-row
 // padding and ring DMA answer the TPU's vector memory and are not copied.
 // Here one thread block of 128 threads takes CPB cells, CPB a compile-time
-// constant of the instance (cells_per_block: 13 in float64 and 14 in float32
+// constant of the instance (cells_per_block: 10 in float64 and 20 in float32
 // at 3D Q2/Q1). The cell's dofs (u, the frozen linearization point u*, p)
 // are gathered through an int32 cell->dof table into shared memory, with
 // constrained entries read as zero; consecutive threads take one local dof
@@ -63,27 +63,28 @@
 //
 // The one-shot body (every production instance, K11, K12 and K13's phase
 // masks). Every extent is a template constant, so no stage indexes with a
-// runtime division. The work items are whole 1D lines of a cell: a thread
-// loads a line's N1 (or Q1) inputs of every field it needs into registers
-// once and writes the V and D contractions of that line (the transposed
-// stages pair V^T and D^T the same way). The 1D matrices are a by-value
-// kernel argument, read with compile-time indices, so that each FMA takes
-// its matrix operand from the constant bank. Each line is read and written
-// in place at the same positions of a cell's slots, so one cell needs only
-// its slots: 6 items x 3 fields + the pressure, 19 tensors of 27 values at
-// 3D Q2/Q1, 4,168 bytes in float64 with the bank padding (the staged body
-// below takes 13,824). The stages: gather; evaluation along x, along y (shared
-// memory); then one thread per (cell, q_x, q_y) column evaluates along z,
-// forms the q-point terms and integrates along z in registers, reading the
-// column's z-lines anew at each q_z (volatile loads, so that the compiler
-// keeps only one q point's fields live) and writing its results over its own
-// column; integration along y (shared memory); integration along x, whose
-// lines add their outputs into the nodal vectors (atomicAdd) or store the
-// cell block. Five barriers per group of cells (3D), three in 2D, where the
-// column runs along y. The column's registers set the blocks per SM
-// (min_blocks): at 3D Q2/Q1 3 in float64 with the pressure, 4 without it
-// and 7 in float32, so 39, 56 and 98 cells per SM. float64 and float32 are template instances, as are
-// the table sets 3D Q2/Q1, 2D Q2/Q1 and 3D Q3/Q2.
+// runtime division. The work items of the sum factorization are whole 1D
+// lines of a cell: a thread loads a line's N1 (or Q1) inputs of every field
+// it needs into registers once and writes the V and D contractions of that
+// line (the transposed stages pair V^T and D^T the same way). The 1D
+// matrices are a by-value kernel argument, read with compile-time indices,
+// so that each FMA takes its matrix operand from the constant bank. Each
+// line is read and written in place at the same positions of a cell's
+// slots, so one cell needs only its slots: 6 items x 4 fields + the
+// pressure, 25 tensors of 27 values at 3D Q2/Q1, 5,592 bytes in float64
+// with the bank padding (the staged body below takes 13,824). The stages:
+// gather; evaluation along x, y, z; the q-point terms, one thread per (cell,
+// q point), over the point's own positions; integration along x, y, z,
+// whose last lines add their outputs into the nodal vectors (atomicAdd) or
+// store the cell block. Seven barriers per group of cells (3D), five in 2D.
+// Shared memory sets the blocks per SM: four, so 40 float64 and 80 float32
+// cells per SM at 3D Q2/Q1 (__launch_bounds__ keeps the registers to 128).
+// The order of every sum is the staged body's, integration x first, so the
+// one-shot body's results are the staged body's bit for bit wherever no
+// atomicAdd reorders them (K3 and K4): fusing the z evaluation, the q-point
+// terms and the z integration in registers ran 10 % faster but reordered
+// the integration's sums, and the periodic channel's BiCGStab inner solves
+// (deterministic, through K3) then took other iteration counts.
 //
 // Schedules (the SCHED template parameter; K13's TPU schedules, probe
 // instances only). The production schedule kSchedOnce gives each thread
@@ -132,9 +133,10 @@
 // cores: a 3-long contraction fills a DMMA m8n8k4 tile to 3/8 x 3/4, and the
 // dense cell matrix costs 19 times the operations. What keeps the body from
 // the bound: the gather is uncoalesced (one cell's dofs are strided across
-// the lattice), the atomics serialize on shared vertices, and the column's
-// registers (its z-stage sums of every item and its integration's
-// accumulators) limit the blocks per SM. K3 moves more bytes per cell than
+// the lattice), the atomics serialize on shared vertices, and every stage's
+// fields pass through shared memory, whose 25 slots per cell hold 40 float64
+// cells per SM (a stage's lines of a block wait at its barrier for the
+// slowest). K3 moves more bytes per cell than
 // K1 and does the same operations (the q-field stream: fewer, without the
 // u* evaluation): it reads the (E, n_cols) block and the stream and writes
 // the (E, n_cols) block, about (89 + 81 + 89) values per 3D Q2/Q1 cell with
@@ -776,50 +778,42 @@ __device__ __forceinline__ void cell_staged(
 // tensor of extents <= M1 per axis at the positions (z M1 + y) M1 + x, every
 // stage writing its lines over the lines it read. Item i (u_0 .., then u*_0
 // .. unless the u* stream is q-fields, which is read at the q points) holds
-// DIM slots i DIM + f: its dofs, then the fields of the evaluation stages
-// (f = 0 no derivative, f = 1 + a the derivative along axis a); the pressure
-// the slot PSLOT. The column writes the integration's fields of component c
-// into the slots c DIM + f, the pressure's into ZP.
+// FI = DIM + 1 slots i FI + f: its dofs, then the fields of the evaluation
+// stages (f = 0 no derivative, f = 1 + a the derivative along axis a); the
+// pressure the slot PSLOT. The q-point stage writes component c's value and
+// stress row over u item c's slots, the pressure row into QP.
 template <int DIM, int N1, int Q1, int P1, bool PRES, bool QF>
 struct Lines {
   static constexpr int kDim = DIM, kN1 = N1, kQ1 = Q1, kP1 = P1;
   static constexpr int M1 = imax(N1, Q1);
   static constexpr int NB = ipow(M1, DIM);
   static constexpr int NL = ipow(N1, DIM), NQ = ipow(Q1, DIM), NP = ipow(P1, DIM);
+  static constexpr int FI = DIM + 1;              // slots per item
   static constexpr int NEV = QF ? DIM : 2 * DIM;  // items in shared memory
-  static constexpr int PSLOT = NEV * DIM;
+  static constexpr int PSLOT = NEV * FI;
   static constexpr int NS = PSLOT + (PRES ? 1 : 0);
-  static constexpr int ZP = DIM * DIM;
-  static constexpr int NCOL = ipow(Q1, DIM - 1);  // columns per cell
-  static constexpr int ZST = ipow(M1, DIM - 1);   // stride of the column's axis
-  // the cell stride: NS NB rounded up to NCOL modulo 32, so that the column
+  static constexpr int QP = QF ? PSLOT : DIM * FI;  // the pressure row
+  // the cell stride: NS NB rounded up to NQ modulo 32, so that the q-point
   // threads of consecutive cells read consecutive banks
-  static constexpr int CS = NS * NB + ((NCOL - NS * NB) % 32 + 32) % 32;
+  static constexpr int CS = NS * NB + ((NQ - NS * NB) % 32 + 32) % 32;
   static constexpr int LDX = DIM * NL + (PRES ? NP : 0);
 };
 
-// Cells per block of the one-shot body: one column thread per (cell, column)
-// of the block's threads, in at most kCellBytes of cells, at least one.
+// Cells per block of the one-shot body: as many as kCellBytes holds, at
+// least one; four blocks of 128 threads fit on an SM.
 constexpr int kCellBytes = 56 * 1024;
 template <typename L, typename T>
 __host__ __device__ constexpr int cells_per_block() {
-  const int by_threads = kThreads / L::NCOL;
-  const int by_bytes = kCellBytes / (L::CS * (int)sizeof(T));
-  const int c = by_threads < by_bytes ? by_threads : by_bytes;
+  const int c = kCellBytes / (L::CS * (int)sizeof(T));
   return c > 1 ? c : 1;
 }
 
-// The least resident blocks per SM that ptxas keeps the one-shot body's
-// registers for (__launch_bounds__: at most 65,536 / (128 x blocks) per
-// thread), the most that each instance reaches without spilling (chip_smoke.py
-// phase 1 checks it): at 3D Q2/Q1 the float64 column with the pressure
-// needs about 163 registers (3 blocks), without it 128 (4); float32 72 (7).
-// The schedules ask for none.
-template <int DIM, int N1, bool PRES, typename T, int SCHED>
+// The least resident blocks per SM that ptxas keeps the registers for
+// (__launch_bounds__): the one-shot body's shared memory holds four, so 128
+// registers per thread; the schedules ask for none.
+template <int SCHED>
 __host__ __device__ constexpr int min_blocks() {
-  if (SCHED != kSchedOnce) return 1;
-  if (sizeof(T) == 8) return DIM == 2 ? 4 : (N1 == 4 ? 2 : (PRES ? 3 : 4));
-  return DIM == 2 ? 6 : (N1 == 4 ? 3 : 7);
+  return SCHED == kSchedOnce ? 4 : 1;
 }
 
 // The slot position of local index l of a tensor with extent N per axis.
@@ -857,14 +851,16 @@ __device__ __forceinline__ T pick(const T (&a)[K], int i) {
   return r;
 }
 
-// Evaluation along axis A < DIM - 1 of the items [I0, I1) (and the pressure,
-// PE): a thread takes one line of one item of a cell, loads its A + 1 fields
-// (no derivative, the derivatives along the axes below A) at the N1 points of
+// Evaluation along axis A of the items [I0, I1) (and the pressure, PE): a
+// thread takes one line of one item of a cell, loads its A + 1 fields (no
+// derivative, the derivatives along the axes below A) at the N1 points of
 // the line and writes back at the Q1 points V of each and D of the first.
+// After the last axis an item's slots hold its value and reference
+// gradients at the q points.
 template <typename L, int A, int I0, int I1, bool PE, typename T>
 __device__ __forceinline__ void eval_stage(T* cells, int nc, const Tables<T>& tab) {
   constexpr int DIM = L::kDim, N1 = L::kN1, Q1 = L::kQ1, P1 = L::kP1;
-  constexpr int M1 = L::M1, NB = L::NB;
+  constexpr int M1 = L::M1, NB = L::NB, FI = L::FI;
   constexpr int ST = ipow(M1, A);
   constexpr int LN = ipow(Q1, A) * ipow(N1, DIM - 1 - A);
   constexpr int LP = PE ? ipow(Q1, A) * ipow(P1, DIM - 1 - A) : 0;
@@ -874,7 +870,7 @@ __device__ __forceinline__ void eval_stage(T* cells, int nc, const Tables<T>& ta
       T* cb = cells + (t / per) * L::CS;
       const int k = t % per;
       if (k < (I1 - I0) * LN) {
-        T* f = cb + (I0 + k / LN) * DIM * NB + line_at<DIM, A, Q1, N1, M1>(k % LN);
+        T* f = cb + (I0 + k / LN) * FI * NB + line_at<DIM, A, Q1, N1, M1>(k % LN);
         T x[A + 1][N1];
 #pragma unroll
         for (int g = 0; g <= A; ++g)
@@ -910,45 +906,59 @@ __device__ __forceinline__ void eval_stage(T* cells, int nc, const Tables<T>& ta
     }
 }
 
-// Integration along axis A, 0 < A < DIM - 1 (3D: y), transposed: a thread
-// takes one line of one component of a cell, loads its A + 2 fields (no
-// derivative, the derivatives along the axes up to A) at the Q1 points of the
-// line and writes back at the N1 points V^T f_0 + D^T f_(A+1) and V^T of the
-// others; the pressure V^T.
-template <typename L, int A, bool PRES, typename T>
-__device__ __forceinline__ void integ_stage(T* cells, int nc, const Tables<T>& tab) {
+// Integration along axis A, transposed, the axes in the order x, y, z: a
+// thread takes one line of one component of a cell, loads its DIM - A + 1
+// fields (the integrand so far, then the stress entries along A, A + 1, ..)
+// at the Q1 points of the line and writes back at the N1 points V^T f_0 +
+// D^T f_1 and V^T of the others (each sum a V and a D term per point, in
+// turn); the pressure row V^T. After the last axis the lines emit the
+// outputs (emit_u, emit_p) in place of writing them back.
+template <typename L, int A, bool PRES, typename T, typename EU, typename EP>
+__device__ __forceinline__ void integ_stage(T* cells, int nc, long long c0,
+                                            const Tables<T>& tab, EU emit_u, EP emit_p) {
   constexpr int DIM = L::kDim, N1 = L::kN1, Q1 = L::kQ1, P1 = L::kP1;
-  constexpr int M1 = L::M1, NB = L::NB;
+  constexpr int M1 = L::M1, NB = L::NB, FI = L::FI;
+  constexpr bool LAST = A == DIM - 1;
+  constexpr int NF = DIM - A + 1;
   constexpr int ST = ipow(M1, A);
-  constexpr int LN = ipow(Q1, A) * ipow(N1, DIM - 1 - A);
-  constexpr int LP = PRES ? ipow(Q1, A) * ipow(P1, DIM - 1 - A) : 0;
+  constexpr int LN = ipow(N1, A) * ipow(Q1, DIM - 1 - A);
+  constexpr int LP = PRES ? ipow(P1, A) * ipow(Q1, DIM - 1 - A) : 0;
   constexpr int per = DIM * LN + LP;
   for (int t = threadIdx.x; t < nc * per; t += blockDim.x) {
-    T* cb = cells + (t / per) * L::CS;
-    const int k = t % per;
+    const int cell = t / per, k = t % per;
+    T* cb = cells + cell * L::CS;
     if (k < DIM * LN) {
-      T* f = cb + (k / LN) * DIM * NB + line_at<DIM, A, Q1, N1, M1>(k % LN);
-      T x[A + 2][Q1];
+      const int c = k / LN, ln = k % LN;
+      T* f = cb + c * FI * NB + line_at<DIM, A, N1, Q1, M1>(ln);
+      T x[NF][Q1];
 #pragma unroll
-      for (int g = 0; g < A + 2; ++g)
+      for (int g = 0; g < NF; ++g)
 #pragma unroll
         for (int q = 0; q < Q1; ++q) x[g][q] = f[g * NB + q * ST];
 #pragma unroll
       for (int i = 0; i < N1; ++i) {
         T v = T(0);
 #pragma unroll
-        for (int q = 0; q < Q1; ++q) v += tab.V[q * N1 + i] * x[0][q] + tab.D[q * N1 + i] * x[A + 1][q];
-        f[i * ST] = v;
+        for (int q = 0; q < Q1; ++q) {
+          v += tab.V[q * N1 + i] * x[0][q];
+          v += tab.D[q * N1 + i] * x[1][q];
+        }
+        if constexpr (LAST) {
+          emit_u(c0 + cell, c, ln + ipow(N1, DIM - 1) * i, v);
+        } else {
+          f[i * ST] = v;
 #pragma unroll
-        for (int g = 1; g <= A; ++g) {
-          T w = T(0);
+          for (int g = 2; g < NF; ++g) {
+            T w = T(0);
 #pragma unroll
-          for (int q = 0; q < Q1; ++q) w += tab.V[q * N1 + i] * x[g][q];
-          f[g * NB + i * ST] = w;
+            for (int q = 0; q < Q1; ++q) w += tab.V[q * N1 + i] * x[g][q];
+            f[(g - 1) * NB + i * ST] = w;
+          }
         }
       }
     } else {
-      T* f = cb + L::ZP * NB + line_at<DIM, A, Q1, P1, M1>(k - DIM * LN);
+      const int ln = k - DIM * LN;
+      T* f = cb + L::QP * NB + line_at<DIM, A, P1, Q1, M1>(ln);
       T x[Q1];
 #pragma unroll
       for (int q = 0; q < Q1; ++q) x[q] = f[q * ST];
@@ -957,7 +967,11 @@ __device__ __forceinline__ void integ_stage(T* cells, int nc, const Tables<T>& t
         T v = T(0);
 #pragma unroll
         for (int q = 0; q < Q1; ++q) v += tab.Vp[q * P1 + i] * x[q];
-        f[i * ST] = v;
+        if constexpr (LAST) {
+          emit_p(c0 + cell, ln + ipow(P1, DIM - 1) * i, v);
+        } else {
+          f[i * ST] = v;
+        }
       }
     }
   }
@@ -965,7 +979,9 @@ __device__ __forceinline__ void integ_stage(T* cells, int nc, const Tables<T>& t
 
 // The one-shot body: the group of cells blockIdx.x of CPB cells (the last
 // one may be shorter) in `cells`, with the matrix M89 of kPhMDot in sM. See
-// the top for the stages; the phase mask PH drops phases as kPh* says.
+// the top for the stages; the phase mask PH drops phases as kPh* says. The
+// arithmetic of every output, the order of its sums included, is the staged
+// body's.
 template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM, int DST,
           typename T, int PH>
 __device__ __forceinline__ void cell_lines(
@@ -977,11 +993,10 @@ __device__ __forceinline__ void cell_lines(
     long long n_cells, const Tables<T>& tab, const Scalars<T>& sc, const ProbeArgs<T>& pa) {
   constexpr bool QF = STREAM == kStreamQFields;
   using L = Lines<DIM, N1, Q1, P1, PRES, QF>;
-  constexpr int M1 = L::M1, NB = L::NB, NL = L::NL, NQ = L::NQ, NP = L::NP;
-  constexpr int NEV = L::NEV, PSLOT = L::PSLOT, ZP = L::ZP, NCOL = L::NCOL, ZST = L::ZST;
-  constexpr int CS = L::CS, LDX = L::LDX;
+  constexpr int M1 = L::M1, NB = L::NB, NL = L::NL, NQ = L::NQ, NP = L::NP, FI = L::FI;
+  constexpr int PSLOT = L::PSLOT, QP = L::QP, CS = L::CS, LDX = L::LDX;
   constexpr int CPB = cells_per_block<L, T>();
-  constexpr int NI = 2 * DIM, FI = DIM + 1;
+  constexpr int NI = 2 * DIM;
   constexpr int SLD = QF ? DIM * FI * NQ : DIM * NL;  // stream row length
   constexpr bool LAT = SRC == kSrcLattice;
   constexpr bool MDOT = (PH & kPhMDot) != 0;
@@ -991,7 +1006,7 @@ __device__ __forceinline__ void cell_lines(
   constexpr bool SCATTER = (PH & kPhScatter) != 0;
   // the evaluated items [I0, I1) and whether the pressure is evaluated
   constexpr int I0 = (PH & kPhEvalU) ? 0 : DIM;
-  constexpr int I1 = (PH & kPhEvalUs) ? NEV : DIM;
+  constexpr int I1 = (PH & kPhEvalUs) ? L::NEV : DIM;
   constexpr bool PE = PRES && (PH & kPhEvalU);
   static_assert(PH == kPhAll || (DIM == 3 && N1 == 3 && Q1 == 3 && P1 == 2 && PRES &&
                                  SRC == kSrcTable && !QF && DST == kOutScatter),
@@ -1030,19 +1045,19 @@ __device__ __forceinline__ void cell_lines(
   // ---- gather into the items' first slots and the pressure slot ----------
   if constexpr (SRC == kSrcBlock) {
     // x row = [u_0 .. u_(DIM-1) | p], the u* dof stream [u*_0 ..] (a q-field
-    // stream is read by the column)
+    // stream is read by the q-point stage)
     constexpr int per = LDX + (QF ? 0 : SLD);
     for (int t = tid; t < nc * per; t += nth) {
       const int cell = t / per, k = t % per;
       const long long e = c0 + cell;
       T* cb = cells + cell * CS;
       if (k < DIM * NL) {
-        cb[(k / NL) * DIM * NB + lpos<DIM, N1, M1>(k % NL)] = u[e * LDX + k];
+        cb[(k / NL) * FI * NB + lpos<DIM, N1, M1>(k % NL)] = u[e * LDX + k];
       } else if (k < LDX) {
         cb[PSLOT * NB + lpos<DIM, P1, M1>(k - DIM * NL)] = u[e * LDX + k];
       } else {
         const int j = k - LDX;
-        cb[(DIM + j / NL) * DIM * NB + lpos<DIM, N1, M1>(j % NL)] = us[e * SLD + j];
+        cb[(DIM + j / NL) * FI * NB + lpos<DIM, N1, M1>(j % NL)] = us[e * SLD + j];
       }
     }
   } else if constexpr (!GATHER) {
@@ -1062,7 +1077,7 @@ __device__ __forceinline__ void cell_lines(
         } else {
           v = us[(item - DIM) * n_u + dof];
         }
-        for (int l = 0; l < NL; ++l) cb[item * DIM * NB + lpos<DIM, N1, M1>(l)] = v * T(l + 1);
+        for (int l = 0; l < NL; ++l) cb[item * FI * NB + lpos<DIM, N1, M1>(l)] = v * T(l + 1);
       } else {
         const long long dof = cell_p[e * NP];
         const T v = (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
@@ -1071,9 +1086,10 @@ __device__ __forceinline__ void cell_lines(
     }
   } else {
     // nodal u (constrained entries read 0), u* (plain), p (masked) at the
-    // cell tables' addresses, the lattice's (LAT) or contiguous ones (kPhContig:
-    // cell e, local l reads entry (e n_loc + l) mod n); consecutive threads
-    // take one local dof of consecutive cells, each thread every item of it
+    // cell tables' addresses, the lattice's (LAT) or contiguous ones
+    // (kPhContig: cell e, local l reads entry (e n_loc + l) mod n);
+    // consecutive threads take one local dof of consecutive cells, each
+    // thread every item of it
     constexpr bool CONTIG = (PH & kPhContig) != 0;
     constexpr int NW = NL + (PRES ? NP : 0);
     for (int t = tid; t < CPB * NW; t += nth) {
@@ -1094,8 +1110,8 @@ __device__ __forceinline__ void cell_lines(
 #pragma unroll
         for (int c = 0; c < DIM; ++c) {
           const long long g = c * n_u + dof;
-          cb[c * DIM * NB + at] = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
-          cb[(DIM + c) * DIM * NB + at] = us[g];
+          cb[c * FI * NB + at] = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
+          cb[(DIM + c) * FI * NB + at] = us[g];
         }
       } else {
         const int l = k - NL;
@@ -1121,7 +1137,7 @@ __device__ __forceinline__ void cell_lines(
       const T* cb = cells + cell * CS;
       T acc = T(0);
       for (int j = 0; j < DIM * NL; ++j)
-        acc += sM[k * LDX + j] * cb[(j / NL) * DIM * NB + lpos<DIM, N1, M1>(j % NL)];
+        acc += sM[k * LDX + j] * cb[(j / NL) * FI * NB + lpos<DIM, N1, M1>(j % NL)];
       for (int j = 0; j < NP; ++j)
         acc += sM[k * LDX + DIM * NL + j] * cb[PSLOT * NB + lpos<DIM, P1, M1>(j)];
       if (k < DIM * NL) {
@@ -1133,188 +1149,102 @@ __device__ __forceinline__ void cell_lines(
     return;
   }
 
-  // ---- evaluation along x (and y in 3D); items not evaluated keep their
-  //      dofs -------------------------------------------------------------------
+  // ---- evaluation along x, y (, z); items not evaluated keep their dofs ----
   eval_stage<L, 0, I0, I1, PE>(cells, nc, tab);
   __syncthreads();
+  eval_stage<L, 1, I0, I1, PE>(cells, nc, tab);
+  __syncthreads();
   if constexpr (DIM == 3) {
-    eval_stage<L, 1, I0, I1, PE>(cells, nc, tab);
+    eval_stage<L, 2, I0, I1, PE>(cells, nc, tab);
     __syncthreads();
   }
 
-  // ---- the column: evaluation along the last axis, the q-point terms
-  //      (NavierStokesOperator._q_point_terms, "vmult") and integration along
-  //      the last axis, one thread per (cell, q_x[, q_y]) -----------------------
-  for (int t = tid; t < nc * NCOL; t += nth) {
-    const int cell = t / NCOL, col = t % NCOL;
-    const int qx = col % Q1, qy = col / Q1;
+  // ---- q-point terms (NavierStokesOperator._q_point_terms, "vmult"), one
+  //      thread per (cell, q): component c's value_c and stress row st_cd
+  //      (JxW and 1/h_d folded in) over u item c's slots, prow into QP (the
+  //      q-field stream's u* gradients are physical already) ----------------
+  for (int t = tid; t < nc * NQ; t += nth) {
+    const int cell = t / NQ, q = t % NQ;
     const long long e = c0 + cell;
     T* const cb = cells + cell * CS;
-    const int at = qy * M1 + qx;  // the column's first position (qy = 0 in 2D)
-    const volatile T* vb = cb + at;
-    T wxy = pick<Q1>(tab.w, qx) * tab.vol;
-    if constexpr (DIM == 3) wxy *= pick<Q1>(tab.w, qy);
-    const bool variable = rho != nullptr || mu != nullptr || damp != nullptr;
-    T Z[DIM][DIM][N1], Zp[P1];  // the integration along the column
-    T keep[DIM + 1][Q1];        // dropped integration: value_c and prow
-#pragma unroll
-    for (int c = 0; c < DIM; ++c)
-#pragma unroll
-      for (int f = 0; f < DIM; ++f)
-#pragma unroll
-        for (int k = 0; k < N1; ++k) Z[c][f][k] = T(0);
-#pragma unroll
-    for (int k = 0; k < P1; ++k) Zp[k] = T(0);
-#pragma unroll
-    for (int qz = 0; qz < Q1; ++qz) {
-      const int q = col + NCOL * qz;
-      // the value and reference gradients of item i at q: from its z-lines
-      // (evaluated), its dof q (not evaluated; N1 == Q1), or, for u* with the
-      // q-field stream, the stream's value and physical gradients
-      auto fields = [&](int i, T(&f)[FI]) {
-        if (QF && i >= DIM) {
-#pragma unroll
-          for (int g = 0; g < FI; ++g) f[g] = us[e * SLD + ((i - DIM) * FI + g) * NQ + q];
-        } else if (i >= I0 && i < I1) {
-          T x[DIM][N1];
-#pragma unroll
-          for (int g = 0; g < DIM; ++g)
-#pragma unroll
-            for (int k = 0; k < N1; ++k) x[g][k] = vb[(i * DIM + g) * NB + k * ZST];
-#pragma unroll
-          for (int g = 0; g < FI; ++g) f[g] = T(0);
-#pragma unroll
-          for (int k = 0; k < N1; ++k) {
-            const T vk = tab.V[qz * N1 + k];
-            f[0] += vk * x[0][k];
-#pragma unroll
-            for (int b = 0; b + 1 < DIM; ++b) f[1 + b] += vk * x[1 + b][k];
-            f[DIM] += tab.D[qz * N1 + k] * x[0][k];
-          }
-        } else {
-          const T v = vb[i * DIM * NB + qz * ZST];
-#pragma unroll
-          for (int g = 0; g < FI; ++g) f[g] = v;
-        }
-      };
-      T uf[DIM][FI];  // the u items
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) fields(c, uf[c]);
-      T pq = T(0);
-      if constexpr (PE) {
-#pragma unroll
-        for (int k = 0; k < P1; ++k) pq += tab.Vp[qz * P1 + k] * vb[PSLOT * NB + k * ZST];
-      } else if constexpr (PRES) {
-        // dropped evaluation: the pressure field holds its dofs (q mod NP)
-        pq = cb[PSLOT * NB + lpos<DIM, P1, M1>(q % NP)];
-      }
-
-      T val[DIM], st[DIM][DIM], prow;
-      if constexpr (QPOINT) {
-        const T jxw = wxy * tab.w[qz];
-        T uv[DIM], ug[DIM][DIM], div = T(0);
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) {
-          uv[c] = uf[c][0];
-#pragma unroll
-          for (int d = 0; d < DIM; ++d) ug[c][d] = uf[c][1 + d] * tab.inv_h[d];
-          div += ug[c][c];
-        }
-        // u*: its values, div u*, and sum_d u_d d_d u*_c, each gradient row
-        // folded in as its item is evaluated (the registers of the column)
-        T sv[DIM], su[DIM], div_s = T(0);
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) {
-          T f[FI];
-          fields(DIM + c, f);
-          sv[c] = f[0];
-          su[c] = T(0);
-#pragma unroll
-          for (int d = 0; d < DIM; ++d) {
-            const T g = QF ? f[1 + d] : f[1 + d] * tab.inv_h[d];
-            su[c] += uv[d] * g;
-            if (d == c) div_s += g;
-          }
-        }
-        const long long qi = e * NQ + q;
-        const T r_q = rho != nullptr ? rho[qi] : sc.rho0;
-        const T m_q = mu != nullptr ? mu[qi] : sc.mu0;
-        const T d_q = damp != nullptr ? damp[qi] : sc.damp0;
-        const T tmu = sc.tau1 * m_q;
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) {
-          T conv = sc.beta * (div * sv[c] + div_s * uv[c]) + su[c];
-#pragma unroll
-          for (int d = 0; d < DIM; ++d) conv += sv[d] * ug[c][d];
-          const T value = variable
-              ? r_q * (sc.weight * uv[c] + sc.tau1 * conv) - d_q * uv[c]
-              : (sc.rho0 * sc.weight - sc.damp0) * uv[c] + sc.tau1 * sc.rho0 * conv;
-          val[c] = value * jxw;
-#pragma unroll
-          for (int d = 0; d < DIM; ++d) {
-            T s = tmu * (ug[c][d] + ug[d][c]);
-            if (c == d) s += sc.tgd * div - pq;
-            st[c][d] = s * jxw * tab.inv_h[d];
-          }
-        }
-        prow = -div * jxw;
-      } else {
-        // dropped q-point terms: value_c = u_c, stress_cd = d_d u*_c (the
-        // fields as they are), prow = p
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) {
-          T f[FI];
-          fields(DIM + c, f);
-          val[c] = uf[c][0];
-#pragma unroll
-          for (int d = 0; d < DIM; ++d) st[c][d] = f[1 + d];
-        }
-        prow = pq;
-      }
-
-      if constexpr (INTEG) {
-        // Z_c0 += V value_c + D st_c,last; Z_c(1+b) += V st_cb (b < DIM - 1)
-#pragma unroll
-        for (int k = 0; k < N1; ++k) {
-          const T vk = tab.V[qz * N1 + k], dk = tab.D[qz * N1 + k];
-#pragma unroll
-          for (int c = 0; c < DIM; ++c) {
-            Z[c][0][k] += vk * val[c] + dk * st[c][DIM - 1];
-#pragma unroll
-            for (int b = 0; b + 1 < DIM; ++b) Z[c][1 + b][k] += vk * st[c][b];
-          }
-        }
-        if constexpr (PRES) {
-#pragma unroll
-          for (int k = 0; k < P1; ++k) Zp[k] += tab.Vp[qz * P1 + k] * prow;
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) keep[c][qz] = val[c];
-        keep[DIM][qz] = prow;
-      }
+    const int at = lpos<DIM, Q1, M1>(q);
+    const int qx = q % Q1, qy = (q / Q1) % Q1, qz = q / (Q1 * Q1);
+    // field f of item i at q: evaluated, its dof q (not evaluated; N1 ==
+    // Q1), or the q-field stream's
+    auto field = [&](int i, int f) -> T {
+      if (QF && i >= DIM) return us[e * SLD + ((i - DIM) * FI + f) * NQ + q];
+      return cb[(i * FI + (i >= I0 && i < I1 ? f : 0)) * NB + at];
+    };
+    T pq = T(0);
+    if constexpr (PE) {
+      pq = cb[PSLOT * NB + at];
+    } else if constexpr (PRES) {
+      // dropped evaluation: the pressure field holds its dofs (q mod NP)
+      pq = cb[PSLOT * NB + lpos<DIM, P1, M1>(q % NP)];
     }
-    // the column's results over its own positions, which no other thread
-    // of this stage reads
-    if constexpr (INTEG) {
+    T val[DIM], st[DIM][DIM], prow;
+    if constexpr (QPOINT) {
+      T jxw = pick<Q1>(tab.w, qx) * pick<Q1>(tab.w, qy) * tab.vol;
+      if (DIM == 3) jxw *= pick<Q1>(tab.w, qz);
+      T uv[DIM], sv[DIM], ug[DIM][DIM], sg[DIM][DIM];
 #pragma unroll
-      for (int c = 0; c < DIM; ++c)
+      for (int c = 0; c < DIM; ++c) {
+        uv[c] = field(c, 0);
+        sv[c] = field(DIM + c, 0);
 #pragma unroll
-        for (int f = 0; f < DIM; ++f)
-#pragma unroll
-          for (int k = 0; k < N1; ++k) cb[(c * DIM + f) * NB + at + k * ZST] = Z[c][f][k];
-      if constexpr (PRES) {
-#pragma unroll
-        for (int k = 0; k < P1; ++k) cb[ZP * NB + at + k * ZST] = Zp[k];
+        for (int d = 0; d < DIM; ++d) {
+          ug[c][d] = field(c, 1 + d) * tab.inv_h[d];
+          sg[c][d] = field(DIM + c, 1 + d) * (QF ? T(1) : tab.inv_h[d]);
+        }
       }
+      T div = T(0), div_s = T(0);
+#pragma unroll
+      for (int a = 0; a < DIM; ++a) {
+        div += ug[a][a];
+        div_s += sg[a][a];
+      }
+      const bool variable = rho != nullptr || mu != nullptr || damp != nullptr;
+      const long long qi = e * NQ + q;
+      const T r_q = rho != nullptr ? rho[qi] : sc.rho0;
+      const T m_q = mu != nullptr ? mu[qi] : sc.mu0;
+      const T d_q = damp != nullptr ? damp[qi] : sc.damp0;
+      const T tmu = sc.tau1 * m_q;
+#pragma unroll
+      for (int c = 0; c < DIM; ++c) {
+        T conv = sc.beta * (div * sv[c] + div_s * uv[c]);
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) conv += sv[d] * ug[c][d] + uv[d] * sg[c][d];
+        const T value = variable
+            ? r_q * (sc.weight * uv[c] + sc.tau1 * conv) - d_q * uv[c]
+            : (sc.rho0 * sc.weight - sc.damp0) * uv[c] + sc.tau1 * sc.rho0 * conv;
+        val[c] = value * jxw;
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) {
+          T s = tmu * (ug[c][d] + ug[d][c]);
+          if (c == d) s += sc.tgd * div - pq;
+          st[c][d] = s * jxw * tab.inv_h[d];
+        }
+      }
+      prow = -div * jxw;
     } else {
+      // dropped q-point terms: value_c = u_c, stress_cd = d_d u*_c (the
+      // fields as they are), prow = p
 #pragma unroll
-      for (int qz = 0; qz < Q1; ++qz) {
+      for (int c = 0; c < DIM; ++c) {
+        val[c] = field(c, 0);
 #pragma unroll
-        for (int c = 0; c < DIM; ++c) cb[c * DIM * NB + at + qz * ZST] = keep[c][qz];
-        if constexpr (PRES) cb[ZP * NB + at + qz * ZST] = keep[DIM][qz];
+        for (int d = 0; d < DIM; ++d) st[c][d] = field(DIM + c, 1 + d);
       }
+      prow = pq;
     }
+    // over this point's own positions, read above by this thread alone
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) {
+      cb[c * FI * NB + at] = val[c];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) cb[(c * FI + 1 + d) * NB + at] = st[c][d];
+    }
+    if constexpr (PRES) cb[QP * NB + at] = prow;
   }
   __syncthreads();
 
@@ -1325,58 +1255,22 @@ __device__ __forceinline__ void cell_lines(
       const int cell = t / LDX, k = t % LDX;
       const T* cb = cells + cell * CS;
       if (k < DIM * NL) {
-        emit_u(c0 + cell, k / NL, k % NL, cb[(k / NL) * DIM * NB + lpos<DIM, N1, M1>(k % NL)]);
+        emit_u(c0 + cell, k / NL, k % NL, cb[(k / NL) * FI * NB + lpos<DIM, Q1, M1>(k % NL)]);
       } else {
-        emit_p(c0 + cell, k - DIM * NL, cb[ZP * NB + lpos<DIM, Q1, M1>(k - DIM * NL)]);
+        emit_p(c0 + cell, k - DIM * NL, cb[QP * NB + lpos<DIM, Q1, M1>(k - DIM * NL)]);
       }
     }
     return;
   }
 
-  // ---- integration along y (3D), then along x, whose lines emit the
-  //      outputs --------------------------------------------------------------
+  // ---- integration along x, y (, z), the last axis' lines emitting the
+  //      outputs ---------------------------------------------------------------
+  integ_stage<L, 0, PRES>(cells, nc, c0, tab, emit_u, emit_p);
+  __syncthreads();
+  integ_stage<L, 1, PRES>(cells, nc, c0, tab, emit_u, emit_p);
   if constexpr (DIM == 3) {
-    integ_stage<L, 1, PRES>(cells, nc, tab);
     __syncthreads();
-  }
-  {
-    constexpr int LN = ipow(N1, DIM - 1), LP = PRES ? ipow(P1, DIM - 1) : 0;
-    constexpr int per = DIM * LN + LP;
-    for (int t = tid; t < nc * per; t += nth) {
-      const int cell = t / per, k = t % per;
-      const long long e = c0 + cell;
-      const T* cb = cells + cell * CS;
-      if (k < DIM * LN) {
-        const int c = k / LN, ln = k % LN;
-        const T* f = cb + c * DIM * NB + line_at<DIM, 0, Q1, N1, M1>(ln);
-        T x0[Q1], x1[Q1];
-#pragma unroll
-        for (int q = 0; q < Q1; ++q) {
-          x0[q] = f[q];
-          x1[q] = f[NB + q];
-        }
-#pragma unroll
-        for (int i = 0; i < N1; ++i) {
-          T v = T(0);
-#pragma unroll
-          for (int q = 0; q < Q1; ++q) v += tab.V[q * N1 + i] * x0[q] + tab.D[q * N1 + i] * x1[q];
-          emit_u(e, c, i + N1 * ln, v);
-        }
-      } else {
-        const int ln = k - DIM * LN;
-        const T* f = cb + ZP * NB + line_at<DIM, 0, Q1, P1, M1>(ln);
-        T x[Q1];
-#pragma unroll
-        for (int q = 0; q < Q1; ++q) x[q] = f[q];
-#pragma unroll
-        for (int i = 0; i < P1; ++i) {
-          T v = T(0);
-#pragma unroll
-          for (int q = 0; q < Q1; ++q) v += tab.Vp[q * P1 + i] * x[q];
-          emit_p(e, i + P1 * ln, v);
-        }
-      }
-    }
+    integ_stage<L, 2, PRES>(cells, nc, c0, tab, emit_u, emit_p);
   }
 }
 
@@ -1395,7 +1289,7 @@ __device__ __forceinline__ void cell_lines(
 // schedules run cell_staged with cpb cells per group.
 template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM,
           int DST, typename T, int PH = kPhAll, int SCHED = kSchedOnce>
-__global__ void __launch_bounds__(kThreads, (min_blocks<DIM, N1, PRES, T, SCHED>()))
+__global__ void __launch_bounds__(kThreads, (min_blocks<SCHED>()))
 coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ us, const int32_t* __restrict__ cell_u,
                     const int32_t* __restrict__ cell_p,

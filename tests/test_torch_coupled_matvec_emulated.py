@@ -252,13 +252,13 @@ def test_emulated_residency_counts_each_schedules_shared_memory(emulated):
     values (rowdma, pipe), and the pipe's slab (2 segments of 54 velocity and
     4 pressure run slots, each the 16-byte aligned size of a run plus 15
     bytes) with its mbarrier and tables (8 + 2 x 58 x 8 + CPB x 8 bytes, to
-    16). "full" (the one-shot body of K1's instance): 13 cells (float64) or
-    14 (float32) of 521 values (test_emulated_geometry_of_production_instances).
+    16). "full" (the one-shot body of K1's instance): 10 cells (float64) or
+    20 (float32) of 699 values (test_emulated_geometry_of_production_instances).
     The emulated card holds one block per SM."""
     expect = {
-        torch.float64: {"full": 13 * 521 * 8, "rowdma": 33472, "pipe": 33472 + 2 * 3648 + 960,
+        torch.float64: {"full": 10 * 699 * 8, "rowdma": 33472, "pipe": 33472 + 2 * 3648 + 960,
                         "unroll2": 55680},
-        torch.float32: {"full": 14 * 521 * 4, "rowdma": 33280, "pipe": 33280 + 2 * 3648 + 976,
+        torch.float32: {"full": 20 * 699 * 4, "rowdma": 33280, "pipe": 33280 + 2 * 3648 + 976,
                         "unroll2": 55488},
     }
     for dtype, names in expect.items():
@@ -267,34 +267,33 @@ def test_emulated_residency_counts_each_schedules_shared_memory(emulated):
 
 
 def _slots(dim, degree, mode, pres):
-    """The one-shot body's slots per cell and columns per cell: 2 dim items
-    (dim with the q-field stream) of dim slots, the pressure's, of
-    (degree + 1)^dim values."""
+    """The one-shot body's slots per cell, values per slot and q points per
+    cell: 2 dim items (dim with the q-field stream) of dim + 1 slots, the
+    pressure's, each of (degree + 1)^dim values."""
     items = dim if mode == cm.MODE_CELLS_QFIELDS else 2 * dim
-    return items * dim + (1 if pres else 0), (degree + 1) ** dim, (degree + 1) ** (dim - 1)
+    n = (degree + 1) ** dim
+    return items * (dim + 1) + (1 if pres else 0), n, n
 
 
 def test_emulated_geometry_of_production_instances(emulated):
     """The geometry entry's cells per block and shared memory per block of
-    every production instance. Each cell holds its slots (_slots), the
-    cell stride padded up to the columns per cell modulo 32; CPB is the
-    least of 128 // columns and 56 KB // the cell's bytes. Worked out by
-    hand: 3D Q2/Q1 with pressure 19 x 27 = 513 values, padded to 521 (= 9
-    mod 32): 13 float64 cells of 4,168 B, 14 float32 (128 // 9); velocity
-    only 18 slots, 489 values, 14 cells; the q-field stream 10 slots, 297
-    values; 2D Q2/Q1 (4 items of 2 slots) 9 x 9 = 81, padded to 99 (= 3
-    mod 32), 42 cells (128 // 3);
-    3D Q3/Q2 19 x 64 = 1,216, padded to 1,232 (= 16 mod 32), 5 float64
-    cells and 8 float32 (128 // 16). The emulated card holds one block per
-    SM."""
+    every production instance. Each cell holds its slots (_slots), the cell
+    stride padded up to the q points per cell modulo 32; CPB is 56 KB // the
+    cell's bytes, at least 1. Worked out by hand: 3D Q2/Q1 with pressure 25
+    x 27 = 675 values, padded to 699 (= 27 mod 32): 10 float64 cells of
+    5,592 B, 20 float32; velocity only 24 slots, 667 values, 10 cells; the
+    q-field stream 13 slots, 379 values, 18 cells; 2D Q2/Q1 (4 items of 3
+    slots) 13 x 9 = 117, padded to 137 (= 9 mod 32), 52 cells; 3D Q3/Q2 25 x
+    64 = 1,600 (= 0 mod 32), 4 float64 cells and 8 float32. The emulated card
+    holds one block per SM."""
     by_hand = {
-        (torch.float64, cm.MODE_NODAL, True, 3, 2): (13, 13 * 521 * 8),
-        (torch.float32, cm.MODE_NODAL, True, 3, 2): (14, 14 * 521 * 4),
-        (torch.float64, cm.MODE_NODAL, False, 3, 2): (14, 14 * 489 * 8),
-        (torch.float64, cm.MODE_CELLS_QFIELDS, True, 3, 2): (14, 14 * 297 * 8),
-        (torch.float64, cm.MODE_GATHER, True, 2, 2): (42, 42 * 99 * 8),
-        (torch.float64, cm.MODE_CELLS, True, 3, 3): (5, 5 * 1232 * 8),
-        (torch.float32, cm.MODE_CELLS, True, 3, 3): (8, 8 * 1232 * 4),
+        (torch.float64, cm.MODE_NODAL, True, 3, 2): (10, 10 * 699 * 8),
+        (torch.float32, cm.MODE_NODAL, True, 3, 2): (20, 20 * 699 * 4),
+        (torch.float64, cm.MODE_NODAL, False, 3, 2): (10, 10 * 667 * 8),
+        (torch.float64, cm.MODE_CELLS_QFIELDS, True, 3, 2): (18, 18 * 379 * 8),
+        (torch.float64, cm.MODE_GATHER, True, 2, 2): (52, 52 * 137 * 8),
+        (torch.float64, cm.MODE_CELLS, True, 3, 3): (4, 4 * 1600 * 8),
+        (torch.float32, cm.MODE_CELLS, True, 3, 3): (8, 8 * 1600 * 4),
     }
     for (dtype, mode, pres, dim, degree), (cpb, smem) in by_hand.items():
         assert cm.cell_geometry(dtype, mode, pres, dim, degree) == {
@@ -303,10 +302,10 @@ def test_emulated_geometry_of_production_instances(emulated):
         for _, mode, pres in cm.PRODUCTION_ENTRIES:
             for dtype in (torch.float64, torch.float32):
                 g = cm.cell_geometry(dtype, mode, pres, dim, degree)
-                slots, nb, ncol = _slots(dim, degree, mode, pres)
-                stride = slots * nb + (ncol - slots * nb) % 32
+                slots, nb, nq = _slots(dim, degree, mode, pres)
+                stride = slots * nb + (nq - slots * nb) % 32
                 size = 8 if dtype == torch.float64 else 4
-                assert g["cpb"] == max(1, min(128 // ncol, 56 * 1024 // (stride * size)))
+                assert g["cpb"] == max(1, 56 * 1024 // (stride * size))
                 assert g["smem"] == g["cpb"] * stride * size
 
 

@@ -1057,6 +1057,13 @@ def main() -> int:
     from adaflo_tpu_torch.ops import coupled_matvec as cm
     from adaflo_tpu_torch.ops import probe_kernels as pk
 
+    # every kernel is built from the checkout's sources in this run, so that
+    # phase 1 reads this build's ptxas report (a library left by an earlier
+    # run of the same sources would be loaded without one)
+    from adaflo_tpu_torch.ops import build as kb
+
+    for src, name in ((K1_SOURCE, "coupled_matvec"), (SF_SOURCE, "probe_kernels")):
+        (kb.BUILD_DIR / f"lib{name}_{kb.source_tag(ROOT / src)}.so").unlink(missing_ok=True)
     t0 = time.perf_counter()
     libs = {"coupled_matvec": cm, "probe_kernels": pk}
     with ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, together

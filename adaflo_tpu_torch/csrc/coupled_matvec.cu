@@ -79,7 +79,9 @@
 // store the cell block. Seven barriers per group of cells (3D), five in 2D.
 // Shared memory sets the blocks per SM: four, so 40 float64 and 80 float32
 // cells per SM at 3D Q2/Q1 (__launch_bounds__ keeps the registers to 128).
-// The order of every sum is the staged body's, integration x first, so the
+// The order of every sum is the staged body's, integration x first, and the
+// stress diagonal's roundings are spelled out (fma_rn, mul_rn: left to the
+// compiler, the velocity-only instances fused the other product), so the
 // one-shot body's results are the staged body's bit for bit wherever no
 // atomicAdd reorders them (K3 and K4): fusing the z evaluation, the q-point
 // terms and the z integration in registers ran 10 % faster but reordered
@@ -146,6 +148,9 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#ifdef ADAFLO_EMULATED
+#include <cmath>
+#endif
 
 #include "hopper.cuh"
 
@@ -841,6 +846,27 @@ __device__ __forceinline__ int line_at(int L) {
   return at;
 }
 
+// x y + z with one rounding, and x y rounded on its own: where the order of
+// a result's roundings must not be left to the compiler's contraction
+template <typename T>
+__device__ __forceinline__ T fma_rn(T x, T y, T z) {
+#ifdef ADAFLO_EMULATED
+  return std::fma(x, y, z);
+#else
+  if constexpr (sizeof(T) == 8) return __fma_rn(x, y, z);
+  else return __fmaf_rn(x, y, z);
+#endif
+}
+template <typename T>
+__device__ __forceinline__ T mul_rn(T x, T y) {
+#ifdef ADAFLO_EMULATED
+  return x * y;
+#else
+  if constexpr (sizeof(T) == 8) return __dmul_rn(x, y);
+  else return __fmul_rn(x, y);
+#endif
+}
+
 // a[i] for a small runtime i < N, read with compile-time indices
 template <int N, typename T, int K>
 __device__ __forceinline__ T pick(const T (&a)[K], int i) {
@@ -1209,6 +1235,9 @@ __device__ __forceinline__ void cell_lines(
       const T m_q = mu != nullptr ? mu[qi] : sc.mu0;
       const T d_q = damp != nullptr ? damp[qi] : sc.damp0;
       const T tmu = sc.tau1 * m_q;
+      // the diagonal's grad-div and pressure term, rounded on its own and
+      // fused into the viscous term, as the staged body's sums are rounded
+      const T diag = mul_rn(sc.tgd, div) - pq;
 #pragma unroll
       for (int c = 0; c < DIM; ++c) {
         T conv = sc.beta * (div * sv[c] + div_s * uv[c]);
@@ -1220,8 +1249,8 @@ __device__ __forceinline__ void cell_lines(
         val[c] = value * jxw;
 #pragma unroll
         for (int d = 0; d < DIM; ++d) {
-          T s = tmu * (ug[c][d] + ug[d][c]);
-          if (c == d) s += sc.tgd * div - pq;
+          const T sum = ug[c][d] + ug[d][c];
+          const T s = c == d ? fma_rn(tmu, sum, diag) : tmu * sum;
           st[c][d] = s * jxw * tab.inv_h[d];
         }
       }

@@ -81,7 +81,7 @@
 // cells per SM at 3D Q2/Q1 (__launch_bounds__ keeps the registers to 128).
 // The order of every sum is the staged body's, integration x first, and the
 // stress diagonal's roundings are spelled out (fma_rn, mul_rn: left to the
-// compiler, the velocity-only instances fused the other product), so the
+// compiler, they follow the code around them), so the
 // one-shot body's results are the staged body's bit for bit wherever no
 // atomicAdd reorders them (K3 and K4): fusing the z evaluation, the q-point
 // terms and the z integration in registers ran 10 % faster but reordered
@@ -1235,9 +1235,10 @@ __device__ __forceinline__ void cell_lines(
       const T m_q = mu != nullptr ? mu[qi] : sc.mu0;
       const T d_q = damp != nullptr ? damp[qi] : sc.damp0;
       const T tmu = sc.tau1 * m_q;
-      // the diagonal's grad-div and pressure term, rounded on its own and
-      // fused into the viscous term, as the staged body's sums are rounded
-      const T diag = mul_rn(sc.tgd, div) - pq;
+      // the diagonal's grad-div and pressure term, in one rounding (tgd div
+      // alone without a pressure), fused into the viscous term: the
+      // roundings of the staged body as compiled
+      const T diag = PRES ? fma_rn(sc.tgd, div, -pq) : mul_rn(sc.tgd, div);
 #pragma unroll
       for (int c = 0; c < DIM; ++c) {
         T conv = sc.beta * (div * sv[c] + div_s * uv[c]);

@@ -28,7 +28,7 @@ Phases:
      issued back to back, and the median of 20 single applies each waited
      for (adaflo_tpu_torch.scripts.time_ms); K1 and K3-velocity at 16^3 also
      in a CUDA graph of 20 applies (graph_ms: the device time that the
-     back-to-back figure hides behind the host's issue);
+     back-to-back figure hides behind the host's launch rate);
      - the nodal entries (K1 coupled_apply, K2 coupled_apply_velocity) at
        the 16^3-cell lattice and at the 48^3-cell Q2/Q1 lattice (2,855,668
        dofs), with Dirichlet boundary rows and a pressure-fix dof, in every
@@ -125,8 +125,8 @@ K8_REPLACES = "scripts/probe_sf.py:142"  # run_copies kernel
 K9_REPLACES = "scripts/probe_sf.py:169"  # run_mxu kernel
 K10_REPLACES = "scripts/probe_sf.py:295"  # run_sfeval kernel
 # the main-path instances at 16^3 whose device time phase 2 also takes in
-# a CUDA graph of 20 applies (graph_ms): back to back, the host's issue of
-# an apply hides it
+# a CUDA graph of 20 applies (graph_ms): back to back, the host's launch
+# rate hides it
 GRAPH_TIMED = (
     "3D Q2/Q1 16^3 f64 const+ids",
     "coupled_apply_cells_velocity 3D Q2/Q1 16^3 periodic f64",

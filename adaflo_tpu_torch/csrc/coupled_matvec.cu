@@ -95,24 +95,31 @@
 // probe's three schedules overlap them inside the kernel with DMAs into VMEM;
 // here they are asynchronous copies into shared memory, on a persistent grid
 // (as many blocks as fit resident, each looping over the cell groups
-// blockIdx.x, blockIdx.x + gridDim.x, ...), and they run the staged body
-// that every instance ran before the one-shot body above (cell_staged: each
-// thread one output element of a 1D contraction, both operands from shared
-// memory, 64 slots of 27 values per cell, 2 float64 cells per block):
-//   kSchedRowAsync (rowdma)  every dof of the next group is one 4- or 8-byte
-//     cp.async from u, u* or p at the cell table's address into the other
-//     slot of a double-buffered staging area (a constrained entry is
-//     zero-filled by a source size of 0), in flight while this group
-//     computes; stage x reads the staging slot in place;
-//   kSchedPipe (pipe)  the next group's x-runs of the lattice (per row
-//     segment of the group 9 runs of each of the 6 velocity vectors and 4 of
-//     the pressure) as 1D bulk copies (TMA, cp.async.bulk) of their 16-byte
-//     aligned supersets into a slab, completing on an mbarrier while this
-//     group computes; after it, the slab is assembled, masks applied, into
-//     the other staging slot;
-//   kSchedPair (unroll2)  two groups per iteration, each in its own work
-//     area; the gather of one (cp.async, as kSchedRowAsync, straight into its
-//     work area) is in flight while the other computes.
+// blockIdx.x, blockIdx.x + gridDim.x, ...):
+//   kSchedPipe (pipe)  the one-shot body's gather and compute, split
+//     (lines_gather, lines_compute), in one work area of CPB cells: the next
+//     group's x-runs of the lattice (per row segment of the group 9 runs of
+//     each of the 6 velocity vectors and 4 of the pressure) as 1D bulk
+//     copies (TMA, cp.async.bulk) of their 16-byte aligned supersets into a
+//     slab, completing on an mbarrier while this group computes; after the
+//     barrier that ends this group's integration, the slab is assembled,
+//     masks applied, straight into the work area's gather slots;
+//   kSchedPair (unroll2)  the one-shot body in two work areas: two groups
+//     per iteration pair, the gather of one (one 4- or 8-byte cp.async per
+//     value at the cell table's address, a constrained entry zero-filled by
+//     a source size of 0) in flight into the other work area's gather slots
+//     while the other computes;
+//   kSchedRowAsync (rowdma)  the staged body that every instance ran before
+//     the one-shot body above (cell_staged: each thread one output element
+//     of a 1D contraction, both operands from shared memory, 64 slots of 27
+//     values per cell, 2 float64 cells per block): every dof of the next
+//     group is one cp.async as unroll2's into the other slot of a
+//     double-buffered staging area, in flight while this group computes;
+//     stage x reads the staging slot in place.
+// pipe and unroll2 take CPB at compile time as the most cells per group at
+// which four blocks fit on an SM, as the one-shot body's do (sched_cpb: 7
+// and 5 float64 cells, 14 and 10 float32 at the probe box's 48 cells along
+// x), and the one-shot body's register cap.
 // Unlike the TPU kernels, every schedule covers every cell (an odd group
 // count leaves the last pair without its second group) and pads nothing
 // that it does not write. Their bound is the full apply's.
@@ -245,147 +252,8 @@ __device__ __forceinline__ long long sched_group(long long it) {
     return blockIdx.x + it * gridDim.x;
 }
 
-// ---- kSchedPipe's slab. A group's cells (consecutive, x fastest) fall into
-//      segments, one per x-row of the lattice that the group touches (a group
-//      straddles a row end when ncx is not a multiple of CPB). A segment of n
-//      cells reads kPipeRuns x-runs of the lattice: for each of the 6 vectors
-//      u_0 .. u*_2 and each (ly, lz) in 3 x 3 the 2 n + 1 velocity dofs, then
-//      for each (ly, lz) in 2 x 2 the n + 1 pressure dofs. Each run lands in a
-//      slot of the 16-byte aligned size of the longest run, as the 16-byte
-//      aligned superset of its bytes (the bulk copy's rule; the superset stays
-//      in the 16-byte lines of the vector, so inside its allocation). The
-//      threads that start the copies note each run's place and first dof,
-//      and each cell's segment, in small tables beside the slab, so that the
-//      assembly does no lattice arithmetic. Cell and dof indices fit in 32
-//      bits, as the int32 cell tables require. ---------------------------------
-constexpr int kPipeVecRuns = 6 * 9, kPipeRuns = kPipeVecRuns + 4;
-
-struct PipeGeom {
-  int cap_u, cap_p, seg_bytes;  // slot bytes of a velocity / pressure run; per segment
-};
-
-struct PipeRun {
-  int lead, dof0;  // its first element's place in its slot; its first dof
-};
-
-struct PipeCell {
-  int seg, xi;  // a cell's segment, and its place in the segment
-};
-
-__host__ __device__ inline PipeGeom pipe_geom(int cpb, int sz) {
-  PipeGeom g;
-  g.cap_u = (15 + (2 * cpb + 1) * sz + 15) / 16 * 16;
-  g.cap_p = (15 + (cpb + 1) * sz + 15) / 16 * 16;
-  g.seg_bytes = kPipeVecRuns * g.cap_u + (kPipeRuns - kPipeVecRuns) * g.cap_p;
-  return g;
-}
-
-// the most segments a group of cpb consecutive cells can have
-__host__ __device__ inline int pipe_max_segments(int cpb, int ncx) {
-  const int s = (cpb + ncx - 2) / ncx + 1;
-  return s < cpb ? s : cpb;
-}
-
-// bytes of the slab, then its mbarrier and its tables (16-byte multiples)
-__host__ __device__ inline int pipe_slab_bytes(int cpb, int ncx, int sz) {
-  return pipe_max_segments(cpb, ncx) * pipe_geom(cpb, sz).seg_bytes;
-}
-__host__ __device__ inline int pipe_table_bytes(int cpb, int ncx) {
-  const int b = 8 + pipe_max_segments(cpb, ncx) * kPipeRuns * (int)sizeof(PipeRun) +
-                cpb * (int)sizeof(PipeCell);
-  return (b + 15) / 16 * 16;
-}
-
-__device__ __forceinline__ int pipe_slot(const PipeGeom& g, int s, int j) {
-  return s * g.seg_bytes +
-         (j < kPipeVecRuns ? j * g.cap_u : kPipeVecRuns * g.cap_u + (j - kPipeVecRuns) * g.cap_p);
-}
-
-// Start the bulk copies of the group [c0, c0 + nc) into the slab and fill
-// the tables; every thread arrives on `bar` (whose count is the block's
-// threads) with the bytes of its copies.
-template <typename T>
-__device__ __forceinline__ void pipe_start(unsigned char* slab, uint64_t* bar, PipeRun* runs,
-                                           PipeCell* cells, long long c0l, int nc, int cpb,
-                                           const T* u, const T* p, const T* us, long long n_u,
-                                           int ncx, int ncy) {
-  const PipeGeom pg = pipe_geom(cpb, sizeof(T));
-  const int c0 = (int)c0l, row_end = (c0 / ncx + 1) * ncx;  // first cell of the next x-row
-  const int rest = c0 + nc - row_end;                         // cells past it
-  const int nr = (rest <= 0 ? 1 : 1 + (rest + ncx - 1) / ncx) * kPipeRuns;
-  const int nx = 2 * ncx + 1, ny = 2 * ncy + 1;
-  unsigned bytes = 0;
-  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
-    const int s = r / kPipeRuns, j = r % kPipeRuns;
-    const int first = s == 0 ? c0 : row_end + (s - 1) * ncx;
-    const int last = min(s == 0 ? row_end : first + ncx, c0 + nc);
-    const int cx = first % ncx, cy = (first / ncx) % ncy, cz = first / (ncx * ncy);
-    int dof0, len;
-    const T* v;
-    if (j < kPipeVecRuns) {
-      const int f = j / 9, ly = j % 3, lz = (j / 3) % 3;
-      dof0 = ((2 * cz + lz) * ny + 2 * cy + ly) * nx + 2 * cx;
-      len = 2 * (last - first) + 1;
-      v = f < 3 ? u + f * n_u : us + (f - 3) * n_u;
-    } else {
-      const int q = j - kPipeVecRuns, ly = q % 2, lz = q / 2;
-      dof0 = ((cz + lz) * (ncy + 1) + cy + ly) * (ncx + 1) + cx;
-      len = last - first + 1;
-      v = p;
-    }
-    const uintptr_t a = (uintptr_t)(v + dof0);
-    const uintptr_t a0 = a & ~(uintptr_t)15, a1 = (a + len * sizeof(T) + 15) & ~(uintptr_t)15;
-    runs[r] = PipeRun{(int)((a - a0) / sizeof(T)), dof0};
-    bulk_copy(slab + pipe_slot(pg, s, j), (const void*)a0, (unsigned)(a1 - a0), bar);
-    bytes += (unsigned)(a1 - a0);
-  }
-  for (int cell = threadIdx.x; cell < nc; cell += blockDim.x) {
-    const int e = c0 + cell, s = e < row_end ? 0 : 1 + (e - row_end) / ncx;
-    cells[cell] = PipeCell{s, e - (s == 0 ? c0 : row_end + (s - 1) * ncx)};
-  }
-  bar_arrive_expect(bar, bytes);
-}
-
-// Assemble the group's nc cells from the slab (the tables filled by its
-// pipe_start) into the staging slot stg (cell stride SG, item stride NB, the
-// pressure after the 6 velocity items): constrained entries of u and p read
-// as zero.
-template <int NB, int SG, typename T>
-__device__ __forceinline__ void pipe_assemble(T* stg, const unsigned char* slab,
-                                              const PipeRun* runs, const PipeCell* cells,
-                                              int nc, int cpb, const uint8_t* mask_u,
-                                              const uint8_t* mask_p, long long n_u) {
-  constexpr int NL = 27, NP = 8, NI = 6, per = NI * NL + NP;
-  const PipeGeom pg = pipe_geom(cpb, sizeof(T));
-  for (int t = threadIdx.x; t < nc * per; t += blockDim.x) {
-    const int cell = t / per, k = t % per;
-    const PipeCell pc = cells[cell];
-    int j, x, at;
-    const uint8_t* m;
-    long long mi;
-    if (k < NI * NL) {
-      const int item = k / NL, l = k % NL;
-      j = item * 9 + (l / 9) * 3 + (l / 3) % 3;
-      x = 2 * pc.xi + l % 3;
-      at = item * NB + l;
-      m = item < 3 ? mask_u : nullptr;
-      mi = item * n_u;
-    } else {
-      const int l = k - NI * NL;
-      j = kPipeVecRuns + (l / 4) * 2 + (l / 2) % 2;
-      x = pc.xi + l % 2;
-      at = NI * NB + l;
-      m = mask_p;
-      mi = 0;
-    }
-    const PipeRun rr = runs[pc.seg * kPipeRuns + j];
-    const T* run = reinterpret_cast<const T*>(slab + pipe_slot(pg, pc.seg, j));
-    stg[cell * SG + at] = (m != nullptr && m[mi + rr.dof0 + x]) ? T(0) : run[rr.lead + x];
-  }
-}
-
-// ---- the staged body: K13's schedules alone (3D Q2/Q1 with pressure, table
-//      source, u* dofs, constant coefficients, atomic scatter) ---------------
+// ---- the staged body: K13's rowdma schedule alone (3D Q2/Q1 with pressure,
+//      table source, u* dofs, constant coefficients, atomic scatter) --------
 
 // A cell's work area of the staged body: SLOTS slots of NB values (see the
 // stage comments of cell_staged)
@@ -470,18 +338,17 @@ __device__ __forceinline__ void gather_async(
   }
 }
 
-// K13's schedules: the apply of the cell groups of this block (sched_group)
+// K13's rowdma: the apply of the cell groups of this block (sched_group)
 // with the next group's gather in flight (see the top). Each stage thread
 // computes one output element of a 1D contraction from shared memory
 // (axis_op); every intermediate stays in the cell's work area.
-template <typename T, int SCHED>
+template <typename T>
 __device__ __forceinline__ void cell_staged(
     unsigned char* smem_raw, const T* __restrict__ u, const T* __restrict__ p,
     const T* __restrict__ us, const int32_t* __restrict__ cell_u,
     const int32_t* __restrict__ cell_p, const uint8_t* __restrict__ mask_u,
     const uint8_t* __restrict__ mask_p, T* __restrict__ out_u, T* __restrict__ out_p,
-    long long n_u, long long n_cells, int cpb, const Tables<T>& tab, const Scalars<T>& sc,
-    const ProbeArgs<T>& pa) {
+    long long n_u, long long n_cells, int cpb, const Tables<T>& tab, const Scalars<T>& sc) {
   using S = Staged;
   constexpr int DIM = S::DIM, N1 = S::N1, Q1 = S::Q1, P1 = S::P1;
   constexpr int NL = S::NL, NQ = S::NQ, NP = S::NP, NB = S::NB;
@@ -490,26 +357,17 @@ __device__ __forceinline__ void cell_staged(
   constexpr int FI = DIM + 1;        // final fields per item: value + grads
   constexpr int NI = 2 * DIM;        // items: u_0.., u*_0..
   constexpr int LDX = DIM * NL + NP;
-  // rowdma and pipe: stage x reads the gathered inputs in a staging slot of
-  // SG elements per cell (item stride NB, the pressure after the items)
-  constexpr bool STAGED = SCHED == kSchedRowAsync || SCHED == kSchedPipe;
+  // stage x reads the gathered inputs in a staging slot of SG elements per
+  // cell (item stride NB, the pressure after the items)
   constexpr int SG = NI * NB + NP;
 
-  // shared memory: the 1D tables, the work area (two for kSchedPair), the two
-  // staging slots, the pipe's slab, its mbarrier and its tables; every region
-  // starts 16-byte aligned (see schedule_smem)
+  // shared memory: the 1D tables, the work area, the two staging slots (see
+  // schedule_smem)
   T* sV = reinterpret_cast<T*>(smem_raw);
   T* sD = sV + kMaxTab;
   T* sVp = sD + kMaxTab;
-  T* const work0 = sVp + kMaxTab;
-  T* const stg = work0 + (SCHED == kSchedPair ? 2 : 1) * cpb * CS;
-  unsigned char* const slab = reinterpret_cast<unsigned char*>(stg + 2 * cpb * SG);
-  unsigned char* const ptab =
-      slab + (SCHED == kSchedPipe ? pipe_slab_bytes(cpb, pa.ncx, sizeof(T)) : 0);
-  uint64_t* const bar = reinterpret_cast<uint64_t*>(ptab);
-  PipeRun* const pruns = reinterpret_cast<PipeRun*>(ptab + 8);
-  PipeCell* const pcells = reinterpret_cast<PipeCell*>(
-      pruns + (SCHED == kSchedPipe ? pipe_max_segments(cpb, pa.ncx) * kPipeRuns : 0));
+  T* const buf = sVp + kMaxTab;
+  T* const stg = buf + cpb * CS;
 
   const int tid = threadIdx.x, nth = blockDim.x;
   for (int i = tid; i < kMaxTab; i += nth) {
@@ -519,60 +377,34 @@ __device__ __forceinline__ void cell_staged(
   }
   const long long n_groups = (n_cells + cpb - 1) / cpb;
   auto group_cells = [&](long long g) { return (int)min((long long)cpb, n_cells - g * cpb); };
-  long long g = sched_group<SCHED>(0);
+  long long g = sched_group<kSchedRowAsync>(0);
 
-  // ---- the prologue: the block's first group in flight (pipe: copied and
-  //      assembled into staging slot 0) ---------------------------------------
-  if constexpr (SCHED == kSchedRowAsync || SCHED == kSchedPair) {
-    if (g < n_groups)
-      gather_async(SCHED == kSchedPair ? work0 + IN * NB : stg, SCHED == kSchedPair ? CS : SG,
-                   g * cpb, group_cells(g), u, p, us, cell_u, cell_p, mask_u, mask_p, n_u);
-    async_commit();
-  } else {
-    if (tid == 0) bar_init(bar, nth);
-    __syncthreads();
-    if (g < n_groups) {
-      pipe_start(slab, bar, pruns, pcells, g * cpb, group_cells(g), cpb, u, p, us, n_u,
-                 pa.ncx, pa.ncy);
-      __syncthreads();  // the tables
-      bar_wait(bar, 0);
-      pipe_assemble<NB, SG>(stg, slab, pruns, pcells, group_cells(g), cpb, mask_u, mask_p, n_u);
-    }
-    __syncthreads();
-  }
+  // ---- the prologue: the block's first group in flight ----------------------
+  if (g < n_groups)
+    gather_async(stg, SG, g * cpb, group_cells(g), u, p, us, cell_u, cell_p, mask_u, mask_p,
+                 n_u);
+  async_commit();
 
   // one iteration per cell group of this block
   for (long long it = 0; g < n_groups; ++it) {
-    const long long gn = sched_group<SCHED>(it + 1);  // the block's next group
-    const bool more = gn < n_groups;
+    const long long gn = sched_group<kSchedRowAsync>(it + 1);  // the block's next group
     const long long c0 = g * cpb;
     const int nc = group_cells(g);
-    // this group's work area, and where stage x finds its gathered inputs
-    T* const buf = work0 + (SCHED == kSchedPair ? (it & 1) * cpb * CS : 0);
-    const T* const gin = STAGED ? stg + (it & 1) * cpb * SG : buf + IN * NB;
-    const int gstride = STAGED ? SG : CS;
+    // where stage x finds this group's gathered inputs
+    const T* const gin = stg + (it & 1) * cpb * SG;
+    constexpr int gstride = SG;
 
-    if constexpr (SCHED == kSchedRowAsync || SCHED == kSchedPair) {
-      // ---- the next group's gather in flight (into the other staging slot or
-      //      work area), this group's landed ---------------------------------
-      if (more) {
-        gather_async(SCHED == kSchedPair ? work0 + ((it + 1) & 1) * cpb * CS + IN * NB
-                                         : stg + ((it + 1) & 1) * cpb * SG,
-                     SCHED == kSchedPair ? CS : SG, gn * cpb, group_cells(gn), u, p, us,
-                     cell_u, cell_p, mask_u, mask_p, n_u);
-        async_commit();
-        async_wait<1>();
-      } else {
-        async_wait<0>();
-      }
-      __syncthreads();
+    // ---- the next group's gather in flight (into the other staging slot),
+    //      this group's landed ---------------------------------------------
+    if (gn < n_groups) {
+      gather_async(stg + ((it + 1) & 1) * cpb * SG, SG, gn * cpb, group_cells(gn), u, p, us,
+                   cell_u, cell_p, mask_u, mask_p, n_u);
+      async_commit();
+      async_wait<1>();
     } else {
-      // ---- the next group's bulk copies in flight; this group was assembled
-      //      at the end of the last iteration -------------------------------
-      if (more)
-        pipe_start(slab, bar, pruns, pcells, gn * cpb, group_cells(gn), cpb, u, p, us, n_u,
-                   pa.ncx, pa.ncy);
+      async_wait<0>();
     }
+    __syncthreads();
 
     // ---- evaluation, stage x: A0 = Vx u, A1 = Dx u; pressure Vpx p ---------
     {
@@ -761,17 +593,6 @@ __device__ __forceinline__ void cell_staged(
         atomicAdd(out_p + cell_p[e * NP + l], cb[(S1 + DIM) * NB + l]);
       }
     }
-
-    if constexpr (SCHED == kSchedPipe) {
-      // ---- the next group: its copies landed, assembled into the other
-      //      staging slot (the one this group's stage x did not read) --------
-      if (more) {
-        bar_wait(bar, (unsigned)((it + 1) & 1));
-        pipe_assemble<NB, SG>(stg + ((it + 1) & 1) * cpb * SG, slab, pruns, pcells,
-                              group_cells(gn), cpb, mask_u, mask_p, n_u);
-      }
-      __syncthreads();
-    }
     g = gn;
   }
 }
@@ -805,8 +626,11 @@ struct Lines {
 };
 
 // Cells per block of the one-shot body: as many as kCellBytes holds, at
-// least one; four blocks of 128 threads fit on an SM.
+// least one; kBlocksPerSM blocks of 128 threads fit on an SM (the H100's
+// 228 KB of shared memory per SM, of which it reserves 1 KB per block).
 constexpr int kCellBytes = 56 * 1024;
+constexpr int kBlocksPerSM = 4;
+constexpr int kSmemPerSM = 228 * 1024, kSmemReservedPerBlock = 1024;
 template <typename L, typename T>
 __host__ __device__ constexpr int cells_per_block() {
   const int c = kCellBytes / (L::CS * (int)sizeof(T));
@@ -814,11 +638,12 @@ __host__ __device__ constexpr int cells_per_block() {
 }
 
 // The least resident blocks per SM that ptxas keeps the registers for
-// (__launch_bounds__): the one-shot body's shared memory holds four, so 128
-// registers per thread; the schedules ask for none.
+// (__launch_bounds__): the shared memory of the one-shot body, and of pipe
+// and unroll2 on it, holds kBlocksPerSM, so 128 registers per thread;
+// rowdma's staged body asks for none.
 template <int SCHED>
 __host__ __device__ constexpr int min_blocks() {
-  return SCHED == kSchedOnce ? 4 : 1;
+  return SCHED == kSchedRowAsync ? 1 : kBlocksPerSM;
 }
 
 // The slot position of local index l of a tensor with extent N per axis.
@@ -1003,70 +828,31 @@ __device__ __forceinline__ void integ_stage(T* cells, int nc, long long c0,
   }
 }
 
-// The one-shot body: the group of cells blockIdx.x of CPB cells (the last
-// one may be shorter) in `cells`, with the matrix M89 of kPhMDot in sM. See
-// the top for the stages; the phase mask PH drops phases as kPh* says. The
-// arithmetic of every output, the order of its sums included, is the staged
-// body's.
-template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM, int DST,
-          typename T, int PH>
-__device__ __forceinline__ void cell_lines(
-    T* const cells, const T* const sM, const T* __restrict__ u, const T* __restrict__ p,
-    const T* __restrict__ us, const int32_t* __restrict__ cell_u,
+// The one-shot body's gather of the cells [c0, c0 + nc) into the work area
+// `cells` (cell stride CS, room for CPB cells), at the positions its compute
+// reads (lines_compute): item i's dofs in its first slot (lpos), the
+// pressure's in PSLOT, or a block row; the phase mask PH drops the gather as
+// kPh* says. ASYNC (K13's unroll2; the table source): each value is one
+// cp.async that the caller commits and waits for, a constrained entry
+// zero-filled by a source size of 0.
+template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM, typename T, int PH,
+          int CPB, bool ASYNC = false>
+__device__ __forceinline__ void lines_gather(
+    T* const cells, const long long c0, const int nc, const T* __restrict__ u,
+    const T* __restrict__ p, const T* __restrict__ us, const int32_t* __restrict__ cell_u,
     const int32_t* __restrict__ cell_p, const uint8_t* __restrict__ mask_u,
-    const uint8_t* __restrict__ mask_p, const T* __restrict__ rho, const T* __restrict__ mu,
-    const T* __restrict__ damp, T* __restrict__ out_u, T* __restrict__ out_p, long long n_u,
-    long long n_cells, const Tables<T>& tab, const Scalars<T>& sc, const ProbeArgs<T>& pa) {
+    const uint8_t* __restrict__ mask_p, long long n_u, const ProbeArgs<T>& pa) {
   constexpr bool QF = STREAM == kStreamQFields;
   using L = Lines<DIM, N1, Q1, P1, PRES, QF>;
   constexpr int M1 = L::M1, NB = L::NB, NL = L::NL, NQ = L::NQ, NP = L::NP, FI = L::FI;
-  constexpr int PSLOT = L::PSLOT, QP = L::QP, CS = L::CS, LDX = L::LDX;
-  constexpr int CPB = cells_per_block<L, T>();
+  constexpr int PSLOT = L::PSLOT, CS = L::CS, LDX = L::LDX;
   constexpr int NI = 2 * DIM;
   constexpr int SLD = QF ? DIM * FI * NQ : DIM * NL;  // stream row length
   constexpr bool LAT = SRC == kSrcLattice;
-  constexpr bool MDOT = (PH & kPhMDot) != 0;
   constexpr bool GATHER = (PH & (kPhGather | kPhContig)) != 0;
-  constexpr bool QPOINT = (PH & kPhQPoint) != 0;
-  constexpr bool INTEG = (PH & kPhIntegrate) != 0;
-  constexpr bool SCATTER = (PH & kPhScatter) != 0;
-  // the evaluated items [I0, I1) and whether the pressure is evaluated
-  constexpr int I0 = (PH & kPhEvalU) ? 0 : DIM;
-  constexpr int I1 = (PH & kPhEvalUs) ? L::NEV : DIM;
-  constexpr bool PE = PRES && (PH & kPhEvalU);
-  static_assert(PH == kPhAll || (DIM == 3 && N1 == 3 && Q1 == 3 && P1 == 2 && PRES &&
-                                 SRC == kSrcTable && !QF && DST == kOutScatter),
-                "probe phases: 3D Q2/Q1 with pressure, nodal in and out only");
-  static_assert(SRC == kSrcBlock || !QF, "the q-field stream is a block");
-  static_assert(!LAT || (DIM == 3 && PRES), "the lattice source is 3D with pressure");
-
+  static_assert(!ASYNC || (SRC == kSrcTable && PH == kPhAll),
+                "the asynchronous gather reads the cell tables");
   const int tid = threadIdx.x, nth = blockDim.x;
-  const long long c0 = (long long)blockIdx.x * CPB;
-  const int nc = (int)min((long long)CPB, n_cells - c0);
-
-  // an output of cell e: velocity component c, local dof l; or pressure l
-  auto emit_u = [&](long long e, int c, int l, T v) {
-    if constexpr (DST == kOutBlock) {
-      out_u[e * LDX + c * NL + l] = v;
-    } else if constexpr (LAT) {
-      atomicAdd(out_u + c * n_u + lattice_dof<N1>(e, l, pa.ncx, pa.ncy), v);
-    } else if constexpr (SCATTER) {
-      atomicAdd(out_u + c * n_u + cell_u[e * NL + l], v);
-    } else {
-      if (owned<DIM, N1>(l)) out_u[c * n_u + cell_u[e * NL + l]] = v;
-    }
-  };
-  auto emit_p = [&](long long e, int l, T v) {
-    if constexpr (DST == kOutBlock) {
-      out_u[e * LDX + DIM * NL + l] = v;
-    } else if constexpr (LAT) {
-      atomicAdd(out_p + lattice_dof<P1>(e, l, pa.ncx, pa.ncy), v);
-    } else if constexpr (SCATTER) {
-      atomicAdd(out_p + cell_p[e * NP + l], v);
-    } else {
-      if (owned<DIM, P1>(l)) out_p[cell_p[e * NP + l]] = v;
-    }
-  };
 
   // ---- gather into the items' first slots and the pressure slot ----------
   if constexpr (SRC == kSrcBlock) {
@@ -1114,8 +900,8 @@ __device__ __forceinline__ void cell_lines(
     // nodal u (constrained entries read 0), u* (plain), p (masked) at the
     // cell tables' addresses, the lattice's (LAT) or contiguous ones
     // (kPhContig: cell e, local l reads entry (e n_loc + l) mod n);
-    // consecutive threads take one local dof of consecutive cells, each
-    // thread every item of it
+    // consecutive threads take one local dof of consecutive cells of the
+    // CPB, each thread every item of it
     constexpr bool CONTIG = (PH & kPhContig) != 0;
     constexpr int NW = NL + (PRES ? NP : 0);
     for (int t = tid; t < CPB * NW; t += nth) {
@@ -1136,8 +922,13 @@ __device__ __forceinline__ void cell_lines(
 #pragma unroll
         for (int c = 0; c < DIM; ++c) {
           const long long g = c * n_u + dof;
-          cb[c * FI * NB + at] = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
-          cb[(DIM + c) * FI * NB + at] = us[g];
+          if constexpr (ASYNC) {
+            async_copy(cb + c * FI * NB + at, u + g, mask_u != nullptr && mask_u[g]);
+            async_copy(cb + (DIM + c) * FI * NB + at, us + g, false);
+          } else {
+            cb[c * FI * NB + at] = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
+            cb[(DIM + c) * FI * NB + at] = us[g];
+          }
         }
       } else {
         const int l = k - NL;
@@ -1149,12 +940,78 @@ __device__ __forceinline__ void cell_lines(
         } else {
           dof = cell_p[e * NP + l];
         }
-        cb[PSLOT * NB + lpos<DIM, P1, M1>(l)] =
-            (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
+        if constexpr (ASYNC) {
+          async_copy(cb + PSLOT * NB + lpos<DIM, P1, M1>(l), p + dof,
+                     mask_p != nullptr && mask_p[dof]);
+        } else {
+          cb[PSLOT * NB + lpos<DIM, P1, M1>(l)] =
+              (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
+        }
       }
     }
   }
-  __syncthreads();
+}
+
+// The one-shot body's compute of the cells [c0, c0 + nc), whose inputs
+// lines_gather put into the work area `cells` (behind a barrier of the
+// caller), with the matrix M89 of kPhMDot in sM: see the top for the stages;
+// the phase mask PH drops phases as kPh* says. The last stage's lines emit
+// the outputs and write nothing back, so the caller's barrier after it ends
+// every read of the work area. The arithmetic of every output, the order of
+// its sums included, is the staged body's.
+template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM, int DST,
+          typename T, int PH>
+__device__ __forceinline__ void lines_compute(
+    T* const cells, const T* const sM, const long long c0, const int nc,
+    const T* __restrict__ us, const int32_t* __restrict__ cell_u,
+    const int32_t* __restrict__ cell_p, const T* __restrict__ rho, const T* __restrict__ mu,
+    const T* __restrict__ damp, T* __restrict__ out_u, T* __restrict__ out_p, long long n_u,
+    const Tables<T>& tab, const Scalars<T>& sc, const ProbeArgs<T>& pa) {
+  constexpr bool QF = STREAM == kStreamQFields;
+  using L = Lines<DIM, N1, Q1, P1, PRES, QF>;
+  constexpr int M1 = L::M1, NB = L::NB, NL = L::NL, NQ = L::NQ, NP = L::NP, FI = L::FI;
+  constexpr int PSLOT = L::PSLOT, QP = L::QP, CS = L::CS, LDX = L::LDX;
+  constexpr int SLD = QF ? DIM * FI * NQ : DIM * NL;  // stream row length
+  constexpr bool LAT = SRC == kSrcLattice;
+  constexpr bool MDOT = (PH & kPhMDot) != 0;
+  constexpr bool QPOINT = (PH & kPhQPoint) != 0;
+  constexpr bool INTEG = (PH & kPhIntegrate) != 0;
+  constexpr bool SCATTER = (PH & kPhScatter) != 0;
+  // the evaluated items [I0, I1) and whether the pressure is evaluated
+  constexpr int I0 = (PH & kPhEvalU) ? 0 : DIM;
+  constexpr int I1 = (PH & kPhEvalUs) ? L::NEV : DIM;
+  constexpr bool PE = PRES && (PH & kPhEvalU);
+  static_assert(PH == kPhAll || (DIM == 3 && N1 == 3 && Q1 == 3 && P1 == 2 && PRES &&
+                                 SRC == kSrcTable && !QF && DST == kOutScatter),
+                "probe phases: 3D Q2/Q1 with pressure, nodal in and out only");
+  static_assert(SRC == kSrcBlock || !QF, "the q-field stream is a block");
+  static_assert(!LAT || (DIM == 3 && PRES), "the lattice source is 3D with pressure");
+
+  const int tid = threadIdx.x, nth = blockDim.x;
+
+  // an output of cell e: velocity component c, local dof l; or pressure l
+  auto emit_u = [&](long long e, int c, int l, T v) {
+    if constexpr (DST == kOutBlock) {
+      out_u[e * LDX + c * NL + l] = v;
+    } else if constexpr (LAT) {
+      atomicAdd(out_u + c * n_u + lattice_dof<N1>(e, l, pa.ncx, pa.ncy), v);
+    } else if constexpr (SCATTER) {
+      atomicAdd(out_u + c * n_u + cell_u[e * NL + l], v);
+    } else {
+      if (owned<DIM, N1>(l)) out_u[c * n_u + cell_u[e * NL + l]] = v;
+    }
+  };
+  auto emit_p = [&](long long e, int l, T v) {
+    if constexpr (DST == kOutBlock) {
+      out_u[e * LDX + DIM * NL + l] = v;
+    } else if constexpr (LAT) {
+      atomicAdd(out_p + lattice_dof<P1>(e, l, pa.ncx, pa.ncy), v);
+    } else if constexpr (SCATTER) {
+      atomicAdd(out_p + cell_p[e * NP + l], v);
+    } else {
+      if (owned<DIM, P1>(l)) out_p[cell_p[e * NP + l]] = v;
+    }
+  };
 
   if constexpr (MDOT) {
     // ---- dense cell matrix: out = M89 x, x = [u_0 .. u_(DIM-1) | p] -------
@@ -1304,6 +1161,291 @@ __device__ __forceinline__ void cell_lines(
   }
 }
 
+// The one-shot body (kSchedOnce): the group of cells blockIdx.x of CPB cells
+// (the last one may be shorter) in `cells`, gathered, then computed.
+template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM, int DST,
+          typename T, int PH>
+__device__ __forceinline__ void cell_lines(
+    T* const cells, const T* const sM, const T* __restrict__ u, const T* __restrict__ p,
+    const T* __restrict__ us, const int32_t* __restrict__ cell_u,
+    const int32_t* __restrict__ cell_p, const uint8_t* __restrict__ mask_u,
+    const uint8_t* __restrict__ mask_p, const T* __restrict__ rho, const T* __restrict__ mu,
+    const T* __restrict__ damp, T* __restrict__ out_u, T* __restrict__ out_p, long long n_u,
+    long long n_cells, const Tables<T>& tab, const Scalars<T>& sc, const ProbeArgs<T>& pa) {
+  constexpr int CPB = cells_per_block<Lines<DIM, N1, Q1, P1, PRES, STREAM == kStreamQFields>, T>();
+  const long long c0 = (long long)blockIdx.x * CPB;
+  const int nc = (int)min((long long)CPB, n_cells - c0);
+  lines_gather<DIM, N1, Q1, P1, PRES, SRC, STREAM, T, PH, CPB>(cells, c0, nc, u, p, us, cell_u,
+                                                                cell_p, mask_u, mask_p, n_u, pa);
+  __syncthreads();
+  lines_compute<DIM, N1, Q1, P1, PRES, SRC, STREAM, DST, T, PH>(
+      cells, sM, c0, nc, us, cell_u, cell_p, rho, mu, damp, out_u, out_p, n_u, tab, sc, pa);
+}
+
+// ---- K13's pipe and unroll2 on the one-shot body (3D Q2/Q1 with pressure,
+//      table source, u* dofs, constant coefficients, atomic scatter) -------
+
+using ProbeLines = Lines<3, 3, 3, 2, true, false>;
+
+// ---- kSchedPipe's slab. A group's cells (consecutive, x fastest) fall into
+//      segments, one per x-row of the lattice that the group touches (a group
+//      straddles a row end when ncx is not a multiple of CPB). A segment of n
+//      cells reads kPipeRuns x-runs of the lattice: for each of the 6 vectors
+//      u_0 .. u*_2 and each (ly, lz) in 3 x 3 the 2 n + 1 velocity dofs, then
+//      for each (ly, lz) in 2 x 2 the n + 1 pressure dofs. Each run lands in a
+//      slot of the 16-byte aligned size of the longest run, as the 16-byte
+//      aligned superset of its bytes (the bulk copy's rule; the superset stays
+//      in the 16-byte lines of the vector, so inside its allocation). The
+//      threads that start the copies note each run's place and first dof,
+//      and each cell's segment, in small tables beside the slab, so that the
+//      assembly does no lattice arithmetic. Cell and dof indices fit in 32
+//      bits, as the int32 cell tables require. ---------------------------------
+constexpr int kPipeVecRuns = 6 * 9, kPipeRuns = kPipeVecRuns + 4;
+
+struct PipeGeom {
+  int cap_u, cap_p, seg_bytes;  // slot bytes of a velocity / pressure run; per segment
+};
+
+struct PipeRun {
+  int lead, dof0;  // its first element's place in its slot; its first dof
+};
+
+struct PipeCell {
+  int seg, xi;  // a cell's segment, and its place in the segment
+};
+
+__host__ __device__ constexpr PipeGeom pipe_geom(int cpb, int sz) {
+  const int cap_u = (15 + (2 * cpb + 1) * sz + 15) / 16 * 16;
+  const int cap_p = (15 + (cpb + 1) * sz + 15) / 16 * 16;
+  return PipeGeom{cap_u, cap_p, kPipeVecRuns * cap_u + (kPipeRuns - kPipeVecRuns) * cap_p};
+}
+
+// the most segments a group of cpb consecutive cells can have
+__host__ __device__ constexpr int pipe_max_segments(int cpb, int ncx) {
+  return (cpb + ncx - 2) / ncx + 1 < cpb ? (cpb + ncx - 2) / ncx + 1 : cpb;
+}
+
+// bytes of the slab of nseg segments, then of its mbarrier and its tables
+// (16-byte multiples)
+__host__ __device__ constexpr int pipe_slab_bytes(int cpb, int nseg, int sz) {
+  return nseg * pipe_geom(cpb, sz).seg_bytes;
+}
+__host__ __device__ constexpr int pipe_table_bytes(int cpb, int nseg) {
+  return (8 + nseg * kPipeRuns * (int)sizeof(PipeRun) + cpb * (int)sizeof(PipeCell) + 15) /
+         16 * 16;
+}
+
+__device__ __forceinline__ int pipe_slot(const PipeGeom& g, int s, int j) {
+  return s * g.seg_bytes +
+         (j < kPipeVecRuns ? j * g.cap_u : kPipeVecRuns * g.cap_u + (j - kPipeVecRuns) * g.cap_p);
+}
+
+// Start the bulk copies of the group [c0, c0 + nc) into the slab and fill
+// the tables; every thread arrives on `bar` (whose count is the block's
+// threads) with the bytes of its copies.
+template <typename T>
+__device__ __forceinline__ void pipe_start(unsigned char* slab, uint64_t* bar, PipeRun* runs,
+                                           PipeCell* cells, long long c0l, int nc, int cpb,
+                                           const T* u, const T* p, const T* us, long long n_u,
+                                           int ncx, int ncy) {
+  const PipeGeom pg = pipe_geom(cpb, sizeof(T));
+  const int c0 = (int)c0l, row_end = (c0 / ncx + 1) * ncx;  // first cell of the next x-row
+  const int rest = c0 + nc - row_end;                         // cells past it
+  const int nr = (rest <= 0 ? 1 : 1 + (rest + ncx - 1) / ncx) * kPipeRuns;
+  const int nx = 2 * ncx + 1, ny = 2 * ncy + 1;
+  unsigned bytes = 0;
+  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
+    const int s = r / kPipeRuns, j = r % kPipeRuns;
+    const int first = s == 0 ? c0 : row_end + (s - 1) * ncx;
+    const int last = min(s == 0 ? row_end : first + ncx, c0 + nc);
+    const int cx = first % ncx, cy = (first / ncx) % ncy, cz = first / (ncx * ncy);
+    int dof0, len;
+    const T* v;
+    if (j < kPipeVecRuns) {
+      const int f = j / 9, ly = j % 3, lz = (j / 3) % 3;
+      dof0 = ((2 * cz + lz) * ny + 2 * cy + ly) * nx + 2 * cx;
+      len = 2 * (last - first) + 1;
+      v = f < 3 ? u + f * n_u : us + (f - 3) * n_u;
+    } else {
+      const int q = j - kPipeVecRuns, ly = q % 2, lz = q / 2;
+      dof0 = ((cz + lz) * (ncy + 1) + cy + ly) * (ncx + 1) + cx;
+      len = last - first + 1;
+      v = p;
+    }
+    const uintptr_t a = (uintptr_t)(v + dof0);
+    const uintptr_t a0 = a & ~(uintptr_t)15, a1 = (a + len * sizeof(T) + 15) & ~(uintptr_t)15;
+    runs[r] = PipeRun{(int)((a - a0) / sizeof(T)), dof0};
+    bulk_copy(slab + pipe_slot(pg, s, j), (const void*)a0, (unsigned)(a1 - a0), bar);
+    bytes += (unsigned)(a1 - a0);
+  }
+  for (int cell = threadIdx.x; cell < nc; cell += blockDim.x) {
+    const int e = c0 + cell, s = e < row_end ? 0 : 1 + (e - row_end) / ncx;
+    cells[cell] = PipeCell{s, e - (s == 0 ? c0 : row_end + (s - 1) * ncx)};
+  }
+  bar_arrive_expect(bar, bytes);
+}
+
+// Assemble the group's nc cells from the slab (the tables filled by its
+// pipe_start) straight into the gather slots of the one-shot body's work
+// area `cells` (L's layout, as lines_gather writes them: item i's dofs in
+// its first slot at lpos, the pressure's in PSLOT): constrained entries of u
+// and p read as zero.
+template <typename L, typename T>
+__device__ __forceinline__ void pipe_assemble(T* cells, const unsigned char* slab,
+                                              const PipeRun* runs, const PipeCell* pcells,
+                                              int nc, int cpb, const uint8_t* mask_u,
+                                              const uint8_t* mask_p, long long n_u) {
+  constexpr int NL = 27, NP = 8, NI = 6, per = NI * NL + NP;
+  constexpr int M1 = L::M1, NB = L::NB, FI = L::FI;
+  static_assert(L::kDim == 3 && L::kN1 == 3 && L::kP1 == 2 && L::NL == NL && L::NP == NP,
+                "the pipe's runs are 3D Q2/Q1's");
+  const PipeGeom pg = pipe_geom(cpb, sizeof(T));
+  for (int t = threadIdx.x; t < nc * per; t += blockDim.x) {
+    const int cell = t / per, k = t % per;
+    const PipeCell pc = pcells[cell];
+    int j, x, at;
+    const uint8_t* m;
+    long long mi;
+    if (k < NI * NL) {
+      const int item = k / NL, l = k % NL;
+      j = item * 9 + (l / 9) * 3 + (l / 3) % 3;
+      x = 2 * pc.xi + l % 3;
+      at = item * FI * NB + lpos<3, 3, M1>(l);
+      m = item < 3 ? mask_u : nullptr;
+      mi = item * n_u;
+    } else {
+      const int l = k - NI * NL;
+      j = kPipeVecRuns + (l / 4) * 2 + (l / 2) % 2;
+      x = pc.xi + l % 2;
+      at = L::PSLOT * NB + lpos<3, 2, M1>(l);
+      m = mask_p;
+      mi = 0;
+    }
+    const PipeRun rr = runs[pc.seg * kPipeRuns + j];
+    const T* run = reinterpret_cast<const T*>(slab + pipe_slot(pg, pc.seg, j));
+    cells[cell * L::CS + at] = (m != nullptr && m[mi + rr.dof0 + x]) ? T(0) : run[rr.lead + x];
+  }
+}
+
+
+// The shared memory of a pipe or unroll2 block at cpb cells per group: one
+// work area of cpb cells (16-byte aligned at its end) and the pipe's slab of
+// nseg segments with its mbarrier and tables, or unroll2's two work areas.
+template <typename T>
+__host__ __device__ constexpr int sched_lines_bytes(int sched, int cpb, int nseg) {
+  const int area = (cpb * ProbeLines::CS * (int)sizeof(T) + 15) / 16 * 16;
+  return sched == kSchedPair
+             ? 2 * area
+             : area + pipe_slab_bytes(cpb, nseg, sizeof(T)) + pipe_table_bytes(cpb, nseg);
+}
+
+// The cells per group of pipe and unroll2: the most (up to the one-shot
+// body's CPB) at which kBlocksPerSM blocks fit the SM's shared memory, the
+// 1 KB that the card reserves per block included, as the one-shot body's
+// blocks do; the pipe's slab at two segments (a lattice of at least CPB - 1
+// cells along x).
+template <int SCHED, typename T>
+__host__ __device__ constexpr int sched_cpb() {
+  int best = 1;
+  for (int c = 1; c <= cells_per_block<ProbeLines, T>(); ++c)
+    if (kBlocksPerSM * (sched_lines_bytes<T>(SCHED, c, 2) + kSmemReservedPerBlock) <=
+        kSmemPerSM)
+      best = c;
+  return best;
+}
+
+// K13's pipe and unroll2: the cell groups of this block (sched_group), each
+// gathered (unroll2: lines_gather's cp.async; pipe: bulk copies assembled by
+// pipe_assemble) into a work area of the one-shot body and computed there by
+// lines_compute, the next group's copies in flight meanwhile (see the top).
+// The compute works in place over the gather slots, so a copy into the work
+// area that computes, or the pipe's assembly before the barrier that ends
+// the integration, would race with it.
+template <typename T, int SCHED>
+__device__ __forceinline__ void cell_sched(
+    unsigned char* smem_raw, const T* __restrict__ u, const T* __restrict__ p,
+    const T* __restrict__ us, const int32_t* __restrict__ cell_u,
+    const int32_t* __restrict__ cell_p, const uint8_t* __restrict__ mask_u,
+    const uint8_t* __restrict__ mask_p, T* __restrict__ out_u, T* __restrict__ out_p,
+    long long n_u, long long n_cells, const Tables<T>& tab, const Scalars<T>& sc,
+    const ProbeArgs<T>& pa) {
+  constexpr int CPB = sched_cpb<SCHED, T>();
+  constexpr int AREA = sched_lines_bytes<T>(kSchedPair, CPB, 0) / 2;  // bytes of a work area
+  T* const work0 = reinterpret_cast<T*>(smem_raw);
+  const long long n_groups = (n_cells + CPB - 1) / CPB;
+  auto group_cells = [&](long long gi) { return (int)min((long long)CPB, n_cells - gi * CPB); };
+  auto compute = [&](T* area, long long gi) {
+    lines_compute<3, 3, 3, 2, true, kSrcTable, kStreamDofs, kOutScatter, T, kPhAll>(
+        area, nullptr, gi * CPB, group_cells(gi), us, cell_u, cell_p, nullptr, nullptr, nullptr,
+        out_u, out_p, n_u, tab, sc, pa);
+  };
+  long long g = sched_group<SCHED>(0);
+
+  if constexpr (SCHED == kSchedPair) {
+    // iteration it computes in work area it & 1 and gathers the block's next
+    // group into the other, which the last iteration computed in
+    T* const work1 = reinterpret_cast<T*>(smem_raw + AREA);
+    auto gather = [&](T* area, long long gi) {
+      lines_gather<3, 3, 3, 2, true, kSrcTable, kStreamDofs, T, kPhAll, CPB, true>(
+          area, gi * CPB, group_cells(gi), u, p, us, cell_u, cell_p, mask_u, mask_p, n_u, pa);
+    };
+    if (g < n_groups) gather(work0, g);
+    async_commit();
+    for (long long it = 0; g < n_groups; ++it) {
+      const long long gn = sched_group<SCHED>(it + 1);  // the block's next group
+      if (gn < n_groups) {
+        gather((it & 1) ? work0 : work1, gn);
+        async_commit();
+        async_wait<1>();
+      } else {
+        async_wait<0>();
+      }
+      __syncthreads();  // this group's copies landed, every thread's
+      compute((it & 1) ? work1 : work0, g);
+      __syncthreads();  // its last reads, before the next gather into its area
+      g = gn;
+    }
+  } else {
+    // the slab after the work area, then its mbarrier and tables
+    const int nseg = pipe_max_segments(CPB, pa.ncx);
+    unsigned char* const slab = smem_raw + AREA;
+    unsigned char* const ptab = slab + pipe_slab_bytes(CPB, nseg, sizeof(T));
+    uint64_t* const bar = reinterpret_cast<uint64_t*>(ptab);
+    PipeRun* const pruns = reinterpret_cast<PipeRun*>(ptab + 8);
+    PipeCell* const pcells = reinterpret_cast<PipeCell*>(pruns + nseg * kPipeRuns);
+    auto start = [&](long long gi) {
+      pipe_start(slab, bar, pruns, pcells, gi * CPB, group_cells(gi), CPB, u, p, us, n_u, pa.ncx,
+                 pa.ncy);
+    };
+    auto assemble = [&](long long gi) {
+      pipe_assemble<ProbeLines>(work0, slab, pruns, pcells, group_cells(gi), CPB, mask_u, mask_p,
+                                n_u);
+    };
+    if (threadIdx.x == 0) bar_init(bar, blockDim.x);
+    __syncthreads();
+    if (g < n_groups) {
+      start(g);
+      __syncthreads();  // the tables
+      bar_wait(bar, 0);
+      assemble(g);
+    }
+    __syncthreads();
+    for (long long it = 0; g < n_groups; ++it) {
+      const long long gn = sched_group<SCHED>(it + 1);  // the block's next group
+      const bool more = gn < n_groups;
+      if (more) start(gn);  // the slab and tables: the last assembly is behind a barrier
+      compute(work0, g);
+      __syncthreads();  // the integration's last reads of the work area
+      if (more) {
+        bar_wait(bar, (unsigned)((it + 1) & 1));
+        assemble(gn);
+      }
+      __syncthreads();
+      g = gn;
+    }
+  }
+}
+
 // PRES: the pressure input and the pressure rows; the velocity-only entry
 // (no pressure) skips the pressure evaluation and integration stages.
 // SRC, STREAM, DST: gather source, u* stream and output (see the top). With
@@ -1315,8 +1457,9 @@ __device__ __forceinline__ void cell_lines(
 // tables. PH: the phases run (kPhAll for every production entry). SCHED: the
 // schedule of the gather against the compute: kSchedOnce (every production
 // entry, K11, K12, K13's phase masks) runs the one-shot body cell_lines with
-// its compile-time CPB cells per block (cpb is then unused); K13's
-// schedules run cell_staged with cpb cells per group.
+// its compile-time CPB cells per block, K13's pipe and unroll2 its stages on
+// a persistent grid (cell_sched, CPB sched_cpb), both with cpb unused;
+// rowdma runs cell_staged with cpb cells per group.
 template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM,
           int DST, typename T, int PH = kPhAll, int SCHED = kSchedOnce>
 __global__ void __launch_bounds__(kThreads, (min_blocks<SCHED>()))
@@ -1345,8 +1488,12 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     static_assert(PH == kPhAll && DIM == 3 && N1 == 3 && Q1 == 3 && P1 == 2 && PRES &&
                       SRC == kSrcTable && STREAM == kStreamDofs && DST == kOutScatter,
                   "schedules: 3D Q2/Q1 with pressure, nodal in and out only");
-    cell_staged<T, SCHED>(smem_raw, u, p, us, cell_u, cell_p, mask_u, mask_p, out_u, out_p,
-                          n_u, n_cells, cpb, tab, sc, pa);
+    if constexpr (SCHED == kSchedRowAsync)
+      cell_staged<T>(smem_raw, u, p, us, cell_u, cell_p, mask_u, mask_p, out_u, out_p, n_u,
+                     n_cells, cpb, tab, sc);
+    else
+      cell_sched<T, SCHED>(smem_raw, u, p, us, cell_u, cell_p, mask_u, mask_p, out_u, out_p,
+                           n_u, n_cells, tab, sc, pa);
   }
 }
 
@@ -1528,21 +1675,26 @@ int launch_cells(int mode, int pres, int dim, int degree, const void* u, const v
 // Launch a K13 schedule of the cell kernel (3D Q2/Q1, table source, atomic
 // scatter, constant coefficients) on a persistent grid: as many blocks as
 // fit resident on the card, at most one per cell group (kSchedPair: per pair
-// of groups). Shared memory: the tables, one work area of CPB cells (two for
-// kSchedPair), two staging slots of CPB cells (kSchedRowAsync, kSchedPipe),
-// the pipe's slab, its mbarrier and tables; each region a multiple of 16
-// bytes.
+// of groups). Shared memory and cells per group: rowdma's staged body takes
+// the 1D tables, a work area of CPB = 32 KB // 13,824 (float64) cells and
+// two staging slots of CPB cells; pipe and unroll2 on the one-shot body take
+// sched_lines_bytes at sched_cpb, the pipe's slab with the segments of a
+// lattice of ncx cells along x.
 template <typename T>
 size_t schedule_smem(int sched, int ncx, int* cpb_out) {
-  using S = Staged;
-  const size_t cell_bytes = (size_t)S::SLOTS * S::NB * sizeof(T);
-  int cpb = (int)(32768 / cell_bytes);
-  if (cpb < 1) cpb = 1;
-  size_t smem = 3 * kMaxTab * sizeof(T) + (sched == kSchedPair ? 2 : 1) * cpb * cell_bytes;
-  if (sched == kSchedRowAsync || sched == kSchedPipe)
-    smem += 2 * (size_t)cpb * (6 * S::NB + S::NP) * sizeof(T);
-  if (sched == kSchedPipe)
-    smem += pipe_slab_bytes(cpb, ncx, sizeof(T)) + pipe_table_bytes(cpb, ncx);
+  int cpb;
+  size_t smem;
+  if (sched == kSchedRowAsync) {
+    using S = Staged;
+    const size_t cell_bytes = (size_t)S::SLOTS * S::NB * sizeof(T);
+    cpb = (int)(32768 / cell_bytes);
+    if (cpb < 1) cpb = 1;
+    smem = 3 * kMaxTab * sizeof(T) + cpb * cell_bytes +
+           2 * (size_t)cpb * (6 * S::NB + S::NP) * sizeof(T);
+  } else {
+    cpb = sched == kSchedPipe ? sched_cpb<kSchedPipe, T>() : sched_cpb<kSchedPair, T>();
+    smem = sched_lines_bytes<T>(sched, cpb, sched == kSchedPipe ? pipe_max_segments(cpb, ncx) : 0);
+  }
   if (cpb_out != nullptr) *cpb_out = cpb;
   return smem;
 }
@@ -1642,11 +1794,12 @@ int launch_variant(int phases, int lattice, int sched, const void* u, const void
   }
 }
 
-// Shared memory of one block and resident blocks per SM of a schedule.
+// Cells per group, shared memory of one block and resident blocks per SM of
+// a schedule.
 template <typename T>
-int residency(int sched, int ncx, int* smem, int* blocks_per_sm) {
+int residency(int sched, int ncx, int* cpb, int* smem, int* blocks_per_sm) {
   if (sched == kSchedPipe && ncx < 1) return (int)cudaErrorInvalidValue;
-  const size_t bytes = schedule_smem<T>(sched, ncx, nullptr);
+  const size_t bytes = schedule_smem<T>(sched, ncx, cpb);
   *smem = (int)bytes;
   return with_schedule<T>(sched, [&](auto kern) {
     return (int)resident_blocks(kern, bytes, blocks_per_sm);
@@ -1771,12 +1924,14 @@ int adaflo_coupled_variant(int dtype, int phases, int lattice, int sched, const 
 }
 
 // K13's schedules (sched kSchedRowAsync, kSchedPipe, kSchedPair) in the
-// probe configuration: the dynamic shared memory of one block (smem, bytes)
-// and the blocks of 128 threads one SM holds (the occupancy calculator);
-// ncx: the lattice's cells along x (the pipe's slab depends on it).
-int adaflo_coupled_residency(int dtype, int sched, int ncx, int* smem, int* blocks_per_sm) {
-  if (dtype == 1) return residency<double>(sched, ncx, smem, blocks_per_sm);
-  if (dtype == 0) return residency<float>(sched, ncx, smem, blocks_per_sm);
+// probe configuration: the cells per group (cpb), the dynamic shared memory
+// of one block (smem, bytes) and the blocks of 128 threads one SM holds (the
+// occupancy calculator); ncx: the lattice's cells along x (the pipe's slab
+// depends on it).
+int adaflo_coupled_residency(int dtype, int sched, int ncx, int* cpb, int* smem,
+                             int* blocks_per_sm) {
+  if (dtype == 1) return residency<double>(sched, ncx, cpb, smem, blocks_per_sm);
+  if (dtype == 0) return residency<float>(sched, ncx, cpb, smem, blocks_per_sm);
   return (int)cudaErrorInvalidValue;
 }
 

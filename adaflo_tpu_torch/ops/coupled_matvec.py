@@ -114,6 +114,10 @@ K13_VARIANTS = {
 # apply with its gather overlapped with its compute by asynchronous copies
 SCHED_ONCE, SCHED_ROW_ASYNC, SCHED_PIPE, SCHED_PAIR = 0, 1, 2, 3
 K13_SCHEDULES = {"rowdma": SCHED_ROW_ASYNC, "pipe": SCHED_PIPE, "unroll2": SCHED_PAIR}
+# the body each schedule runs: the one-shot body's stages ("lines": cell_lines,
+# and pipe and unroll2 through its split gather and compute) or the staged
+# body ("staged": cell_staged, rowdma's alone)
+SCHEDULE_BODY = {"full": "lines", "rowdma": "staged", "pipe": "lines", "unroll2": "lines"}
 VARIANTS = K12_VARIANTS | K13_VARIANTS | {name: PH_ALL for name in K13_SCHEDULES}
 for _name in VARIANTS:
     launches[f"coupled_apply_ablated[{_name}]"] = 0
@@ -694,7 +698,7 @@ def bind(lib):
     lib.adaflo_scatter_cells.argtypes = [i] + [vp] * 5 + [ll, ll, vp]
     lib.adaflo_scatter_cells.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.adaflo_coupled_residency.argtypes = [i, i, i, ip, ip]
+    lib.adaflo_coupled_residency.argtypes = [i, i, i, ip, ip, ip]
     lib.adaflo_coupled_residency.restype = i
     lib.adaflo_coupled_geometry.argtypes = [i] * 5 + [ip] * 3
     lib.adaflo_coupled_geometry.restype = i
@@ -967,21 +971,23 @@ def coupled_apply_ablated(u, p, u_star, cells: CoupledCells, sc: ApplyScalars, p
 
 def schedule_residency(dtype, name: str, ncx: int) -> dict:
     """The cell kernel in the probe configuration under K13's schedule
-    `name` (or "full", the one-shot body of K1's instance): the shared
-    memory of one block in bytes ("smem") and the blocks of 128 threads one
-    SM holds ("blocks_per_sm", the CUDA occupancy calculator), on a lattice
-    of ncx cells along x. Needs the kernel library (a CUDA device)."""
+    `name` (or "full", the one-shot body of K1's instance): the body it runs
+    ("body", SCHEDULE_BODY), its cells per group ("cpb", a compile-time
+    constant), the shared memory of one block in bytes ("smem") and the
+    blocks of 128 threads one SM holds ("blocks_per_sm", the CUDA occupancy
+    calculator), on a lattice of ncx cells along x. Needs the kernel library
+    (a CUDA device)."""
     if name == "full":
-        g = cell_geometry(dtype, MODE_NODAL, True, 3, 2)
-        return {"smem": g["smem"], "blocks_per_sm": g["blocks_per_sm"]}
-    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        return {"body": SCHEDULE_BODY[name], **cell_geometry(dtype, MODE_NODAL, True, 3, 2)}
+    cpb, smem, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     rc = load_library().adaflo_coupled_residency(
         1 if dtype == torch.float64 else 0, K13_SCHEDULES[name], ncx,
-        ctypes.byref(smem), ctypes.byref(blocks),
+        ctypes.byref(cpb), ctypes.byref(smem), ctypes.byref(blocks),
     )
     if rc != 0:
         raise RuntimeError(f"coupled apply residency query failed (CUDA error {rc})")
-    return {"smem": smem.value, "blocks_per_sm": blocks.value}
+    return {"body": SCHEDULE_BODY[name], "cpb": cpb.value, "smem": smem.value,
+            "blocks_per_sm": blocks.value}
 
 
 # the production instances of the cell kernel: (entry, mode, pres) per table

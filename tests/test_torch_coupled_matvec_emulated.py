@@ -152,6 +152,51 @@ def test_emulated_block_entries_match_plain_versions(
     assert err <= (1e-12 if dtype == torch.float64 else 1e-5) * float(ref.abs().max())
 
 
+# SHA-256 (its first 32 hex digits) of the cell-block entries' outputs, ENTRIES
+# in turn, on _case's box with Dirichlet rows, the x blocks and u* streams
+# drawn from default_rng(7) in that order: the one-shot body's bits before
+# its gather and its compute became two functions (the periodic channel's
+# BiCGStab inner solves follow K3's last bit)
+BLOCK_DIGESTS = {
+    (3, 2, torch.float64): "4d102b5b289fd5d4c6a6dca85c6ae12e",
+    (3, 2, torch.float32): "00753a54d339907e34edd2d2a1f4198c",
+    (2, 2, torch.float64): "3727c2f13f0f54e10b3675a2e60275c4",
+    (2, 2, torch.float32): "7cfa2388f90fc479acf82fea864fd037",
+    (3, 3, torch.float64): "2119250a3633d659717ada3ef0a7043c",
+    (3, 3, torch.float32): "73d0d5afa641a200d77a09fca4bf7177",
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("dim,degree", SETS, ids=["3d-q2", "2d-q2", "3d-q3"])
+def test_emulated_block_entries_keep_their_bits(emulated, dim, degree, dtype):
+    """K3 (both streams) and K4, coupled and velocity-only, write the
+    (E, n_cols) blocks they wrote before, bit for bit (BLOCK_DIGESTS): each
+    output element is written once, so the one-shot body is deterministic."""
+    import hashlib
+
+    cells, u, p, s, _ = _case(dim, degree, dtype, True)
+    sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
+    rng = np.random.default_rng(7)
+    E, nl, npl = cells.n_cells, cells.ev_u.n_local, cells.ev_p.n_local
+    t = lambda *shape: torch.tensor(rng.standard_normal(shape), dtype=dtype)
+    digest = hashlib.sha256()
+    for entry in ENTRIES:
+        velocity = entry.endswith("velocity")
+        got = torch.full((E, dim * nl + (0 if velocity else npl)), float("nan"), dtype=dtype)
+        if entry.startswith("gather"):
+            cm._launch_cells(cm.MODE_GATHER, not velocity, u, None if velocity else p, s, cells,
+                             sc, None, got, None)
+        else:
+            qfields = "qfields" in entry
+            x = t(*got.shape)
+            stream = t(E, dim * (dim + 1), cells.n_q) if qfields else t(E, dim * nl)
+            cm._launch_cells(cm.MODE_CELLS_QFIELDS if qfields else cm.MODE_CELLS, not velocity,
+                             x, None, stream, cells, sc, None, got, None)
+        digest.update(got.numpy().tobytes())
+    assert digest.hexdigest()[:32] == BLOCK_DIGESTS[(dim, degree, dtype)]
+
+
 def _box4(dtype, shape=(4, 4, 4)):
     """The probes' Dirichlet box at 4^3 cells (or `shape`), Q2/Q1, with its
     masks (every velocity boundary dof, one pressure dof) and the lattice
@@ -195,32 +240,62 @@ def test_emulated_probe_instances_match_plain_versions(emulated, probe, variant,
     assert joint_err(got, ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)
 
 
-# boxes for the schedules: 4^3 (32 cell groups in float64, 16 in float32),
-# 3 x 3 x 2 (9 and 5, odd; groups straddle x-row ends) and 1 x 3 x 3 (5 and
-# 3, odd; one cell per x-row, so a float32 group spans 4 rows)
-SCHED_SHAPES = [(4, 4, 4), (3, 3, 2), (1, 3, 3)]
+# boxes for the schedules, at each schedule's cells per group (rowdma 2
+# float64 / 4 float32, pipe 7 / 14, unroll2 5 / 10): 4^3 (every schedule
+# many groups per block of the persistent grid; an odd count for unroll2 in
+# float64), 3 x 3 x 2 and 1 x 3 x 3 (rowdma loops; pipe and unroll2 have no
+# more groups, or pairs, than the grid has blocks, so a block runs its
+# prologue's group alone), 9 x 5 x 2 (every count of groups, or pairs, odd
+# and more than the grid: not a multiple of it; groups straddle x-row ends,
+# a float32 pipe group three rows) and 1 x 7 x 7 (one cell per x-row, so a
+# pipe group has a segment per cell; every schedule loops)
+SCHED_SHAPES = [(4, 4, 4), (3, 3, 2), (1, 3, 3), (9, 5, 2), (1, 7, 7)]
+
+
+def _sched_units(schedule, dtype, shape):
+    """(cell groups, persistent-grid units: groups or, for unroll2, pairs,
+    blocks of the emulated grid) of a schedule on a box of `shape` cells."""
+    cpb = cm.schedule_residency(dtype, schedule, shape[0])["cpb"]
+    groups = -(-int(np.prod(shape)) // cpb)
+    units = -(-groups // 2) if schedule == "unroll2" else groups
+    return groups, units, min(units, EMU_SMS)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("shape", SCHED_SHAPES, ids=["x".join(map(str, s)) for s in SCHED_SHAPES])
 @pytest.mark.parametrize("schedule", list(cm.K13_SCHEDULES))
 def test_emulated_schedules_match_full_plain_version(emulated, schedule, shape, dtype):
-    """K13's schedules (rowdma, pipe, unroll2) with Dirichlet masks (the
+    """K13's schedules (rowdma on the staged body; pipe and unroll2 on the
+    one-shot body's gather and compute) with Dirichlet masks (the
     zero-filled copies) write full's nodal output. The emulated card has
-    EMU_SMS SMs of one resident block, fewer blocks than cell groups (pairs
-    for unroll2), so each block loops over its groups through both staging
-    slots (both work areas), and an odd group count leaves a last pair
-    without its second group."""
+    EMU_SMS SMs of one resident block; where there are more groups (pairs
+    for unroll2) than blocks, each block loops over its groups through both
+    staging slots (both work areas; the pipe's slab and its one work area),
+    and an odd group count leaves a last pair without its second group."""
     cells, u, p, s, _ = _box4(dtype, shape)
     sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
-    cpb = 32768 // (64 * 27 * (8 if dtype == torch.float64 else 4))
-    groups = -(-cells.n_cells // cpb)
-    assert groups > EMU_SMS
     ref = cm.coupled_apply_ablated_plain(u, p, s, cells, sc, schedule)
     got = (torch.zeros_like(u), torch.zeros_like(p))
     cm._launch_variant(cm.PH_ALL, None, u, p, s, cells, sc, None, *got,
                        sched=cm.K13_SCHEDULES[schedule])
     assert joint_err(got, ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("schedule", list(cm.K13_SCHEDULES))
+def test_emulated_schedule_boxes_cover_every_loop(emulated, schedule, dtype):
+    """SCHED_SHAPES hold, at each schedule's own cells per group, a box
+    whose blocks loop over several groups, one with an odd group count, one
+    whose count of groups (pairs for unroll2) is odd and more than the grid
+    (not a multiple of it), one whose groups straddle x-row ends and one of a
+    cell per x-row."""
+    cpb = cm.schedule_residency(dtype, schedule, 1)["cpb"]
+    runs = {shape: _sched_units(schedule, dtype, shape) for shape in SCHED_SHAPES}
+    assert any(units > grid for _, units, grid in runs.values())
+    assert any(groups % 2 == 1 and units > grid for groups, units, grid in runs.values())
+    assert any(units > grid and units % grid for _, units, grid in runs.values())
+    assert any(shape[0] % cpb and units > grid for shape, (_, units, grid) in runs.items())
+    assert any(shape[0] == 1 and units > grid for shape, (_, units, grid) in runs.items())
 
 
 def test_emulated_schedule_entry_refuses_what_it_does_not_instance(emulated):
@@ -245,25 +320,38 @@ def test_emulated_schedule_entry_refuses_what_it_does_not_instance(emulated):
 
 
 def test_emulated_residency_counts_each_schedules_shared_memory(emulated):
-    """The residency entry's shared memory per block at 48 cells along x.
-    The schedules (the staged body): the 1D tables (3 x 16 values) and CPB =
-    32768 // 13,824 (float64) or // 6,912 (float32) cells of 64 x 27-value
-    work slots (two work areas for unroll2), two staging slots of CPB x 170
-    values (rowdma, pipe), and the pipe's slab (2 segments of 54 velocity and
-    4 pressure run slots, each the 16-byte aligned size of a run plus 15
-    bytes) with its mbarrier and tables (8 + 2 x 58 x 8 + CPB x 8 bytes, to
-    16). "full" (the one-shot body of K1's instance): 10 cells (float64) or
-    20 (float32) of 699 values (test_emulated_geometry_of_production_instances).
-    The emulated card holds one block per SM."""
+    """The residency entry's body, cells per group and shared memory per
+    block at 48 cells along x. rowdma (the staged body): the 1D tables (3 x
+    16 values), CPB = 32768 // 13,824 (float64) or // 6,912 (float32) cells
+    of 64 x 27-value work slots and two staging slots of CPB x 170 values.
+    pipe and unroll2 (the one-shot body): work areas of CPB cells of 699
+    values, each rounded up to 16 bytes; pipe one, with its slab (2
+    segments of 54 velocity and 4 pressure run slots, each the 16-byte
+    aligned size of a run plus 15 bytes: 144 and 80 B at CPB 7 float64 and
+    CPB 14 float32) and its mbarrier and tables (8 + 2 x 58 x 8 + CPB x 8
+    bytes, to 16); unroll2 two. CPB is the most, up to full's, at which four
+    blocks and their 1 KB of reserve fit 228 KB: pipe 7 float64 (8 would
+    take 63,792 B) and 14 float32, unroll2 5 and 10. "full" (the one-shot
+    body of K1's instance): 10 cells (float64) or 20 (float32) of 699 values
+    (test_emulated_geometry_of_production_instances). The emulated card
+    holds one block per SM."""
+    pipe_tables = {7: 992, 14: 1056}
     expect = {
-        torch.float64: {"full": 10 * 699 * 8, "rowdma": 33472, "pipe": 33472 + 2 * 3648 + 960,
-                        "unroll2": 55680},
-        torch.float32: {"full": 20 * 699 * 4, "rowdma": 33280, "pipe": 33280 + 2 * 3648 + 976,
-                        "unroll2": 55488},
+        torch.float64: {"full": ("lines", 10, 10 * 699 * 8),
+                        "rowdma": ("staged", 2, 33472),
+                        "pipe": ("lines", 7, 39152 + 2 * (54 * 144 + 4 * 80) + pipe_tables[7]),
+                        "unroll2": ("lines", 5, 2 * 27968)},
+        torch.float32: {"full": ("lines", 20, 20 * 699 * 4),
+                        "rowdma": ("staged", 4, 33280),
+                        "pipe": ("lines", 14, 39152 + 2 * (54 * 144 + 4 * 80) + pipe_tables[14]),
+                        "unroll2": ("lines", 10, 2 * 27968)},
     }
     for dtype, names in expect.items():
-        for name, smem in names.items():
-            assert cm.schedule_residency(dtype, name, 48) == {"smem": smem, "blocks_per_sm": 1}
+        for name, (body, cpb, smem) in names.items():
+            assert cm.schedule_residency(dtype, name, 48) == {
+                "body": body, "cpb": cpb, "smem": smem, "blocks_per_sm": 1}
+            if name != "full":
+                assert 4 * (smem + 1024) <= 228 * 1024 or body == "staged"
 
 
 def _slots(dim, degree, mode, pres):

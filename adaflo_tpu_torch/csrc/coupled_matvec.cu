@@ -62,8 +62,9 @@
 // "vmult"; the transposed sum factorization integrates them.
 //
 // The one-shot body (every production instance, K11, K12 and K13's phase
-// masks). Every extent is a template constant, so no stage indexes with a
-// runtime division. The work items of the sum factorization are whole 1D
+// masks; K13's pipe and unroll2 run its stages too). Every extent is a
+// template constant, so no stage indexes with a runtime division. The work
+// items of the sum factorization are whole 1D
 // lines of a cell: a thread loads a line's N1 (or Q1) inputs of every field
 // it needs into registers once and writes the V and D contractions of that
 // line (the transposed stages pair V^T and D^T the same way). The 1D
@@ -73,7 +74,8 @@
 // slots, so one cell needs only its slots: 6 items x 4 fields + the
 // pressure, 25 tensors of 27 values at 3D Q2/Q1, 5,592 bytes in float64
 // with the bank padding (the staged body below takes 13,824). The stages:
-// gather; evaluation along x, y, z; the q-point terms, one thread per (cell,
+// gather (lines_gather); evaluation along x, y, z; the q-point terms
+// (lines_compute from here on), one thread per (cell,
 // q point), over the point's own positions; integration along x, y, z,
 // whose last lines add their outputs into the nodal vectors (atomicAdd) or
 // store the cell block. Seven barriers per group of cells (3D), five in 2D.

@@ -137,11 +137,11 @@ def _ptxas(log: str, key_of) -> dict:
     return out
 
 
-def schedule_registers(log: str) -> dict:
-    """{"<schedule> <dtype>": registers per thread} of the instances of
-    schedule_counts, from the ptxas lines of an nvcc -Xptxas -v build log."""
-    return {k: v["registers"] for k, v in _ptxas(log, _schedule_key).items()
-            if v["registers"] is not None}
+def schedule_ptxas(log: str) -> dict:
+    """{"<schedule> <dtype>": {"registers", "stack", "spill_stores",
+    "spill_loads"}} of the instances of schedule_counts, from the ptxas
+    lines of an nvcc -Xptxas -v build log."""
+    return _ptxas(log, _schedule_key)
 
 
 def production_name(entry: str, dim: int, degree: int, dtype: str) -> str:

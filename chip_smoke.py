@@ -9,12 +9,14 @@ Phases:
      one-shot body (each entry at each table set, float64 and float32): its
      registers, stack and spills (ptxas), cells per block, shared memory per
      block and resident blocks per SM (cm.cell_geometry), and its SASS LDS
-     against DFMA/FFMA; none may spill; the SASS of K13's three schedules of the cell
-     kernel (scripts/sass_counts): rowdma and unroll2 must hold cp.async
+     against DFMA/FFMA; none may spill; K13's three schedules of the cell
+     kernel beside the one-shot full apply: the body each runs (pipe and
+     unroll2 the one-shot body's stages, rowdma the staged body), its cells
+     per group, registers and spills (ptxas), shared memory per block and
+     resident blocks per SM (the occupancy calculator), none may spill, and
+     their SASS (scripts/sass_counts): rowdma and unroll2 must hold cp.async
      (LDGSTS), pipe bulk copies (UBLKCP) and mbarrier operations (SYNCS);
-     beside it each schedule's registers, shared memory per block and
-     resident blocks per SM (the occupancy calculator), and the one-shot
-     full apply's; the SASS of the dense dot's 17 instances (K5, K9): each
+     the SASS of the dense dot's 17 instances (K5, K9): each
      must hold TMA tile loads (UTMALDG) and mbarrier operations (SYNCS), and
      wgmma (HGMMA) in bf16 and TF32, DMMA in float64, FFMA in float32
      (sass_counts.DOT_OPS); beside it each instance's registers, stack and
@@ -732,31 +734,40 @@ def run_sf_probes():
 
 def check_schedule_build(cm):
     """Phase 1: K13's schedules (and the one-shot full apply beside them) in
-    the built library: SASS counts, each schedule holding its asynchronous
-    copies (scripts.sass_counts.SCHEDULE_OPS), ptxas registers, and shared
-    memory and resident blocks per SM at the probes' 48 cells along x.
-    Returns {"<name> <double|float>": record}."""
+    the built library: the body each runs and its cells per group, ptxas
+    registers, stack and spills, shared memory and resident blocks per SM at
+    the probes' 48 cells along x, and SASS counts. Every schedule must hold
+    its asynchronous copies (scripts.sass_counts.SCHEDULE_OPS), and no
+    instance may spill or be missing from the ptxas report. Returns
+    {"<name> <double|float>": record}."""
     import torch
 
     from adaflo_tpu_torch.scripts import sass_counts
 
     sass = sass_counts.schedule_counts(cm.library_path())
-    regs = sass_counts.schedule_registers(cm.build_info.get("log", ""))
+    ptxas = sass_counts.schedule_ptxas(cm.build_info.get("log", ""))
     out = {}
     for name in ("full",) + tuple(cm.K13_SCHEDULES):
         for t, dtype in (("double", torch.float64), ("float", torch.float32)):
             key = f"{name} {t}"
             c = sass.get(key, {})
-            out[key] = dict(sass=c, registers=regs.get(key),
-                            **cm.schedule_residency(dtype, name, 48))
-            print(f"schedule {key}: {out[key]['registers']} registers, {out[key]['smem']} B "
-                  f"shared, {out[key]['blocks_per_sm']} blocks/SM; SASS " + ", ".join(
+            r = out[key] = dict(sass=c, **ptxas.get(key, {}),
+                                **cm.schedule_residency(dtype, name, 48))
+            print(f"schedule {key}: {r['body']} body, {r['cpb']} cells/group, "
+                  f"{r.get('registers')} registers, stack {r.get('stack')} B, spills "
+                  f"{r.get('spill_stores')} / {r.get('spill_loads')} B, {r['smem']} B shared, "
+                  f"{r['blocks_per_sm']} blocks/SM ({r['cpb'] * r['blocks_per_sm']} cells/SM); "
+                  "SASS " + ", ".join(
                       f"{op} {c.get(op, 0)}"
-                      for op in ("LDGSTS", "UBLKCP", "SYNCS", "LDG", "LDS", "DFMA", "FFMA")),
+                      for op in ("LDGSTS", "UBLKCP", "SYNCS", "LDG", "LDS", "STS", "DFMA", "FFMA")),
                   flush=True)
     missing = sass_counts.check_schedules(sass)
     if missing:
         raise AssertionError(f"schedules without their asynchronous copies: {missing}")
+    bad = [k for k, r in out.items()
+           if r.get("registers") is None or r.get("spill_stores") or r.get("spill_loads")]
+    if bad:
+        raise AssertionError(f"schedule instances missing or spilling registers: {bad}")
     return out
 
 

@@ -495,8 +495,8 @@ def test_pipe_schedule_refuses_periodic_lattices():
 def test_sass_counts_find_the_schedule_instances():
     """sass_counts keys the probe configuration's cell kernel instances by
     schedule and type from their mangled names (ptxas and cuobjdump print
-    those), skips other instances, and flags a schedule whose SASS lacks its
-    asynchronous copies."""
+    those), skips other instances, reads each one's registers and spills,
+    and flags a schedule whose SASS lacks its asynchronous copies."""
     from adaflo_tpu_torch.scripts import sass_counts
 
     name = "_ZN12_GLOBAL__N_119coupled_cell_kernelILi3ELi3ELi3ELi2ELb1ELi0ELi0ELi0E{}Li{}ELi{}EEEvPKT7_"
@@ -510,7 +510,11 @@ def test_sass_counts_find_the_schedule_instances():
         f"ptxas info    : Compiling entry function '{name.format('f', 63, 0)}' for 'sm_90a'",
         "ptxas info    : Used 40 registers, used 1 barriers, 384 bytes cmem[0]",
     ])
-    assert sass_counts.schedule_registers(log) == {"pipe double": 70, "full float": 40}
+    clean = {"stack": 0, "spill_stores": 0, "spill_loads": 0}
+    assert sass_counts.schedule_ptxas(log) == {"pipe double": {"registers": 70, **clean},
+                                               "full float": {"registers": 40, **clean}}
+    spilled = log.replace("0 bytes spill stores", "8 bytes spill stores")
+    assert sass_counts.schedule_ptxas(spilled)["pipe double"]["spill_stores"] == 8
     ok = {f"{n} {t}": {op: 1 for op in ops}
           for n, ops in sass_counts.SCHEDULE_OPS.items() for t in ("double", "float")}
     assert sass_counts.check_schedules(ok) == []

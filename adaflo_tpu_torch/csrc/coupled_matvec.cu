@@ -1329,7 +1329,6 @@ __device__ __forceinline__ void pipe_assemble(T* cells, const unsigned char* sla
   }
 }
 
-
 // The shared memory of a pipe or unroll2 block at cpb cells per group: one
 // work area of cpb cells (16-byte aligned at its end) and the pipe's slab of
 // nseg segments with its mbarrier and tables, or unroll2's two work areas.

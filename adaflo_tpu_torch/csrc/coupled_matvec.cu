@@ -62,33 +62,32 @@
 // "vmult"; the transposed sum factorization integrates them.
 //
 // The one-shot body (every production instance, K11, K12 and K13's phase
-// masks; K13's pipe and unroll2 run its stages too). Every extent is a
+// masks; K13's three schedules run its stages too). Every extent is a
 // template constant, so no stage indexes with a runtime division. The work
-// items of the sum factorization are whole 1D
-// lines of a cell: a thread loads a line's N1 (or Q1) inputs of every field
-// it needs into registers once and writes the V and D contractions of that
-// line (the transposed stages pair V^T and D^T the same way). The 1D
-// matrices are a by-value kernel argument, read with compile-time indices,
-// so that each FMA takes its matrix operand from the constant bank. Each
-// line is read and written in place at the same positions of a cell's
-// slots, so one cell needs only its slots: 6 items x 4 fields + the
-// pressure, 25 tensors of 27 values at 3D Q2/Q1, 5,592 bytes in float64
-// with the bank padding (the staged body below takes 13,824). The stages:
+// items of the sum factorization are whole 1D lines of a cell: a thread
+// loads a line's N1 (or Q1) inputs of every field it needs into registers
+// once and writes the V and D contractions of that line (the transposed
+// stages pair V^T and D^T the same way). The 1D matrices are a by-value
+// kernel argument, read with compile-time indices, so that each FMA takes
+// its matrix operand from the constant bank. Each line is read and written
+// in place at the same positions of a cell's slots, so one cell needs only
+// its slots: 6 items x 4 fields + the pressure, 25 tensors of 27 values at
+// 3D Q2/Q1, 5,592 bytes in float64 with the bank padding. The stages:
 // gather (lines_gather); evaluation along x, y, z; the q-point terms
-// (lines_compute from here on), one thread per (cell,
-// q point), over the point's own positions; integration along x, y, z,
-// whose last lines add their outputs into the nodal vectors (atomicAdd) or
-// store the cell block. Seven barriers per group of cells (3D), five in 2D.
-// Shared memory sets the blocks per SM: four, so 40 float64 and 80 float32
-// cells per SM at 3D Q2/Q1 (__launch_bounds__ keeps the registers to 128).
-// The order of every sum is the staged body's, integration x first, and the
-// stress diagonal's roundings are spelled out (fma_rn, mul_rn: left to the
-// compiler, they follow the code around them), so the
-// one-shot body's results are the staged body's bit for bit wherever no
-// atomicAdd reorders them (K3 and K4): fusing the z evaluation, the q-point
-// terms and the z integration in registers ran 10 % faster but reordered
-// the integration's sums, and the periodic channel's BiCGStab inner solves
-// (deterministic, through K3) then took other iteration counts.
+// (lines_compute from here on), one thread per (cell, q point), over the
+// point's own positions; integration along x, y, z, whose last lines add
+// their outputs into the nodal vectors (atomicAdd) or store the cell block.
+// Seven barriers per group of cells (3D), five in 2D. Shared memory sets the
+// blocks per SM: four, so 40 float64 and 80 float32 cells per SM at 3D
+// Q2/Q1 (__launch_bounds__ keeps the registers to 128). The order of every
+// sum is that of the body it replaced (one thread per output element of a
+// 1D contraction from shared memory), integration x first, and the stress
+// diagonal's roundings are spelled out (fma_rn, mul_rn: left to the
+// compiler, they follow the code around them), so K3's and K4's blocks kept
+// their bits: fusing the z evaluation, the q-point terms and the z
+// integration in registers ran 10 % faster but reordered the integration's
+// sums, and the periodic channel's BiCGStab inner solves (deterministic,
+// through K3) then took other iteration counts.
 //
 // Schedules (the SCHED template parameter; K13's TPU schedules, probe
 // instances only). The production schedule kSchedOnce gives each thread
@@ -97,31 +96,31 @@
 // probe's three schedules overlap them inside the kernel with DMAs into VMEM;
 // here they are asynchronous copies into shared memory, on a persistent grid
 // (as many blocks as fit resident, each looping over the cell groups
-// blockIdx.x, blockIdx.x + gridDim.x, ...):
-//   kSchedPipe (pipe)  the one-shot body's gather and compute, split
-//     (lines_gather, lines_compute), in one work area of CPB cells: the next
-//     group's x-runs of the lattice (per row segment of the group 9 runs of
-//     each of the 6 velocity vectors and 4 of the pressure) as 1D bulk
-//     copies (TMA, cp.async.bulk) of their 16-byte aligned supersets into a
-//     slab, completing on an mbarrier while this group computes; after the
+// blockIdx.x, blockIdx.x + gridDim.x, ...), each running the one-shot body's
+// gather and compute, split (lines_gather, lines_compute):
+//   kSchedPipe (pipe)  one work area of CPB cells: the next group's x-runs
+//     of the lattice (per row segment of the group 9 runs of each of the 6
+//     velocity vectors and 4 of the pressure) as 1D bulk copies (TMA,
+//     cp.async.bulk) of their 16-byte aligned supersets into a slab,
+//     completing on an mbarrier while this group computes; after the
 //     barrier that ends this group's integration, the slab is assembled,
 //     masks applied, straight into the work area's gather slots;
-//   kSchedPair (unroll2)  the one-shot body in two work areas: two groups
-//     per iteration pair, the gather of one (one 4- or 8-byte cp.async per
-//     value at the cell table's address, a constrained entry zero-filled by
-//     a source size of 0) in flight into the other work area's gather slots
-//     while the other computes;
-//   kSchedRowAsync (rowdma)  the staged body that every instance ran before
-//     the one-shot body above (cell_staged: each thread one output element
-//     of a 1D contraction, both operands from shared memory, 64 slots of 27
-//     values per cell, 2 float64 cells per block): every dof of the next
-//     group is one cp.async as unroll2's into the other slot of a
-//     double-buffered staging area, in flight while this group computes;
-//     stage x reads the staging slot in place.
-// pipe and unroll2 take CPB at compile time as the most cells per group at
-// which four blocks fit on an SM, as the one-shot body's do (sched_cpb: 7
-// and 5 float64 cells, 14 and 10 float32 at the probe box's 48 cells along
-// x), and the one-shot body's register cap.
+//   kSchedPair (unroll2)  two work areas: two groups per iteration pair, the
+//     gather of one (one 4- or 8-byte cp.async per value at the cell table's
+//     address, a constrained entry zero-filled by a source size of 0) in
+//     flight into the other work area's gather slots while the other
+//     computes;
+//   kSchedRowAsync (rowdma)  one work area and a double-buffered staging
+//     area of the gathered dofs alone (per cell the 6 items' 27 and the
+//     pressure's 8, Lines::SG values): the next group's gather, unroll2's
+//     cp.async per value, in flight into the other staging slot while this
+//     group computes; stage x reads its input lines from this group's
+//     staging slot in place of the work area's gather slots, so no copy
+//     passes through shared memory twice (the pipe's assembly does).
+// Each takes CPB at compile time as the most cells per group at which four
+// blocks fit on an SM, as the one-shot body's do (sched_cpb: rowdma 6,
+// pipe 7 and unroll2 5 float64 cells, 13, 14 and 10 float32 at the probe
+// box's 48 cells along x), and the one-shot body's register cap.
 // Unlike the TPU kernels, every schedule covers every cell (an odd group
 // count leaves the last pair without its second group) and pads nothing
 // that it does not write. Their bound is the full apply's.
@@ -157,9 +156,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#ifdef ADAFLO_EMULATED
-#include <cmath>
-#endif
 
 #include "hopper.cuh"
 
@@ -254,353 +250,8 @@ __device__ __forceinline__ long long sched_group(long long it) {
     return blockIdx.x + it * gridDim.x;
 }
 
-// ---- the staged body: K13's rowdma schedule alone (3D Q2/Q1 with pressure,
-//      table source, u* dofs, constant coefficients, atomic scatter) --------
-
-// A cell's work area of the staged body: SLOTS slots of NB values (see the
-// stage comments of cell_staged)
-struct Staged {
-  static constexpr int DIM = 3, N1 = 3, Q1 = 3, P1 = 2;
-  static constexpr int NL = 27, NQ = 27, NP = 8, NB = 27;
-  static constexpr int IN = 0;
-  static constexpr int S1 = 2 * DIM + 1;
-  static constexpr int S2 = S1 + 4 * DIM + 1;
-  static constexpr int F = S2 + 6 * DIM + 1;
-  static constexpr int SLOTS = F + (DIM + 1) * 2 * DIM + 1;
-};
-
-// One output element of a 1D contraction along axis `ax` (0 = x, the fastest)
-// of a tensor with input extents (e0, e1, e2) (x, y, z); the contracted axis
-// becomes n_out long. M is (Q1 rows, ld cols): forward (tr = false) maps dofs
-// to q points, out[r] = sum_s M[r ld + s] in[s]; transposed (tr = true) maps
-// q points to dofs, out[r] = sum_s M[s ld + r] in[s]. An optional second
-// (in2, M2) pair is added into the same output.
-template <typename T>
-__device__ __forceinline__ void axis_op(T* __restrict__ out, const T* in,
-                                        const T* M, const T* in2, const T* M2,
-                                        int ld, bool tr, int ax, int e0, int e1,
-                                        int e2, int n_out, int o) {
-  const int f0 = ax == 0 ? n_out : e0;
-  const int f1 = ax == 1 ? n_out : e1;
-  const int i0 = o % f0, i1 = (o / f0) % f1, i2 = o / (f0 * f1);
-  int r, base, stride, n_in;
-  if (ax == 0) {
-    r = i0; base = (i2 * e1 + i1) * e0; stride = 1; n_in = e0;
-  } else if (ax == 1) {
-    r = i1; base = i2 * e1 * e0 + i0; stride = e0; n_in = e1;
-  } else {
-    r = i2; base = i1 * e0 + i0; stride = e0 * e1; n_in = e2;
-  }
-  T acc = T(0);
-  for (int s = 0; s < n_in; ++s) {
-    const int k = tr ? s * ld + r : r * ld + s;
-    acc += M[k] * in[base + s * stride];
-    if (in2 != nullptr) acc += M2[k] * in2[base + s * stride];
-  }
-  out[o] = acc;
-}
-
-// The nodal gather of the cells [c0, c0 + nc) into dst (cell stride
-// dstride, item stride NB: u_0 .., u*_0 .., then p) as one cp.async per
-// value, committed by the caller: u and p with their constrained entries
-// zero-filled, u* plain, the addresses from the cell tables.
-template <typename T>
-__device__ __forceinline__ void gather_async(
-    T* dst, int dstride, long long c0, int nc, const T* __restrict__ u,
-    const T* __restrict__ p, const T* __restrict__ us, const int32_t* __restrict__ cell_u,
-    const int32_t* __restrict__ cell_p, const uint8_t* __restrict__ mask_u,
-    const uint8_t* __restrict__ mask_p, long long n_u) {
-  constexpr int DIM = 3, NL = Staged::NL, NP = Staged::NP, NB = Staged::NB, NI = 2 * DIM;
-  constexpr int per_g = NI * NL + NP;
-  for (int t = threadIdx.x; t < nc * per_g; t += blockDim.x) {
-    const int cell = t / per_g, k = t % per_g;
-    const long long e = c0 + cell;
-    const T* src;
-    bool zero = false;
-    int at;
-    if (k < NI * NL) {
-      const int item = k / NL, l = k % NL;
-      const long long dof = cell_u[e * NL + l];
-      if (item < DIM) {
-        const long long g = item * n_u + dof;
-        src = u + g;
-        zero = mask_u != nullptr && mask_u[g];
-      } else {
-        src = us + (item - DIM) * n_u + dof;
-      }
-      at = item * NB + l;
-    } else {
-      const int l = k - NI * NL;
-      const long long dof = cell_p[e * NP + l];
-      src = p + dof;
-      zero = mask_p != nullptr && mask_p[dof];
-      at = NI * NB + l;
-    }
-    async_copy(dst + cell * dstride + at, src, zero);
-  }
-}
-
-// K13's rowdma: the apply of the cell groups of this block (sched_group)
-// with the next group's gather in flight (see the top). Each stage thread
-// computes one output element of a 1D contraction from shared memory
-// (axis_op); every intermediate stays in the cell's work area.
-template <typename T>
-__device__ __forceinline__ void cell_staged(
-    unsigned char* smem_raw, const T* __restrict__ u, const T* __restrict__ p,
-    const T* __restrict__ us, const int32_t* __restrict__ cell_u,
-    const int32_t* __restrict__ cell_p, const uint8_t* __restrict__ mask_u,
-    const uint8_t* __restrict__ mask_p, T* __restrict__ out_u, T* __restrict__ out_p,
-    long long n_u, long long n_cells, int cpb, const Tables<T>& tab, const Scalars<T>& sc) {
-  using S = Staged;
-  constexpr int DIM = S::DIM, N1 = S::N1, Q1 = S::Q1, P1 = S::P1;
-  constexpr int NL = S::NL, NQ = S::NQ, NP = S::NP, NB = S::NB;
-  constexpr int IN = S::IN, S1 = S::S1, S2 = S::S2, F = S::F;
-  constexpr int CS = S::SLOTS * NB;  // per-cell stride in elements
-  constexpr int FI = DIM + 1;        // final fields per item: value + grads
-  constexpr int NI = 2 * DIM;        // items: u_0.., u*_0..
-  constexpr int LDX = DIM * NL + NP;
-  // stage x reads the gathered inputs in a staging slot of SG elements per
-  // cell (item stride NB, the pressure after the items)
-  constexpr int SG = NI * NB + NP;
-
-  // shared memory: the 1D tables, the work area, the two staging slots (see
-  // schedule_smem)
-  T* sV = reinterpret_cast<T*>(smem_raw);
-  T* sD = sV + kMaxTab;
-  T* sVp = sD + kMaxTab;
-  T* const buf = sVp + kMaxTab;
-  T* const stg = buf + cpb * CS;
-
-  const int tid = threadIdx.x, nth = blockDim.x;
-  for (int i = tid; i < kMaxTab; i += nth) {
-    sV[i] = tab.V[i];
-    sD[i] = tab.D[i];
-    sVp[i] = tab.Vp[i];
-  }
-  const long long n_groups = (n_cells + cpb - 1) / cpb;
-  auto group_cells = [&](long long g) { return (int)min((long long)cpb, n_cells - g * cpb); };
-  long long g = sched_group<kSchedRowAsync>(0);
-
-  // ---- the prologue: the block's first group in flight ----------------------
-  if (g < n_groups)
-    gather_async(stg, SG, g * cpb, group_cells(g), u, p, us, cell_u, cell_p, mask_u, mask_p,
-                 n_u);
-  async_commit();
-
-  // one iteration per cell group of this block
-  for (long long it = 0; g < n_groups; ++it) {
-    const long long gn = sched_group<kSchedRowAsync>(it + 1);  // the block's next group
-    const long long c0 = g * cpb;
-    const int nc = group_cells(g);
-    // where stage x finds this group's gathered inputs
-    const T* const gin = stg + (it & 1) * cpb * SG;
-    constexpr int gstride = SG;
-
-    // ---- the next group's gather in flight (into the other staging slot),
-    //      this group's landed ---------------------------------------------
-    if (gn < n_groups) {
-      gather_async(stg + ((it + 1) & 1) * cpb * SG, SG, gn * cpb, group_cells(gn), u, p, us,
-                   cell_u, cell_p, mask_u, mask_p, n_u);
-      async_commit();
-      async_wait<1>();
-    } else {
-      async_wait<0>();
-    }
-    __syncthreads();
-
-    // ---- evaluation, stage x: A0 = Vx u, A1 = Dx u; pressure Vpx p ---------
-    {
-      constexpr int n1 = N1 * N1 * Q1, np1 = P1 * P1 * Q1;
-      constexpr int per = NI * 2 * n1 + np1;
-      for (int t = tid; t < nc * per; t += nth) {
-        T* cb = buf + (t / per) * CS;
-        int k = t % per;
-        if (k < NI * 2 * n1) {
-          const int item = k / (2 * n1), which = (k / n1) % 2, o = k % n1;
-          axis_op<T>(cb + (S1 + 2 * item + which) * NB,
-                     gin + (t / per) * gstride + item * NB, which ? sD : sV, nullptr,
-                     nullptr, N1, false, 0, N1, N1, N1, Q1, o);
-        } else {
-          k -= NI * 2 * n1;
-          axis_op<T>(cb + (S1 + 2 * NI) * NB, gin + (t / per) * gstride + NI * NB, sVp,
-                     nullptr, nullptr, P1, false, 0, P1, P1, P1, Q1, k);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- evaluation, stage y: B00 = Vy A0, B01 = Dy A0, B10 = Vy A1 -------
-    {
-      constexpr int n2 = Q1 * Q1 * N1, np2 = Q1 * Q1 * P1;
-      constexpr int per = NI * 3 * n2 + np2;
-      for (int t = tid; t < nc * per; t += nth) {
-        T* cb = buf + (t / per) * CS;
-        int k = t % per;
-        if (k < NI * 3 * n2) {
-          const int item = k / (3 * n2), which = (k / n2) % 3, o = k % n2;
-          const T* src = cb + (S1 + 2 * item + (which == 2 ? 1 : 0)) * NB;
-          axis_op<T>(cb + (S2 + 3 * item + which) * NB, src, which == 1 ? sD : sV, nullptr,
-                     nullptr, N1, false, 1, Q1, N1, N1, Q1, o);
-        } else {
-          k -= NI * 3 * n2;
-          axis_op<T>(cb + (S2 + 3 * NI) * NB, cb + (S1 + 2 * NI) * NB, sVp, nullptr,
-                     nullptr, P1, false, 1, Q1, P1, P1, Q1, k);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- evaluation, stage z: value = Vz B00, d/dx = Vz B10, d/dy = Vz B01,
-    //      d/dz = Dz B00 ------------------------------------------------------
-    {
-      constexpr int per = NI * 4 * NQ + NQ;
-      for (int t = tid; t < nc * per; t += nth) {
-        T* cb = buf + (t / per) * CS;
-        int k = t % per;
-        if (k < NI * 4 * NQ) {
-          const int item = k / (4 * NQ), which = (k / NQ) % 4, o = k % NQ;
-          const int src_slot = which == 1 ? 2 : (which == 2 ? 1 : 0);
-          axis_op<T>(cb + (F + FI * item + which) * NB,
-                     cb + (S2 + 3 * item + src_slot) * NB, which == 3 ? sD : sV,
-                     nullptr, nullptr, N1, false, 2, Q1, Q1, N1, Q1, o);
-        } else {
-          k -= NI * 4 * NQ;
-          axis_op<T>(cb + (F + FI * NI) * NB, cb + (S2 + 3 * NI) * NB, sVp,
-                     nullptr, nullptr, P1, false, 2, Q1, Q1, P1, Q1, k);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- q-point terms (NavierStokesOperator._q_point_terms, "vmult"),
-    //      constant coefficients; outputs into S1: value_c at +c, stress_cd at
-    //      +DIM+DIM c+d, prow at +DIM+DIM^2 ------------------------------------
-    for (int t = tid; t < nc * NQ; t += nth) {
-      const int q = t % NQ;
-      T* cb = buf + (t / NQ) * CS;
-      const int qx = q % Q1, qy = (q / Q1) % Q1, qz = q / (Q1 * Q1);
-      const T jxw = tab.w[qx] * tab.w[qy] * tab.w[qz] * tab.vol;
-      T uv[DIM], sv[DIM], ug[DIM][DIM], sg[DIM][DIM];
-      for (int c = 0; c < DIM; ++c) {
-        uv[c] = cb[(F + FI * c) * NB + q];
-        sv[c] = cb[(F + FI * (DIM + c)) * NB + q];
-        for (int d = 0; d < DIM; ++d) {
-          ug[c][d] = cb[(F + FI * c + 1 + d) * NB + q] * tab.inv_h[d];
-          sg[c][d] = cb[(F + FI * (DIM + c) + 1 + d) * NB + q] * tab.inv_h[d];
-        }
-      }
-      const T pq = cb[(F + FI * NI) * NB + q];
-      T div = T(0), div_s = T(0);
-      for (int a = 0; a < DIM; ++a) {
-        div += ug[a][a];
-        div_s += sg[a][a];
-      }
-      const T tmu = sc.tau1 * sc.mu0;
-      for (int c = 0; c < DIM; ++c) {
-        T conv = sc.beta * (div * sv[c] + div_s * uv[c]);
-        for (int e = 0; e < DIM; ++e) conv += sv[e] * ug[c][e] + uv[e] * sg[c][e];
-        const T value = (sc.rho0 * sc.weight - sc.damp0) * uv[c] + sc.tau1 * sc.rho0 * conv;
-        cb[(S1 + c) * NB + q] = value * jxw;
-        for (int d = 0; d < DIM; ++d) {
-          T st = tmu * (ug[c][d] + ug[d][c]);
-          if (c == d) st += sc.tgd * div - pq;
-          cb[(S1 + DIM + DIM * c + d) * NB + q] = st * jxw * tab.inv_h[d];
-        }
-      }
-      cb[(S1 + DIM + DIM * DIM) * NB + q] = -div * jxw;
-    }
-    __syncthreads();
-
-    // ---- integration, stage x (transposed): a_c = Vx^T value_c + Dx^T st_cx,
-    //      b_c = Vx^T st_cy, cz_c = Vx^T st_cz into S2; pressure Vpx^T prow ---
-    {
-      constexpr int n1 = N1 * Q1 * Q1, np1 = P1 * Q1 * Q1;
-      constexpr int per = DIM * DIM * n1 + np1;
-      for (int t = tid; t < nc * per; t += nth) {
-        T* cb = buf + (t / per) * CS;
-        int k = t % per;
-        if (k < DIM * DIM * n1) {
-          const int c = k / (DIM * n1), j = (k / n1) % DIM, o = k % n1;
-          const T* st = cb + (S1 + DIM + DIM * c) * NB;  // st_c0 .. st_c(DIM-1)
-          T* dst = cb + (S2 + DIM * c + j) * NB;
-          if (j == 0) {
-            axis_op<T>(dst, cb + (S1 + c) * NB, sV, st, sD, N1, true, 0, Q1, Q1, Q1, N1, o);
-          } else {
-            axis_op<T>(dst, st + j * NB, sV, nullptr, nullptr, N1, true, 0, Q1, Q1, Q1, N1, o);
-          }
-        } else {
-          k -= DIM * DIM * n1;
-          axis_op<T>(cb + (S2 + DIM * DIM) * NB, cb + (S1 + DIM + DIM * DIM) * NB, sVp,
-                     nullptr, nullptr, P1, true, 0, Q1, Q1, Q1, P1, k);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- integration, stage y: e_c = Vy^T a_c + Dy^T b_c, f_c = Vy^T cz_c
-    //      into IN ----------------------------------------------------------
-    {
-      constexpr int n2 = N1 * N1 * Q1, np2 = P1 * P1 * Q1;
-      constexpr int per = DIM * 2 * n2 + np2;
-      for (int t = tid; t < nc * per; t += nth) {
-        T* cb = buf + (t / per) * CS;
-        int k = t % per;
-        if (k < DIM * 2 * n2) {
-          const int c = k / (2 * n2), j = (k / n2) % 2, o = k % n2;
-          const T* src = cb + (S2 + DIM * c) * NB;
-          T* dst = cb + (IN + 2 * c + j) * NB;
-          if (j == 0) {
-            axis_op<T>(dst, src, sV, src + NB, sD, N1, true, 1, N1, Q1, Q1, N1, o);
-          } else {
-            axis_op<T>(dst, src + 2 * NB, sV, nullptr, nullptr, N1, true, 1, N1, Q1, Q1, N1, o);
-          }
-        } else {
-          k -= DIM * 2 * n2;
-          axis_op<T>(cb + (IN + 2 * DIM) * NB, cb + (S2 + DIM * DIM) * NB, sVp, nullptr,
-                     nullptr, P1, true, 1, P1, Q1, Q1, P1, k);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- integration, stage z: out_c = Vz^T e_c + Dz^T f_c into S1 ---------
-    {
-      constexpr int per = DIM * NL + NP;
-      for (int t = tid; t < nc * per; t += nth) {
-        T* cb = buf + (t / per) * CS;
-        int k = t % per;
-        if (k < DIM * NL) {
-          const int c = k / NL, o = k % NL;
-          axis_op<T>(cb + (S1 + c) * NB, cb + (IN + 2 * c) * NB, sV,
-                     cb + (IN + 2 * c + 1) * NB, sD, N1, true, 2, N1, N1, Q1, N1, o);
-        } else {
-          k -= DIM * NL;
-          axis_op<T>(cb + (S1 + DIM) * NB, cb + (IN + 2 * DIM) * NB, sVp, nullptr,
-                     nullptr, P1, true, 2, P1, P1, Q1, P1, k);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- output: atomic adds into the nodal output -------------------------
-    for (int t = tid; t < nc * LDX; t += nth) {
-      const int cell = t / LDX, k = t % LDX;
-      const long long e = c0 + cell;
-      const T* cb = buf + cell * CS;
-      if (k < DIM * NL) {
-        const int c = k / NL, l = k % NL;
-        atomicAdd(out_u + c * n_u + cell_u[e * NL + l], cb[(S1 + c) * NB + l]);
-      } else {
-        const int l = k - DIM * NL;
-        atomicAdd(out_p + cell_p[e * NP + l], cb[(S1 + DIM) * NB + l]);
-      }
-    }
-    g = gn;
-  }
-}
-
-// ---- the one-shot body: every production instance, K11, K12 and K13's
-//      phase masks ------------------------------------------------------------
+// ---- the one-shot body: every production instance, K11, K12, K13's phase
+//      masks, and K13's schedules through its split gather and compute -------
 
 // Shared memory of a cell in the one-shot body: NS slots of NB values, each a
 // tensor of extents <= M1 per axis at the positions (z M1 + y) M1 + x, every
@@ -609,7 +260,10 @@ __device__ __forceinline__ void cell_staged(
 // FI = DIM + 1 slots i FI + f: its dofs, then the fields of the evaluation
 // stages (f = 0 no derivative, f = 1 + a the derivative along axis a); the
 // pressure the slot PSLOT. The q-point stage writes component c's value and
-// stress row over u item c's slots, the pressure row into QP.
+// stress row over u item c's slots, the pressure row into QP. rowdma's
+// staging slot of a cell holds the gathered dofs alone, SG values: the
+// items' (u_0 .., u*_0 ..) at item stride NB, each at its lpos, then the
+// pressure's NP, x fastest (lines_gather with STG).
 template <int DIM, int N1, int Q1, int P1, bool PRES, bool QF>
 struct Lines {
   static constexpr int kDim = DIM, kN1 = N1, kQ1 = Q1, kP1 = P1;
@@ -625,6 +279,7 @@ struct Lines {
   // threads of consecutive cells read consecutive banks
   static constexpr int CS = NS * NB + ((NQ - NS * NB) % 32 + 32) % 32;
   static constexpr int LDX = DIM * NL + (PRES ? NP : 0);
+  static constexpr int SG = 2 * DIM * NB + NP;
 };
 
 // Cells per block of the one-shot body: as many as kCellBytes holds, at
@@ -637,15 +292,6 @@ template <typename L, typename T>
 __host__ __device__ constexpr int cells_per_block() {
   const int c = kCellBytes / (L::CS * (int)sizeof(T));
   return c > 1 ? c : 1;
-}
-
-// The least resident blocks per SM that ptxas keeps the registers for
-// (__launch_bounds__): the shared memory of the one-shot body, and of pipe
-// and unroll2 on it, holds kBlocksPerSM, so 128 registers per thread;
-// rowdma's staged body asks for none.
-template <int SCHED>
-__host__ __device__ constexpr int min_blocks() {
-  return SCHED == kSchedRowAsync ? 1 : kBlocksPerSM;
 }
 
 // The slot position of local index l of a tensor with extent N per axis.
@@ -673,27 +319,6 @@ __device__ __forceinline__ int line_at(int L) {
   return at;
 }
 
-// x y + z with one rounding, and x y rounded on its own: where the order of
-// a result's roundings must not be left to the compiler's contraction
-template <typename T>
-__device__ __forceinline__ T fma_rn(T x, T y, T z) {
-#ifdef ADAFLO_EMULATED
-  return std::fma(x, y, z);
-#else
-  if constexpr (sizeof(T) == 8) return __fma_rn(x, y, z);
-  else return __fmaf_rn(x, y, z);
-#endif
-}
-template <typename T>
-__device__ __forceinline__ T mul_rn(T x, T y) {
-#ifdef ADAFLO_EMULATED
-  return x * y;
-#else
-  if constexpr (sizeof(T) == 8) return __dmul_rn(x, y);
-  else return __fmul_rn(x, y);
-#endif
-}
-
 // a[i] for a small runtime i < N, read with compile-time indices
 template <int N, typename T, int K>
 __device__ __forceinline__ T pick(const T (&a)[K], int i) {
@@ -709,15 +334,19 @@ __device__ __forceinline__ T pick(const T (&a)[K], int i) {
 // derivative, the derivatives along the axes below A) at the N1 points of
 // the line and writes back at the Q1 points V of each and D of the first.
 // After the last axis an item's slots hold its value and reference
-// gradients at the q points.
-template <typename L, int A, int I0, int I1, bool PE, typename T>
-__device__ __forceinline__ void eval_stage(T* cells, int nc, const Tables<T>& tab) {
+// gradients at the q points. STG (rowdma, stage x alone): the lines' inputs
+// come from the cells' staging slots at stg (Lines::SG) in place of their
+// gather slots; the outputs go to the work area all the same.
+template <typename L, int A, int I0, int I1, bool PE, bool STG, typename T>
+__device__ __forceinline__ void eval_stage(T* cells, int nc, const Tables<T>& tab,
+                                           const T* stg) {
   constexpr int DIM = L::kDim, N1 = L::kN1, Q1 = L::kQ1, P1 = L::kP1;
   constexpr int M1 = L::M1, NB = L::NB, FI = L::FI;
   constexpr int ST = ipow(M1, A);
   constexpr int LN = ipow(Q1, A) * ipow(N1, DIM - 1 - A);
   constexpr int LP = PE ? ipow(Q1, A) * ipow(P1, DIM - 1 - A) : 0;
   constexpr int per = (I1 - I0) * LN + LP;
+  static_assert(!STG || A == 0, "only stage x reads the staging slots");
   if constexpr (per > 0)
     for (int t = threadIdx.x; t < nc * per; t += blockDim.x) {
       T* cb = cells + (t / per) * L::CS;
@@ -725,10 +354,17 @@ __device__ __forceinline__ void eval_stage(T* cells, int nc, const Tables<T>& ta
       if (k < (I1 - I0) * LN) {
         T* f = cb + (I0 + k / LN) * FI * NB + line_at<DIM, A, Q1, N1, M1>(k % LN);
         T x[A + 1][N1];
+        if constexpr (STG) {
+          const T* in = stg + (t / per) * L::SG + (I0 + k / LN) * NB +
+                        line_at<DIM, A, Q1, N1, M1>(k % LN);
 #pragma unroll
-        for (int g = 0; g <= A; ++g)
+          for (int s = 0; s < N1; ++s) x[0][s] = in[s];
+        } else {
 #pragma unroll
-          for (int s = 0; s < N1; ++s) x[g][s] = f[g * NB + s * ST];
+          for (int g = 0; g <= A; ++g)
+#pragma unroll
+            for (int s = 0; s < N1; ++s) x[g][s] = f[g * NB + s * ST];
+        }
 #pragma unroll
         for (int q = 0; q < Q1; ++q) {
           T d = T(0);
@@ -746,8 +382,15 @@ __device__ __forceinline__ void eval_stage(T* cells, int nc, const Tables<T>& ta
       } else {
         T* f = cb + L::PSLOT * NB + line_at<DIM, A, Q1, P1, M1>(k - (I1 - I0) * LN);
         T x[P1];
+        if constexpr (STG) {
+          // line L = y + P1 z of the compact pressure dofs
+          const T* in = stg + (t / per) * L::SG + 2 * DIM * NB + (k - (I1 - I0) * LN) * P1;
 #pragma unroll
-        for (int s = 0; s < P1; ++s) x[s] = f[s * ST];
+          for (int s = 0; s < P1; ++s) x[s] = in[s];
+        } else {
+#pragma unroll
+          for (int s = 0; s < P1; ++s) x[s] = f[s * ST];
+        }
 #pragma unroll
         for (int q = 0; q < Q1; ++q) {
           T v = T(0);
@@ -834,11 +477,13 @@ __device__ __forceinline__ void integ_stage(T* cells, int nc, long long c0,
 // `cells` (cell stride CS, room for CPB cells), at the positions its compute
 // reads (lines_compute): item i's dofs in its first slot (lpos), the
 // pressure's in PSLOT, or a block row; the phase mask PH drops the gather as
-// kPh* says. ASYNC (K13's unroll2; the table source): each value is one
-// cp.async that the caller commits and waits for, a constrained entry
-// zero-filled by a source size of 0.
+// kPh* says. ASYNC (K13's unroll2 and rowdma; the table source): each value
+// is one cp.async that the caller commits and waits for, a constrained entry
+// zero-filled by a source size of 0. STG (rowdma, with ASYNC): `cells` is a
+// staging slot of CPB cells in L's staging layout (Lines::SG) in place of a
+// work area.
 template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM, typename T, int PH,
-          int CPB, bool ASYNC = false>
+          int CPB, bool ASYNC = false, bool STG = false>
 __device__ __forceinline__ void lines_gather(
     T* const cells, const long long c0, const int nc, const T* __restrict__ u,
     const T* __restrict__ p, const T* __restrict__ us, const int32_t* __restrict__ cell_u,
@@ -854,6 +499,11 @@ __device__ __forceinline__ void lines_gather(
   constexpr bool GATHER = (PH & (kPhGather | kPhContig)) != 0;
   static_assert(!ASYNC || (SRC == kSrcTable && PH == kPhAll),
                 "the asynchronous gather reads the cell tables");
+  static_assert(!STG || ASYNC, "the staging slots are filled by cp.async");
+  // a cell's stride and an item's in the destination, and where local
+  // pressure dof l goes in a cell's
+  constexpr int GS = STG ? L::SG : CS, IS = STG ? NB : FI * NB;
+  auto ppos = [](int l) { return STG ? 2 * DIM * NB + l : PSLOT * NB + lpos<DIM, P1, M1>(l); };
   const int tid = threadIdx.x, nth = blockDim.x;
 
   // ---- gather into the items' first slots and the pressure slot ----------
@@ -910,7 +560,7 @@ __device__ __forceinline__ void lines_gather(
       const int cell = t % CPB, k = t / CPB;
       if (cell >= nc) continue;
       const long long e = c0 + cell;
-      T* cb = cells + cell * CS;
+      T* cb = cells + cell * GS;
       if (k < NL) {
         long long dof;
         if constexpr (LAT) {
@@ -925,8 +575,8 @@ __device__ __forceinline__ void lines_gather(
         for (int c = 0; c < DIM; ++c) {
           const long long g = c * n_u + dof;
           if constexpr (ASYNC) {
-            async_copy(cb + c * FI * NB + at, u + g, mask_u != nullptr && mask_u[g]);
-            async_copy(cb + (DIM + c) * FI * NB + at, us + g, false);
+            async_copy(cb + c * IS + at, u + g, mask_u != nullptr && mask_u[g]);
+            async_copy(cb + (DIM + c) * IS + at, us + g, false);
           } else {
             cb[c * FI * NB + at] = (mask_u != nullptr && mask_u[g]) ? T(0) : u[g];
             cb[(DIM + c) * FI * NB + at] = us[g];
@@ -943,8 +593,7 @@ __device__ __forceinline__ void lines_gather(
           dof = cell_p[e * NP + l];
         }
         if constexpr (ASYNC) {
-          async_copy(cb + PSLOT * NB + lpos<DIM, P1, M1>(l), p + dof,
-                     mask_p != nullptr && mask_p[dof]);
+          async_copy(cb + ppos(l), p + dof, mask_p != nullptr && mask_p[dof]);
         } else {
           cb[PSLOT * NB + lpos<DIM, P1, M1>(l)] =
               (mask_p != nullptr && mask_p[dof]) ? T(0) : p[dof];
@@ -960,15 +609,20 @@ __device__ __forceinline__ void lines_gather(
 // the phase mask PH drops phases as kPh* says. The last stage's lines emit
 // the outputs and write nothing back, so the caller's barrier after it ends
 // every read of the work area. The arithmetic of every output, the order of
-// its sums included, is the staged body's.
+// its sums included, is that of the staged body that the one-shot body
+// replaced (each thread one output element of a 1D contraction, both operands
+// from shared memory). STG (rowdma): stage x reads the gathered inputs from
+// the staging slot `stg` (lines_gather with STG) in place of the work area's
+// gather slots, which nothing then reads.
 template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM, int DST,
-          typename T, int PH>
+          typename T, int PH, bool STG = false>
 __device__ __forceinline__ void lines_compute(
     T* const cells, const T* const sM, const long long c0, const int nc,
     const T* __restrict__ us, const int32_t* __restrict__ cell_u,
     const int32_t* __restrict__ cell_p, const T* __restrict__ rho, const T* __restrict__ mu,
     const T* __restrict__ damp, T* __restrict__ out_u, T* __restrict__ out_p, long long n_u,
-    const Tables<T>& tab, const Scalars<T>& sc, const ProbeArgs<T>& pa) {
+    const Tables<T>& tab, const Scalars<T>& sc, const ProbeArgs<T>& pa,
+    const T* const stg = nullptr) {
   constexpr bool QF = STREAM == kStreamQFields;
   using L = Lines<DIM, N1, Q1, P1, PRES, QF>;
   constexpr int M1 = L::M1, NB = L::NB, NL = L::NL, NQ = L::NQ, NP = L::NP, FI = L::FI;
@@ -988,6 +642,7 @@ __device__ __forceinline__ void lines_compute(
                 "probe phases: 3D Q2/Q1 with pressure, nodal in and out only");
   static_assert(SRC == kSrcBlock || !QF, "the q-field stream is a block");
   static_assert(!LAT || (DIM == 3 && PRES), "the lattice source is 3D with pressure");
+  static_assert(!STG || PH == kPhAll, "stage x evaluates every item");
 
   const int tid = threadIdx.x, nth = blockDim.x;
 
@@ -1035,12 +690,12 @@ __device__ __forceinline__ void lines_compute(
   }
 
   // ---- evaluation along x, y (, z); items not evaluated keep their dofs ----
-  eval_stage<L, 0, I0, I1, PE>(cells, nc, tab);
+  eval_stage<L, 0, I0, I1, PE, STG>(cells, nc, tab, stg);
   __syncthreads();
-  eval_stage<L, 1, I0, I1, PE>(cells, nc, tab);
+  eval_stage<L, 1, I0, I1, PE, false>(cells, nc, tab, stg);
   __syncthreads();
   if constexpr (DIM == 3) {
-    eval_stage<L, 2, I0, I1, PE>(cells, nc, tab);
+    eval_stage<L, 2, I0, I1, PE, false>(cells, nc, tab, stg);
     __syncthreads();
   }
 
@@ -1096,7 +751,7 @@ __device__ __forceinline__ void lines_compute(
       const T tmu = sc.tau1 * m_q;
       // the diagonal's grad-div and pressure term, in one rounding (tgd div
       // alone without a pressure), fused into the viscous term: the
-      // roundings of the staged body as compiled
+      // roundings of the body it replaced, as compiled
       const T diag = PRES ? fma_rn(sc.tgd, div, -pq) : mul_rn(sc.tgd, div);
 #pragma unroll
       for (int c = 0; c < DIM; ++c) {
@@ -1329,22 +984,23 @@ __device__ __forceinline__ void pipe_assemble(T* cells, const unsigned char* sla
   }
 }
 
-// The shared memory of a pipe or unroll2 block at cpb cells per group: one
-// work area of cpb cells (16-byte aligned at its end) and the pipe's slab of
-// nseg segments with its mbarrier and tables, or unroll2's two work areas.
+// The shared memory of a schedule's block at cpb cells per group: one work
+// area of cpb cells (16-byte aligned at its end), then the pipe's slab of
+// nseg segments with its mbarrier and tables, or rowdma's two staging slots
+// of cpb cells (Lines::SG values each); or unroll2's two work areas.
 template <typename T>
 __host__ __device__ constexpr int sched_lines_bytes(int sched, int cpb, int nseg) {
   const int area = (cpb * ProbeLines::CS * (int)sizeof(T) + 15) / 16 * 16;
-  return sched == kSchedPair
-             ? 2 * area
-             : area + pipe_slab_bytes(cpb, nseg, sizeof(T)) + pipe_table_bytes(cpb, nseg);
+  if (sched == kSchedPair) return 2 * area;
+  if (sched == kSchedRowAsync) return area + 2 * cpb * ProbeLines::SG * (int)sizeof(T);
+  return area + pipe_slab_bytes(cpb, nseg, sizeof(T)) + pipe_table_bytes(cpb, nseg);
 }
 
-// The cells per group of pipe and unroll2: the most (up to the one-shot
-// body's CPB) at which kBlocksPerSM blocks fit the SM's shared memory, the
-// 1 KB that the card reserves per block included, as the one-shot body's
-// blocks do; the pipe's slab at two segments (a lattice of at least CPB - 1
-// cells along x).
+// The cells per group of a schedule: the most (up to the one-shot body's
+// CPB) at which kBlocksPerSM blocks fit the SM's shared memory, the 1 KB
+// that the card reserves per block included, as the one-shot body's blocks
+// do; the pipe's slab at two segments (a lattice of at least CPB - 1 cells
+// along x).
 template <int SCHED, typename T>
 __host__ __device__ constexpr int sched_cpb() {
   int best = 1;
@@ -1355,13 +1011,14 @@ __host__ __device__ constexpr int sched_cpb() {
   return best;
 }
 
-// K13's pipe and unroll2: the cell groups of this block (sched_group), each
-// gathered (unroll2: lines_gather's cp.async; pipe: bulk copies assembled by
-// pipe_assemble) into a work area of the one-shot body and computed there by
-// lines_compute, the next group's copies in flight meanwhile (see the top).
-// The compute works in place over the gather slots, so a copy into the work
-// area that computes, or the pipe's assembly before the barrier that ends
-// the integration, would race with it.
+// K13's schedules: the cell groups of this block (sched_group), each
+// gathered into shared memory (unroll2 and rowdma: lines_gather's cp.async;
+// pipe: bulk copies assembled by pipe_assemble) and computed by
+// lines_compute in a work area of the one-shot body, the next group's copies
+// in flight meanwhile (see the top). The compute works in place over the
+// work area's gather slots, so a copy into the work area that computes, or
+// the pipe's assembly before the barrier that ends the integration, would
+// race with it.
 template <typename T, int SCHED>
 __device__ __forceinline__ void cell_sched(
     unsigned char* smem_raw, const T* __restrict__ u, const T* __restrict__ p,
@@ -1404,6 +1061,39 @@ __device__ __forceinline__ void cell_sched(
       __syncthreads();  // this group's copies landed, every thread's
       compute((it & 1) ? work1 : work0, g);
       __syncthreads();  // its last reads, before the next gather into its area
+      g = gn;
+    }
+  } else if constexpr (SCHED == kSchedRowAsync) {
+    // iteration it computes in the one work area from staging slot it & 1
+    // and gathers the block's next group into the other slot. Only stage x
+    // reads a staging slot, and lines_compute ends stage x with a barrier,
+    // so every thread that issues iteration it's copies into slot
+    // (it + 1) & 1 has passed the barrier after iteration it - 1's stage x,
+    // the slot's last reads; the barrier after this iteration's wait ends
+    // the last iteration's reads of the work area (its integration) before
+    // this one's stage x writes it.
+    constexpr int SLOT = CPB * ProbeLines::SG;  // values of a staging slot
+    T* const stg = reinterpret_cast<T*>(smem_raw + AREA);
+    auto gather = [&](int slot, long long gi) {
+      lines_gather<3, 3, 3, 2, true, kSrcTable, kStreamDofs, T, kPhAll, CPB, true, true>(
+          stg + slot * SLOT, gi * CPB, group_cells(gi), u, p, us, cell_u, cell_p, mask_u, mask_p,
+          n_u, pa);
+    };
+    if (g < n_groups) gather(0, g);
+    async_commit();
+    for (long long it = 0; g < n_groups; ++it) {
+      const long long gn = sched_group<SCHED>(it + 1);  // the block's next group
+      if (gn < n_groups) {
+        gather((int)((it + 1) & 1), gn);
+        async_commit();
+        async_wait<1>();
+      } else {
+        async_wait<0>();
+      }
+      __syncthreads();  // this group's copies landed, every thread's
+      lines_compute<3, 3, 3, 2, true, kSrcTable, kStreamDofs, kOutScatter, T, kPhAll, true>(
+          work0, nullptr, g * CPB, group_cells(g), us, cell_u, cell_p, nullptr, nullptr, nullptr,
+          out_u, out_p, n_u, tab, sc, pa, stg + (it & 1) * SLOT);
       g = gn;
     }
   } else {
@@ -1458,12 +1148,13 @@ __device__ __forceinline__ void cell_sched(
 // tables. PH: the phases run (kPhAll for every production entry). SCHED: the
 // schedule of the gather against the compute: kSchedOnce (every production
 // entry, K11, K12, K13's phase masks) runs the one-shot body cell_lines with
-// its compile-time CPB cells per block, K13's pipe and unroll2 its stages on
-// a persistent grid (cell_sched, CPB sched_cpb), both with cpb unused;
-// rowdma runs cell_staged with cpb cells per group.
+// its compile-time CPB cells per block, K13's rowdma, pipe and unroll2 its
+// stages on a persistent grid (cell_sched, CPB sched_cpb). The shared memory
+// of every instance holds kBlocksPerSM blocks per SM, so ptxas keeps the
+// registers to the 128 per thread at which they fit.
 template <int DIM, int N1, int Q1, int P1, bool PRES, int SRC, int STREAM,
           int DST, typename T, int PH = kPhAll, int SCHED = kSchedOnce>
-__global__ void __launch_bounds__(kThreads, (min_blocks<SCHED>()))
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ us, const int32_t* __restrict__ cell_u,
                     const int32_t* __restrict__ cell_p,
@@ -1472,7 +1163,7 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ rho, const T* __restrict__ mu,
                     const T* __restrict__ damp, T* __restrict__ out_u,
                     T* __restrict__ out_p, long long n_u, long long n_cells,
-                    int cpb, Tables<T> tab, Scalars<T> sc, ProbeArgs<T> pa) {
+                    Tables<T> tab, Scalars<T> sc, ProbeArgs<T> pa) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if constexpr (SCHED == kSchedOnce) {
     // shared memory: M89 (kPhMDot, (LDX, LDX) row-major), then the cells
@@ -1489,12 +1180,8 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
     static_assert(PH == kPhAll && DIM == 3 && N1 == 3 && Q1 == 3 && P1 == 2 && PRES &&
                       SRC == kSrcTable && STREAM == kStreamDofs && DST == kOutScatter,
                   "schedules: 3D Q2/Q1 with pressure, nodal in and out only");
-    if constexpr (SCHED == kSchedRowAsync)
-      cell_staged<T>(smem_raw, u, p, us, cell_u, cell_p, mask_u, mask_p, out_u, out_p, n_u,
-                     n_cells, cpb, tab, sc);
-    else
-      cell_sched<T, SCHED>(smem_raw, u, p, us, cell_u, cell_p, mask_u, mask_p, out_u, out_p,
-                           n_u, n_cells, tab, sc, pa);
+    cell_sched<T, SCHED>(smem_raw, u, p, us, cell_u, cell_p, mask_u, mask_p, out_u, out_p, n_u,
+                         n_cells, tab, sc, pa);
   }
 }
 
@@ -1625,7 +1312,7 @@ int launch_once(const void* u, const void* p, const void* us, const int32_t* cel
     kern<<<(unsigned)grid, kThreads, I::SMEM, stream>>>(
         (const T*)u, (const T*)p, (const T*)us, cell_u, cell_p, mask_u, mask_p,
         (const T*)rho, (const T*)mu, (const T*)damp, (T*)out_u, (T*)out_p, n_u, n_cells,
-        I::CPB, I::tables(tab), make_scalars<T>(scal), pa);
+        I::tables(tab), make_scalars<T>(scal), pa);
   }
   return (int)cudaGetLastError();
 }
@@ -1676,28 +1363,16 @@ int launch_cells(int mode, int pres, int dim, int degree, const void* u, const v
 // Launch a K13 schedule of the cell kernel (3D Q2/Q1, table source, atomic
 // scatter, constant coefficients) on a persistent grid: as many blocks as
 // fit resident on the card, at most one per cell group (kSchedPair: per pair
-// of groups). Shared memory and cells per group: rowdma's staged body takes
-// the 1D tables, a work area of CPB = 32 KB // 13,824 (float64) cells and
-// two staging slots of CPB cells; pipe and unroll2 on the one-shot body take
-// sched_lines_bytes at sched_cpb, the pipe's slab with the segments of a
-// lattice of ncx cells along x.
+// of groups). Shared memory and cells per group: sched_lines_bytes at
+// sched_cpb, the pipe's slab with the segments of a lattice of ncx cells
+// along x.
 template <typename T>
 size_t schedule_smem(int sched, int ncx, int* cpb_out) {
-  int cpb;
-  size_t smem;
-  if (sched == kSchedRowAsync) {
-    using S = Staged;
-    const size_t cell_bytes = (size_t)S::SLOTS * S::NB * sizeof(T);
-    cpb = (int)(32768 / cell_bytes);
-    if (cpb < 1) cpb = 1;
-    smem = 3 * kMaxTab * sizeof(T) + cpb * cell_bytes +
-           2 * (size_t)cpb * (6 * S::NB + S::NP) * sizeof(T);
-  } else {
-    cpb = sched == kSchedPipe ? sched_cpb<kSchedPipe, T>() : sched_cpb<kSchedPair, T>();
-    smem = sched_lines_bytes<T>(sched, cpb, sched == kSchedPipe ? pipe_max_segments(cpb, ncx) : 0);
-  }
+  const int cpb = sched == kSchedPipe     ? sched_cpb<kSchedPipe, T>()
+                  : sched == kSchedPair   ? sched_cpb<kSchedPair, T>()
+                                          : sched_cpb<kSchedRowAsync, T>();
   if (cpb_out != nullptr) *cpb_out = cpb;
-  return smem;
+  return sched_lines_bytes<T>(sched, cpb, sched == kSchedPipe ? pipe_max_segments(cpb, ncx) : 0);
 }
 
 // K13's schedule `sched` of the probe configuration's cell kernel, passed to f.
@@ -1734,7 +1409,7 @@ int launch_schedule(K kern, int sched, const void* u, const void* p, const void*
   if (grid > 0) {
     kern<<<(unsigned)grid, kThreads, smem, stream>>>(
         (const T*)u, (const T*)p, (const T*)us, cell_u, cell_p, mask_u, mask_p, nullptr,
-        nullptr, nullptr, (T*)out_u, (T*)out_p, n_u, n_cells, cpb,
+        nullptr, nullptr, (T*)out_u, (T*)out_p, n_u, n_cells,
         make_tables<3, 3, 3, 2, T>(tab), make_scalars<T>(scal), pa);
   }
   return (int)cudaGetLastError();

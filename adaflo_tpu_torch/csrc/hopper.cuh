@@ -10,7 +10,9 @@
 #pragma once
 
 #include <stdint.h>
-#ifndef ADAFLO_EMULATED
+#ifdef ADAFLO_EMULATED
+#include <cmath>
+#else
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing links libcuda)
 #include <cuda_bf16.h>
 #endif
@@ -109,6 +111,69 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(d), "l"(src), "r"(bytes), "r"(b) : "memory");
+#endif
+}
+
+// ---- roundings spelled out ----------------------------------------------------
+// x y + z with one rounding, and x y rounded on its own: where the order of
+// a result's roundings must not be left to the compiler's contraction
+template <typename T>
+__device__ __forceinline__ T fma_rn(T x, T y, T z) {
+#ifdef ADAFLO_EMULATED
+  return std::fma(x, y, z);
+#else
+  if constexpr (sizeof(T) == 8) return __fma_rn(x, y, z);
+  else return __fmaf_rn(x, y, z);
+#endif
+}
+template <typename T>
+__device__ __forceinline__ T mul_rn(T x, T y) {
+#ifdef ADAFLO_EMULATED
+  return x * y;
+#else
+  if constexpr (sizeof(T) == 8) return __dmul_rn(x, y);
+  else return __fmul_rn(x, y);
+#endif
+}
+
+// ---- a value in a form of its own ------------------------------------------------
+// x with (zero & salt) or-ed into its low 32 bits by one LOP3: x itself, as
+// zero is 0, but the compiler cannot know that (zero derives from a kernel
+// argument that is 0 at every launch), and calls with different salts are
+// different expressions, so neither nvcc nor ptxas merges what is computed
+// from them. K7 takes each statement's first coefficient through it, so
+// that its repeated statements are all computed. (An empty asm register
+// pass, asm volatile("" : "+f"(x)), does not do it: nvcc copies the value
+// into the asm's register, and ptxas sees through the copy and merges the
+// statements.) The g++ build of the CPU tests computes the same bits in
+// C++.
+template <typename T>
+__device__ __forceinline__ T salted(T x, unsigned zero, unsigned salt) {
+#ifdef ADAFLO_EMULATED
+  if constexpr (sizeof(T) == 8) {
+    uint64_t b;
+    memcpy(&b, &x, 8);
+    b |= zero & salt;
+    memcpy(&x, &b, 8);
+  } else {
+    uint32_t b;
+    memcpy(&b, &x, 4);
+    b |= zero & salt;
+    memcpy(&x, &b, 4);
+  }
+  return x;
+#else
+  if constexpr (sizeof(T) == 8) {
+    double y;
+    asm("{\n.reg .b32 lo, hi;\nmov.b64 {lo, hi}, %1;\nlop3.b32 lo, %2, %3, lo, 0xEA;\n"
+        "mov.b64 %0, {lo, hi};\n}\n"
+        : "=d"(y) : "d"(x), "r"(zero), "r"(salt));
+    return y;
+  } else {
+    unsigned b = __float_as_uint(x);
+    asm("lop3.b32 %0, %1, %2, %0, 0xEA;\n" : "+r"(b) : "r"(zero), "r"(salt));  // (a & b) | c
+    return __uint_as_float(b);
+  }
 #endif
 }
 

@@ -22,13 +22,16 @@
 // The work must survive the compiler. The JAX statements repeat themselves
 // (K7's statement k and k + 8 read the same rows, and k + 24 also at the
 // same shift; K10's qy and qx planes compute the same values), and Mosaic
-// runs every one. Here every statement reads its operands from shared memory
-// through a volatile pointer, so nvcc loads and computes every statement:
-// the rate measured is that of FMA statements fed from shared memory, the
-// counterpart of VMEM-fed VPU statements. (An empty asm with a memory
-// clobber between the statements did not do it: nvcc still merged K7's,
-// 24 LDS for 96 statements.) K10 stores every q row it computes, so no stage
-// is dead. The instruction counts per instance are in PERF.md
+// runs every one. K7 holds its operands in registers and takes each
+// statement's first coefficient in a form of its own (hopper.cuh salted),
+// so nvcc computes every statement from registers: the rate K7 measures is
+// that of FMA statements fed from registers. K10 reads every
+// operand from shared memory through a volatile pointer, so nvcc loads and
+// computes every statement: its rate is that of statements fed from shared
+// memory, the counterpart of VMEM-fed VPU statements. (An empty asm with a
+// memory clobber between the statements did not do it: nvcc still merged
+// K7's, 24 LDS for 96 statements.) K10 stores every q row it computes, so no
+// stage is dead. The instruction counts per instance are in PERF.md
 // (scripts/sass_counts.py).
 //
 // Bounds on an H100 SXM at its 700 W limit (NVIDIA data sheet): 3.35 TB/s
@@ -69,50 +72,91 @@ int allow_shared(K kern, size_t bytes) {
 
 // ---------------------------------------------------------------------------
 // K7: N_OPS three-term row statements,
-//   acc += 0.31 x[r0 + r, c + sh] + 0.47 x[r0 + 8 + r, c] + 0.22 x[r0 + 16 + r, c]
-// over the (24, block) output, r0 = (24 k) mod 64, sh = 1 + k mod 3 when
-// SHIFTED, from a (96, block + 128) input.
-// Bound: operations, (6 N_OPS - 1) flops per output element and step. Each
-// statement reads three operands from shared memory for six flops, so shared
-// memory (128 B per clock per SM) feeds the FMA units below their peak.
-// Design: a block stages the 96 rows of its 64 columns (+3 for the shift) in
-// shared memory; a thread keeps 6 of the 24 rows of one column in registers
-// and reads every operand of every statement from shared memory.
-constexpr int kFmaRows = 24, kFmaIn = 96, kFmaHalo = 3, kFmaThreads = 256;
+//   v_k = 0.31 x[r0 + r, c + sh] + 0.47 x[r0 + 8 + r, c] + 0.22 x[r0 + 16 + r, c]
+// summed over k in order (acc + v_k) into the (24, block) output, r0 =
+// (24 k) mod 64, sh = 1 + k mod 3 when SHIFTED, from a (96, block + 128)
+// input.
+// Bound: operations, (6 N_OPS - 1) flops per output element and step. A
+// statement is four instructions, a multiply, two FMAs and an add (FMUL,
+// FFMA, FFMA, FADD, or DMUL, DFMA, DFMA, DADD), so the issue rate caps it at
+// 6 flops per 4 FMA slots, three quarters of the peak.
+// Design: every row that a statement reads lies r0 / 8 + {0, 1, 2} rows of
+// 8 below its output row, so a work item, one column c and one residue r
+// mod 8 (output rows r, r + 8, r + 16: three sums), reads only rows r + 8 j
+// (j < 12) of column c and, shifted, rows r + 8 j (j < 10) of columns c + 1
+// .. c + 3: 42 values (12 unshifted), loaded once into registers straight
+// from global memory (a warp's threads on 32 consecutive columns, so each
+// load is coalesced), so that no statement reads shared memory: at 3 LDS
+// per statement, shared memory would feed the FMA units at a quarter of
+// their peak. Statements k and k + 24 (k + 8 unshifted) are the same
+// expression, which ptxas merges (the terms on the same rows computed once:
+// FFMA 20 at every N_OPS), so statement k takes its 0.31 through salted
+// (hopper.cuh), in a form that the compiler cannot know is 0.31, and no two
+// terms on the same data share a form. Row i of statement k reads rows
+// j0 + i .. j0 + i + 2 (j0 = r0 / 8) at its shift, so statements share data
+// only at the same shift and |j0 - j0'| <= 2, and with the same j0 only a
+// period apart (8 statements aligned, 24 shifted); the salt 3 (k / period)
+// + j0 mod 3 + 1 tells them all apart with 36 (aligned) or 12 (shifted)
+// forms at 96 statements, one LOP3 each per work item. The salt derives
+// from the item's column, so that ptxas cannot hoist the salted
+// coefficients out of the item loop into registers held across it. The
+// grid is steps x column tiles of 64, each block's 128 threads looping over
+// the tile's 512 work items; the last tile's columns past the block are
+// skipped.
+constexpr int kFmaRows = 24, kFmaIn = 96, kFmaThreads = 128;
+constexpr int kFmaRes = 8;  // residues r mod 8: work items of a column
+constexpr int kFmaCol = kFmaIn / kFmaRes, kFmaShifted = 10;  // rows of c, of c + 1 .. c + 3
+
+// The work items of K7's column tile `tile` that thread t of nth takes, in
+// turn: f(col, r), the item's column and residue (its outputs are rows r,
+// r + 8, r + 16 of column col); columns past the block are skipped.
+template <typename F>
+__device__ __forceinline__ void fma_items(int tile, int block, int t, int nth, F f) {
+  for (int w = t; w < kTile * kFmaRes; w += nth) {
+    const int col = tile * kTile + w % kTile;
+    if (col < block) f(col, w / kTile);
+  }
+}
 
 template <typename T, int N_OPS, bool SHIFTED>
 __global__ void __launch_bounds__(kFmaThreads)
 row_fma_kernel(const T* __restrict__ x, T* __restrict__ out, int ldx, int block,
-               int tiles) {
-  constexpr int W = kTile + kFmaHalo;
-  constexpr int RG = kFmaRows / 4;  // rows per work item
-  T* s = shared_base<T>();
-  const volatile T* vs = s;  // every statement loads its operands
-  const int c0 = (int)(blockIdx.x % tiles) * kTile;  // blockIdx.x / tiles: the step
-  for (int i = threadIdx.x; i < kFmaIn * W; i += blockDim.x)
-    s[i] = x[(long long)(i / W) * ldx + c0 + i % W];
-  __syncthreads();
-  for (int w = threadIdx.x; w < kTile * 4; w += blockDim.x) {
-    const int col = w % kTile, rg = w / kTile;
-    T acc[RG];
+               int tiles, unsigned zero) {
+  // blockIdx.x / tiles: the step; zero: 0
+  fma_items(blockIdx.x % tiles, block, threadIdx.x, blockDim.x, [&](int col, int r) {
+    const unsigned zi = zero & (unsigned)col;  // 0, of this item
+    const T* xr = x + (long long)r * ldx + col;
+    T xc[kFmaCol], xs[3][SHIFTED ? kFmaShifted : 1];
 #pragma unroll
-    for (int i = 0; i < RG; ++i) acc[i] = T(0);
+    for (int j = 0; j < kFmaCol; ++j) xc[j] = xr[(long long)8 * j * ldx];
+    if constexpr (SHIFTED) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+#pragma unroll
+        for (int j = 0; j < kFmaShifted; ++j) xs[d][j] = xr[(long long)8 * j * ldx + 1 + d];
+    }
+    T acc[3];
 #pragma unroll
     for (int k = 0; k < N_OPS; ++k) {
-      const int r0 = (k * kFmaRows) % 64;
-      const int sh = SHIFTED ? 1 + k % 3 : 0;
+      const int j0 = (k * kFmaRows) % 64 / 8;
+      const T w = salted(T(0.31), zi, 3 * (k / (SHIFTED ? 24 : 8)) + j0 % 3 + 1);
 #pragma unroll
-      for (int i = 0; i < RG; ++i) {
-        const int r = rg + 4 * i;
-        const T a = vs[(r0 + r) * W + col + sh];
-        const T b = vs[(r0 + 8 + r) * W + col];
-        const T c = vs[(r0 + 16 + r) * W + col];
-        acc[i] += T(0.31) * a + T(0.47) * b + T(0.22) * c;
+      for (int i = 0; i < 3; ++i) {
+        T a;
+        if constexpr (SHIFTED)
+          a = xs[k % 3][j0 + i];
+        else
+          a = xc[j0 + i];
+        // left to right, the products after the first fused into its sums;
+        // the first product alone, so that every term depends on w
+        const T v =
+            fma_rn(T(0.22), xc[j0 + 2 + i], fma_rn(T(0.47), xc[j0 + 1 + i], mul_rn(w, a)));
+        acc[i] = k == 0 ? v : acc[i] + v;
       }
     }
 #pragma unroll
-    for (int i = 0; i < RG; ++i) out[(long long)(rg + 4 * i) * block + c0 + col] = acc[i];
-  }
+    for (int i = 0; i < 3; ++i) out[(long long)(r + 8 * i) * block + col] = acc[i];
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -919,12 +963,10 @@ sf_eval_kernel(const T* __restrict__ x, T* __restrict__ out, int ldx, int block,
 template <typename T>
 int launch_row_fma(int n_ops, int shifted, const void* x, void* out, int block, int nblk,
                    cudaStream_t st) {
-  const int tiles = block / kTile;
-  const size_t smem = (size_t)kFmaIn * (kTile + kFmaHalo) * sizeof(T);
+  const int tiles = (block + kTile - 1) / kTile;
   auto go = [&](auto kern) {
-    int rc = allow_shared(kern, smem);
-    if (rc != 0) return rc;
-    kern<<<(unsigned)(tiles * nblk), kFmaThreads, smem, st>>>((const T*)x, (T*)out, block + 128, block, tiles);
+    kern<<<(unsigned)(tiles * nblk), kFmaThreads, 0, st>>>((const T*)x, (T*)out, block + 128, block,
+                                                           tiles, 0u);
     return (int)cudaGetLastError();
   };
 #define ADAFLO_FMA(n)                                                   \
@@ -1068,11 +1110,11 @@ bool bad_block(int block, int nblk) { return block <= 0 || block % kTile != 0 ||
 
 extern "C" {
 
-// K7. dtype 0 float32, 1 float64. x (96, block + 128), out (24, block);
-// n_ops 24, 72 or 96; shifted 0/1; nblk grid steps.
+// K7. dtype 0 float32, 1 float64. x (96, block + 128), out (24, block), block
+// any positive width; n_ops 24, 72 or 96; shifted 0/1; nblk grid steps.
 int adaflo_row_fma(int dtype, int n_ops, int shifted, const void* x, void* out, int block,
                    int nblk, void* stream) {
-  if (bad_block(block, nblk)) return (int)cudaErrorInvalidValue;
+  if (block <= 0 || nblk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return launch_row_fma<float>(n_ops, shifted, x, out, block, nblk, st);
   if (dtype == 1) return launch_row_fma<double>(n_ops, shifted, x, out, block, nblk, st);
@@ -1134,6 +1176,17 @@ unsigned adaflo_emu_mma_b_start(int n0, int q, int ks, int M) { return mma_b_sta
 unsigned adaflo_emu_mma_x_start(int ks) { return mma_x_start(ks); }
 int adaflo_emu_f64_kslot(int s) { return f64_kslot(s); }
 int adaflo_emu_f64_col(int n, int j) { return f64_col(n, j); }
+// K7's writes at a block width `block`: counts[row * block + col] += 1 for
+// each output element that the work items of every column tile and thread
+// of kFmaThreads write
+void adaflo_emu_fma_writes(int block, int* counts) {
+  const int tiles = (block + kTile - 1) / kTile;
+  for (int tile = 0; tile < tiles; ++tile)
+    for (int t = 0; t < kFmaThreads; ++t)
+      fma_items(tile, block, t, kFmaThreads, [&](int col, int r) {
+        for (int i = 0; i < 3; ++i) ++counts[(r + 8 * i) * block + col];
+      });
+}
 // the items of block `block` of `grid` (out[0..n)), returns n
 long long adaflo_emu_dot_items(long long block, long long grid, int parts, long long items,
                                long long* out) {

@@ -115,9 +115,8 @@ K13_VARIANTS = {
 SCHED_ONCE, SCHED_ROW_ASYNC, SCHED_PIPE, SCHED_PAIR = 0, 1, 2, 3
 K13_SCHEDULES = {"rowdma": SCHED_ROW_ASYNC, "pipe": SCHED_PIPE, "unroll2": SCHED_PAIR}
 # the body each schedule runs: the one-shot body's stages ("lines": cell_lines,
-# and pipe and unroll2 through its split gather and compute) or the staged
-# body ("staged": cell_staged, rowdma's alone)
-SCHEDULE_BODY = {"full": "lines", "rowdma": "staged", "pipe": "lines", "unroll2": "lines"}
+# and the three schedules through its split gather and compute)
+SCHEDULE_BODY = {"full": "lines", "rowdma": "lines", "pipe": "lines", "unroll2": "lines"}
 VARIANTS = K12_VARIANTS | K13_VARIANTS | {name: PH_ALL for name in K13_SCHEDULES}
 for _name in VARIANTS:
     launches[f"coupled_apply_ablated[{_name}]"] = 0

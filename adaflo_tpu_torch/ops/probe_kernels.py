@@ -50,7 +50,7 @@ STREAMED_SHAPE = (384, 96)  # K5 (m, k)
 FMA_ROWS, FMA_IN, FMA_PAD = 24, 96, 128  # K7 output rows, input rows, halo
 SLAB_ROWS, SLAB_PAD = 32, 2560  # K8/K10 input rows and halo
 SF_ROWS = 384  # K10 q rows: 4 kinds x 3 components x 32
-TILE = 64  # block columns must be a multiple of the kernels' tile
+TILE = 64  # block columns must be a multiple of the kernels' tile (K7: any width)
 SY, SX = 2401, 49  # flat z and y strides of the probes' anchor raster
 # K10's 1D coefficients per axis (z, y, x): value (V) and derivative (D),
 # the arbitrary ones of run_sfeval
@@ -302,12 +302,12 @@ def _check(name, tensors, dtypes):
         raise RuntimeError(f"{name}: no kernel for device {tensors[0].device}")
 
 
-def _block(name, x, rows: int, pad: int, nblk: int) -> int:
+def _block(name, x, rows: int, pad: int, nblk: int, multiple: int = TILE) -> int:
     block = x.shape[1] - pad
-    if x.shape[0] != rows or block <= 0 or block % TILE:
+    if x.shape[0] != rows or block <= 0 or block % multiple:
         raise ValueError(
             f"{name}: input must be ({rows}, block + {pad}) with block a positive "
-            f"multiple of {TILE}, got {tuple(x.shape)}")
+            f"multiple of {multiple}, got {tuple(x.shape)}")
     if nblk < 1:
         raise ValueError(f"{name}: nblk must be at least 1")
     return block
@@ -317,9 +317,11 @@ _REAL = (torch.float32, torch.float64)
 
 
 def row_fma(x, n_ops: int = 72, shifted: bool = False, nblk: int = 1):
-    """K7: the (24, block) sum of n_ops row statements of x (96, block + 128)."""
+    """K7: the (24, block) sum of n_ops row statements of x (96, block + 128),
+    block any positive width (the kernel skips its last tile's columns past
+    the block)."""
     _check("row_fma", [x], _REAL)
-    block = _block("row_fma", x, FMA_IN, FMA_PAD, nblk)
+    block = _block("row_fma", x, FMA_IN, FMA_PAD, nblk, multiple=1)
     if n_ops not in N_OPS:
         raise ValueError(f"row_fma: n_ops must be one of {N_OPS}")
     if x.device.type == "cpu":

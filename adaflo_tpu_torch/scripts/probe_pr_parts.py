@@ -23,13 +23,16 @@ each looping over groups of cells), its gather of the next group in flight
 while the current group computes:
 
   rowdma     one 4- or 8-byte cp.async per dof, at the cell table's address,
-             into the other slot of a double-buffered staging area
-             (constrained entries zero-filled); stage x reads the slot
+             into the other slot of a double-buffered staging area of the
+             gathered dofs (constrained entries zero-filled); the first
+             evaluation stage reads this group's slot in place
   pipe       1D bulk copies (TMA, cp.async.bulk) of the lattice x-runs the
              next group reads, 16-byte aligned, completing on an mbarrier;
-             then assembled, masks applied, into the other staging slot
+             then assembled, masks applied, into the one work area
   unroll2    two groups per iteration, each in its own work area, one's
              cp.async gather in flight while the other computes
+
+All three run the one-shot body's gather and compute stages.
 
 Each variant is held against its plain version (a schedule's output is
 full's, so it is held against full's) and timed with CUDA events.

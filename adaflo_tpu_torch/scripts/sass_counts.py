@@ -4,7 +4,12 @@ The probes time statements that repeat themselves, which a compiler may
 merge or delete; the counts show that the work survived: the FMA and
 tensor-core instructions of each instance must grow with its statement
 count (K7 n_ops), row count (K8 n_rows) and rows of A (K9/K5 M) as the work
-does. K13's schedules of the cell kernel must copy asynchronously: rowdma
+does. K7's register-fed statements are checked (check_fma): at each type
+and shift its FP instructions (FFMA + FMUL + FADD, or DFMA + DMUL + DADD)
+grow by 4 x 3 per statement and work item of the code (a multiply, two
+FMAs and an add for each of an item's three output rows), and its LDS do
+not grow with n_ops (no operand comes from shared memory). K13's schedules
+of the cell kernel must copy asynchronously: rowdma
 and unroll2 through cp.async (LDGSTS), pipe through bulk copies (UBLKCP)
 completing on an mbarrier (SYNCS); if nvcc turned a schedule's copies into
 plain loads, the counts show it. The dense dot's instances (K5, K9) must
@@ -15,17 +20,20 @@ precision, wgmma (HGMMA) in bf16 and TF32, DMMA in float64. Runs
 first if needed, and prints, per probe kernel instance and per schedule
 instance of the cell kernel (beside the production one-shot instance,
 "full"), the counts of FFMA, FMUL, FADD, DFMA, DMUL, DADD, HMMA, HGMMA,
-DMMA, LDS, STS, LDG, STG, LDGSTS, UBLKCP, UTMALDG, UTMASTG and SYNCS, and the
+DMMA, LDS, STS, LDG, STG, LDGSTS, UBLKCP, UTMALDG, UTMASTG, SYNCS and LOP3
+(K7's salted coefficients), and the
 same of every production instance of the cell kernel (each entry at each
 table set, float64 and float32; their LDS against DFMA or FFMA show how many
 of the one-shot body's operands come from shared memory); it fails if a
-schedule lacks its asynchronous copies or a dot instance its instructions.
+schedule lacks its asynchronous copies, a dot instance its instructions or
+K7 its statements.
 
 Run: python -m adaflo_tpu_torch.scripts.sass_counts
 """
 
 from __future__ import annotations
 
+import functools
 import re
 import shutil
 import subprocess
@@ -36,7 +44,7 @@ from adaflo_tpu_torch.ops import coupled_matvec as cm
 from adaflo_tpu_torch.ops import probe_kernels as pk
 
 OPS = ("FFMA", "FMUL", "FADD", "DFMA", "DMUL", "DADD", "HMMA", "HGMMA", "DMMA", "LDS", "STS",
-       "LDG", "STG", "LDGSTS", "UBLKCP", "UTMALDG", "UTMASTG", "SYNCS")
+       "LDG", "STG", "LDGSTS", "UBLKCP", "UTMALDG", "UTMASTG", "SYNCS", "LOP3")
 # the asynchronous copies each schedule must show
 SCHEDULE_OPS = {"rowdma": ("LDGSTS",), "pipe": ("UBLKCP", "SYNCS"), "unroll2": ("LDGSTS",)}
 # the mangled cell kernel <3, 3, 3, 2, true, kSrcTable, kStreamDofs,
@@ -55,6 +63,11 @@ _DOT_TYPES = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
 # the instructions each dot instance must hold, by precision
 DOT_OPS = {"f32": ("UTMALDG", "SYNCS", "FFMA"), "tf32": ("UTMALDG", "SYNCS", "HGMMA"),
            "bf16": ("UTMALDG", "SYNCS", "HGMMA"), "f64": ("UTMALDG", "SYNCS", "DMMA")}
+# the mangled K7 instance <T, N_OPS, SHIFTED>: "<float|double> n_ops=<n> <aligned|shifted>"
+_FMA_KERNEL = re.compile(r"row_fma_kernelI([fd])Li(\d+)ELb([01])E")
+# K7's FP instructions per type, and their growth per statement and work item
+FMA_FP = {"float": ("FFMA", "FMUL", "FADD"), "double": ("DFMA", "DMUL", "DADD")}
+FMA_PER_STATEMENT = 4 * 3
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 
 
@@ -74,12 +87,18 @@ def _demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
+@functools.lru_cache(maxsize=None)
+def _dump(library: Path) -> str:
+    """cuobjdump -sass of `library`, once per process: a built library's file
+    name carries the hash of its sources, so its SASS does not change."""
+    return subprocess.run([_tool("cuobjdump"), "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def _sass(library: Path) -> dict:
     """{kernel instance (mangled): {opcode: count}} of `library`."""
-    text = subprocess.run([_tool("cuobjdump"), "-sass", str(library)], capture_output=True,
-                          text=True, check=True).stdout
     per, name = {}, None
-    for line in text.splitlines():
+    for line in _dump(Path(library)).splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             per[name] = Counter()
@@ -206,6 +225,52 @@ def dot_instances() -> list:
     return keys + ["bf16 (384, 96) bf16"]
 
 
+def fma_key(mangled: str):
+    """"<float|double> n_ops=<n> <aligned|shifted>" of a mangled K7 instance,
+    or None for another kernel."""
+    m = _FMA_KERNEL.search(mangled)
+    if m is None:
+        return None
+    return (f"{'double' if m.group(1) == 'd' else 'float'} n_ops={m.group(2)} "
+            f"{'shifted' if m.group(3) == '1' else 'aligned'}")
+
+
+def fma_counts(library: Path) -> dict:
+    """{fma_key: {opcode: count}} of K7's instances in `library`
+    (probe_kernels')."""
+    return {fma_key(n): c for n, c in _sass(library).items() if fma_key(n)}
+
+
+def fma_ptxas(log: str) -> dict:
+    """{fma_key: {"registers", "stack", "spill_stores", "spill_loads"}} from
+    the ptxas lines of the probe library's build log."""
+    return _ptxas(log, fma_key)
+
+
+def check_fma(res: dict) -> list:
+    """The K7 instance families ("<type> <shift>") whose instances are
+    missing from `res`, whose LDS count changes with n_ops, or whose FP
+    instructions (FMA_FP) do not grow between consecutive n_ops by the same
+    positive multiple u of FMA_PER_STATEMENT per statement (u: the work
+    items whose code the instance holds, 1 for a loop that is not
+    unrolled)."""
+    bad = []
+    for t, ops in FMA_FP.items():
+        for shift in ("aligned", "shifted"):
+            c = [res.get(f"{t} n_ops={n} {shift}") for n in pk.N_OPS]
+            if any(x is None for x in c):
+                bad.append(f"{t} {shift}")
+                continue
+            fp = [sum(x.get(op, 0) for op in ops) for x in c]
+            per = {(fp[i + 1] - fp[i]) / (pk.N_OPS[i + 1] - pk.N_OPS[i])
+                   for i in range(len(fp) - 1)}
+            lds = {x.get("LDS", 0) for x in c}
+            (g,) = per if len(per) == 1 else (0,)
+            if len(lds) != 1 or g < FMA_PER_STATEMENT or g % FMA_PER_STATEMENT:
+                bad.append(f"{t} {shift}")
+    return bad
+
+
 def check_dot(res: dict) -> list:
     """The dot instances missing from `res` or without the instructions of
     their design (DOT_OPS)."""
@@ -230,6 +295,7 @@ def main() -> None:
     show(production_counts(cm.library_path()))
     show(counts(pk.library_path()))
     missing_dot = check_dot(dot_counts(pk.library_path()))
+    merged = check_fma(fma_counts(pk.library_path()))
     sched = schedule_counts(cm.library_path())
     show(sched)
     missing = check_schedules(sched)
@@ -237,6 +303,8 @@ def main() -> None:
         raise SystemExit(f"schedules without their asynchronous copies: {missing}")
     if missing_dot:
         raise SystemExit(f"dot instances without their design's instructions: {missing_dot}")
+    if merged:
+        raise SystemExit(f"K7 instances whose statements did not all survive: {merged}")
 
 
 if __name__ == "__main__":

@@ -10,12 +10,17 @@ Phases:
      registers, stack and spills (ptxas), cells per block, shared memory per
      block and resident blocks per SM (cm.cell_geometry), and its SASS LDS
      against DFMA/FFMA; none may spill; K13's three schedules of the cell
-     kernel beside the one-shot full apply: the body each runs (pipe and
-     unroll2 the one-shot body's stages, rowdma the staged body), its cells
-     per group, registers and spills (ptxas), shared memory per block and
-     resident blocks per SM (the occupancy calculator), none may spill, and
-     their SASS (scripts/sass_counts): rowdma and unroll2 must hold cp.async
-     (LDGSTS), pipe bulk copies (UBLKCP) and mbarrier operations (SYNCS);
+     kernel beside the one-shot full apply: the body each runs (all three
+     the one-shot body's stages), its cells per group, registers and spills
+     (ptxas), shared memory per block and resident blocks per SM (the
+     occupancy calculator), none may spill, and their SASS
+     (scripts/sass_counts): rowdma and unroll2 must hold cp.async (LDGSTS),
+     pipe bulk copies (UBLKCP) and mbarrier operations (SYNCS); K7's six
+     instances per type (n_ops 24, 72, 96, aligned and shifted): registers
+     and spills (ptxas), none may spill, and SASS whose FP instructions grow
+     by 4 x 3 per statement and work item and whose LDS do not grow with
+     n_ops (sass_counts.check_fma: no statement merged, none fed from shared
+     memory);
      the SASS of the dense dot's 17 instances (K5, K9): each
      must hold TMA tile loads (UTMALDG) and mbarrier operations (SYNCS), and
      wgmma (HGMMA) in bf16 and TF32, DMMA in float64, FFMA in float32
@@ -59,7 +64,8 @@ Phases:
        untimed mode and K9 at every (m, k) and precision also at the
        scripts' defaults (block 4096, 29 steps), errors only (phase 4 times
        and checks the rest); the drivers' tolerances (float64 1e-12, float32
-       1e-5, TF32 2e-3, K9 bf16 1e-5, K5's bf16 output 8e-3), K8 exact;
+       1e-5, TF32 2e-3, K9 bf16 1e-5, K5's bf16 output 8e-3), K8 exact; K7
+       also at block 200 (its last 64-column tile cut short) in every mode;
   3. the slice, each path driven with the launch counts set to 0 before it
      and read after it:
      - the port's Beltrami driver on tests/prms/beltrami_3d.prm in float64
@@ -601,6 +607,15 @@ def sf_cases(device, block: int, nblk: int, cols, seed: int, timed: bool):
                           lambda sh=shifted, x=x7: pk.row_fma(x, 72, sh, nblk),
                           lambda sh=shifted, x=x7: pk.row_fma_plain(x, 72, sh, nblk),
                           probe_sf.TOL[d]))
+        if timed:  # K7 with a tail tile: 200 columns, 3 tiles of 64 and 8
+            x7t = rnd(96, 200 + 128, dtype=dtype)
+            for n in pk.N_OPS:
+                for shifted in (False, True):
+                    cases.append((f"row_fma n_ops={n}{' shifted' if shifted else ''} block=200 {d}",
+                                  "row_fma",
+                                  lambda n=n, sh=shifted, x=x7t: pk.row_fma(x, n, sh, nblk),
+                                  lambda n=n, sh=shifted, x=x7t: pk.row_fma_plain(x, n, sh, nblk),
+                                  probe_sf.TOL[d]))
     for prec in pk.PRECISIONS:
         dtype = torch.float64 if prec == "f64" else torch.float32
         for m, k in pk.DOT_SHAPES:
@@ -768,6 +783,39 @@ def check_schedule_build(cm):
            if r.get("registers") is None or r.get("spill_stores") or r.get("spill_loads")]
     if bad:
         raise AssertionError(f"schedule instances missing or spilling registers: {bad}")
+    return out
+
+
+def check_fma_build(pk):
+    """Phase 1: K7's instances (row_fma_kernel, float32 and float64, n_ops
+    24, 72, 96, aligned and shifted) in the built library: ptxas registers,
+    stack and spills, and SASS counts. Each type and shift must show FP
+    instructions that grow by 4 x 3 per statement and work item and LDS that
+    do not grow with n_ops (sass_counts.check_fma), and no instance may
+    spill or be missing. Returns {instance: record}."""
+    from adaflo_tpu_torch.scripts import sass_counts
+
+    sass = sass_counts.fma_counts(pk.library_path())
+    ptxas = sass_counts.fma_ptxas(pk.build_info.get("log", ""))
+    out = {}
+    for t, ops in sass_counts.FMA_FP.items():
+        for shift in ("aligned", "shifted"):
+            for n in pk.N_OPS:
+                key = f"{t} n_ops={n} {shift}"
+                c = sass.get(key, {})
+                r = out[key] = dict(sass=c, **ptxas.get(key, {}))
+                shown = ops + ("LOP3", "LDS", "LDG", "STG")
+                print(f"K7 {key}: {r.get('registers')} registers, stack {r.get('stack')} B, "
+                      f"spills {r.get('spill_stores')} / {r.get('spill_loads')} B; SASS "
+                      + ", ".join(f"{op} {c.get(op, 0)}" for op in shown)
+                      + f", FP {sum(c.get(op, 0) for op in ops)}", flush=True)
+    merged = sass_counts.check_fma(sass)
+    if merged:
+        raise AssertionError(f"K7 instances whose statements did not all survive: {merged}")
+    bad = [k for k, r in out.items()
+           if r.get("registers") is None or r.get("spill_stores") or r.get("spill_loads")]
+    if bad:
+        raise AssertionError(f"K7 instances missing or spilling registers: {bad}")
     return out
 
 
@@ -1063,6 +1111,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     # ---- phase 1: device and build -----------------------------------------
+    start = time.perf_counter()
     smi = smi_line()
     print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     from adaflo_tpu_torch.ops import coupled_matvec as cm
@@ -1096,20 +1145,27 @@ def main() -> int:
     cell_build = check_cell_build(cm)
     sched_build = check_schedule_build(cm)
     dot_build = check_dot_build(pk)
+    fma_build = check_fma_build(pk)
+    marks = [("1", time.perf_counter())]
 
     # ---- phase 2: kernels against the plain versions -------------------------
     rec = check_kernels(device)
     block_rec = check_block_entries(device)
     probe_rec = check_probe_entries(device)
     sf_rec = check_sf_entries(device)
+    marks.append(("2", time.perf_counter()))
 
     # ---- phase 3: the slice, each path with the counts from 0 ---------------
     slice_rec = run_slice()
     channel_rec = run_channel()
+    marks.append(("3", time.perf_counter()))
 
     # ---- phase 4: the probes, their path with the counts from 0 -------------
     probes = run_probes()
     sf_probes = run_sf_probes()
+    marks.append(("4", time.perf_counter()))
+    print("phase seconds: " + ", ".join(
+        f"{n} {t - (marks[i - 1][1] if i else start):.1f}" for i, (n, t) in enumerate(marks)))
 
     def entry(name, replaces, r, b, main_label, launches):
         return {
@@ -1179,7 +1235,9 @@ def main() -> int:
                                "scatter_cells", library="library_ms"))
     kernels += sf_kernel_entries(sf_probes, sf_rec)
     for e in kernels:  # the dot's instances (phase 1); K5 shares f32, tf32, f64 with K9
-        if e["name"] == "dense_dot":
+        if e["name"] == "row_fma":
+            e["build"] = fma_build
+        elif e["name"] == "dense_dot":
             e["build"] = {k: v for k, v in dot_build.items() if k != "bf16 (384, 96) bf16"}
         elif e["name"] == "dense_dot_streamed":
             e["build"] = {k: v for k, v in dot_build.items()

@@ -13,9 +13,10 @@ on a periodic lattice (wrapped cell tables); and the probe instances on a
 4^3 box (K12's and K13's phase-masked instances against
 `coupled_apply_ablated_plain`, K11's table-free lattice source against
 `coupled_apply_plain`, K6's scatter against `scatter_cells_plain`), and K13's
-three schedules (pipe and unroll2 on the one-shot body, rowdma on the staged
-body) against full's plain version on boxes whose group counts, at each
-schedule's own cells per group, make the persistent grid's blocks loop; the
+three schedules (rowdma, pipe and unroll2, each on the one-shot body's
+gather and compute) against full's plain version on boxes whose group
+counts, at each schedule's own cells per group, make the persistent grid's
+blocks loop, rowdma's also with poisoned constrained entries; the
 cell-block entries bit for bit against saved digests of their outputs; every
 production entry at each table set and
 precision on a lattice whose last cell group is short (a tail group of the
@@ -243,12 +244,12 @@ def test_emulated_probe_instances_match_plain_versions(emulated, probe, variant,
     assert joint_err(got, ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)
 
 
-# boxes for the schedules, at each schedule's cells per group (rowdma 2
-# float64 / 4 float32, pipe 7 / 14, unroll2 5 / 10): 4^3 (every schedule
-# many groups per block of the persistent grid; an odd count for unroll2 in
-# float64), 3 x 3 x 2 and 1 x 3 x 3 (rowdma loops; pipe and unroll2 have no
-# more groups, or pairs, than the grid has blocks, so a block runs its
-# prologue's group alone), 9 x 5 x 2 (every count of groups, or pairs, odd
+# boxes for the schedules, at each schedule's cells per group (rowdma 6
+# float64 / 13 float32, pipe 7 / 14, unroll2 5 / 10): 4^3 (every schedule
+# many groups per block of the persistent grid; an odd count for rowdma and
+# for unroll2 in float64), 3 x 3 x 2 and 1 x 3 x 3 (one to three groups, or
+# pairs: mostly a block runs its prologue's group alone, and a single group
+# makes a grid of one block), 9 x 5 x 2 (every count of groups, or pairs, odd
 # and more than the grid: not a multiple of it; groups straddle x-row ends,
 # a float32 pipe group three rows) and 1 x 7 x 7 (one cell per x-row, so a
 # pipe group has a segment per cell; every schedule loops)
@@ -259,8 +260,8 @@ SCHED_SHAPES = [(4, 4, 4), (3, 3, 2), (1, 3, 3), (9, 5, 2), (1, 7, 7)]
 @pytest.mark.parametrize("shape", SCHED_SHAPES, ids=["x".join(map(str, s)) for s in SCHED_SHAPES])
 @pytest.mark.parametrize("schedule", list(cm.K13_SCHEDULES))
 def test_emulated_schedules_match_full_plain_version(emulated, schedule, shape, dtype):
-    """K13's schedules (rowdma on the staged body; pipe and unroll2 on the
-    one-shot body's gather and compute) with Dirichlet masks (the
+    """K13's schedules (rowdma, pipe and unroll2 on the one-shot body's
+    gather and compute) with Dirichlet masks (the
     zero-filled copies) write full's nodal output. The emulated card has
     EMU_SMS SMs of one resident block; where there are more groups (pairs
     for unroll2) than blocks, each block loops over its groups through both
@@ -272,6 +273,27 @@ def test_emulated_schedules_match_full_plain_version(emulated, schedule, shape, 
     got = (torch.zeros_like(u), torch.zeros_like(p))
     cm._launch_variant(cm.PH_ALL, None, u, p, s, cells, sc, None, *got,
                        sched=cm.K13_SCHEDULES[schedule])
+    assert joint_err(got, ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_emulated_rowdma_loops_through_both_staging_slots_with_masks(emulated, dtype):
+    """rowdma on the 4^3 box, where each block of the emulated grid runs at
+    least two groups, so its gathers land in both staging slots, one after
+    the other, and stage x reads each back: with u and p poisoned (NaN) at
+    their constrained entries, the zero-filled copies keep the output finite
+    and equal to full's plain version (which masks them)."""
+    cells, u, p, s, _ = _box4(dtype)
+    cpb = cm.schedule_residency(dtype, "rowdma", 4)["cpb"]
+    assert -(-cells.n_cells // cpb) >= 2 * EMU_SMS + 1
+    u = u.masked_fill(cells.mask_u, float("nan"))
+    p = p.masked_fill(cells.mask_p, float("nan"))
+    sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
+    ref = cm.coupled_apply_ablated_plain(u, p, s, cells, sc, "rowdma")
+    got = (torch.zeros_like(u), torch.zeros_like(p))
+    cm._launch_variant(cm.PH_ALL, None, u, p, s, cells, sc, None, *got,
+                       sched=cm.SCHED_ROW_ASYNC)
+    assert all(bool(torch.isfinite(g).all()) for g in got + ref)
     assert joint_err(got, ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)
 
 
@@ -319,28 +341,30 @@ def test_emulated_schedule_entry_refuses_what_it_does_not_instance(emulated):
 
 def test_emulated_residency_counts_each_schedules_shared_memory(emulated):
     """The residency entry's body, cells per group and shared memory per
-    block at 48 cells along x. rowdma (the staged body): the 1D tables (3 x
-    16 values), CPB = 32768 // 13,824 (float64) or // 6,912 (float32) cells
-    of 64 x 27-value work slots and two staging slots of CPB x 170 values.
-    pipe and unroll2 (the one-shot body): work areas of CPB cells of 699
-    values, each rounded up to 16 bytes; pipe one, with its slab (2
-    segments of 54 velocity and 4 pressure run slots, each the 16-byte
-    aligned size of a run plus 15 bytes: 144 and 80 B at CPB 7 float64 and
-    CPB 14 float32) and its mbarrier and tables (8 + 2 x 58 x 8 + CPB x 8
-    bytes, to 16); unroll2 two. CPB is the most, up to full's, at which four
-    blocks and their 1 KB of reserve fit 228 KB: pipe 7 float64 (8 would
-    take 63,792 B) and 14 float32, unroll2 5 and 10. "full" (the one-shot
-    body of K1's instance): 10 cells (float64) or 20 (float32) of 699 values
+    block at 48 cells along x. Every schedule runs the one-shot body: work
+    areas of CPB cells of 699 values, each rounded up to 16 bytes. rowdma
+    one, with two staging slots of CPB cells of 170 values (6 x 27 item
+    dofs, 8 pressure dofs): 6 x 5,592 + 2 x 6 x 1,360 = 49,872 B float64,
+    36,352 (13 x 2,796 to 16) + 2 x 13 x 680 = 54,032 B float32 (7 cells
+    would take 58,184 / 58,192 B and 14 float32 58,192). pipe one, with its
+    slab (2 segments of 54 velocity and 4 pressure run slots, each the
+    16-byte aligned size of a run plus 15 bytes: 144 and 80 B at CPB 7
+    float64 and CPB 14 float32) and its mbarrier and tables (8 + 2 x 58 x 8
+    + CPB x 8 bytes, to 16); unroll2 two. CPB is the most, up to full's, at
+    which four blocks and their 1 KB of reserve fit 228 KB: rowdma 6
+    float64 and 13 float32, pipe 7 (8 would take 63,792 B) and 14, unroll2
+    5 and 10. "full" (the one-shot body of K1's instance): 10 cells
+    (float64) or 20 (float32) of 699 values
     (test_emulated_geometry_of_production_instances). The emulated card
     holds one block per SM."""
     pipe_tables = {7: 992, 14: 1056}
     expect = {
         torch.float64: {"full": ("lines", 10, 10 * 699 * 8),
-                        "rowdma": ("staged", 2, 33472),
+                        "rowdma": ("lines", 6, 6 * 5592 + 2 * 6 * 170 * 8),
                         "pipe": ("lines", 7, 39152 + 2 * (54 * 144 + 4 * 80) + pipe_tables[7]),
                         "unroll2": ("lines", 5, 2 * 27968)},
         torch.float32: {"full": ("lines", 20, 20 * 699 * 4),
-                        "rowdma": ("staged", 4, 33280),
+                        "rowdma": ("lines", 13, 36352 + 2 * 13 * 170 * 4),
                         "pipe": ("lines", 14, 39152 + 2 * (54 * 144 + 4 * 80) + pipe_tables[14]),
                         "unroll2": ("lines", 10, 2 * 27968)},
     }
@@ -348,8 +372,7 @@ def test_emulated_residency_counts_each_schedules_shared_memory(emulated):
         for name, (body, cpb, smem) in names.items():
             assert cm.schedule_residency(dtype, name, 48) == {
                 "body": body, "cpb": cpb, "smem": smem, "blocks_per_sm": 1}
-            if body == "lines":
-                assert 4 * (smem + 1024) <= 228 * 1024
+            assert 4 * (smem + 1024) <= 228 * 1024
 
 
 def _slots(dim, degree, mode, pres):

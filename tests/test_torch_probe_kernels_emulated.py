@@ -4,7 +4,8 @@
 `tests/torch_emulation.py` (one thread per block) and driven through the
 port's own ctypes packing (`ops/probe_kernels._launch_*`) on CPU tensors at
 block 128 and 2 grid steps, against the plain versions: K7 (`row_fma`, every
-n_ops, aligned and shifted), K8 (`row_copies`, exact), the float32 entries of
+n_ops, aligned and shifted, also at a block of 100 columns, whose last tile
+is cut short, and its work items counted to write every output once), K8 (`row_copies`, exact), the float32 entries of
 K9 and K5 (`dense_dot`, the SIMT product on its persistent grid with its TMA
 ring: resident at every (m, k) over 2 and 3 steps, and streamed over 64
 columns (one work item, fewer than the 2 emulated blocks), 256, 1,088 (17
@@ -62,6 +63,31 @@ def test_emulated_row_fma_matches_plain_version(emulated, n_ops, shifted, dtype)
     out = torch.full((24, BLOCK), float("nan"), dtype=dtype)
     pk._launch_row_fma(x, out, n_ops, shifted, NBLK)
     assert _rel(out, pk.row_fma_plain(x, n_ops, shifted, NBLK)) <= TOL[dtype]
+
+
+@DTYPES
+@pytest.mark.parametrize("shifted", [False, True], ids=["aligned", "shifted"])
+@pytest.mark.parametrize("n_ops", pk.N_OPS)
+def test_emulated_row_fma_tail_tile_matches_plain_version(emulated, n_ops, shifted, dtype):
+    """K7 at block 100, not a multiple of its 64-column tile: the last tile
+    writes its 36 columns and skips the rest (the output's NaN fill would
+    show a column left out, or a write past the block's)."""
+    x = _randn(15, 96, 100 + 128, dtype=dtype)
+    out = torch.full((24, 100), float("nan"), dtype=dtype)
+    pk._launch_row_fma(x, out, n_ops, shifted, NBLK)
+    assert _rel(out, pk.row_fma_plain(x, n_ops, shifted, NBLK)) <= TOL[dtype]
+    assert pk.row_fma(x, n_ops, shifted, NBLK).shape == (24, 100)  # the wrapper takes it
+
+
+@pytest.mark.parametrize("block", [64, 100, 128, 4096])
+def test_emulated_row_fma_items_write_every_output_once(emulated, block):
+    """K7's work items, (column, residue mod 8) over every column tile and
+    thread of a block, write each of the (24, block) outputs of a step
+    exactly once (through the kernel's own item loop, fma_items)."""
+    fn = _emu(emulated, "adaflo_emu_fma_writes", None, ctypes.c_int, ctypes.c_void_p)
+    counts = np.zeros((24, block), np.int32)
+    fn(block, counts.ctypes.data)
+    assert (counts == 1).all()
 
 
 @DTYPES

@@ -23,7 +23,8 @@ package's probe kernels, on the CPU.
 - The build and SASS tooling of the dense dot (K5, K9): the library's hash
   follows the headers a source includes (``ops/build.source_tag``), and
   ``scripts/sass_counts`` keys the dot's instances and flags one without its
-  design's instructions.
+  design's instructions; it keys K7's instances and flags a family whose
+  statements were merged or whose operands come from shared memory.
 
 The JAX probe scripts set ADAFLO_* variables and sys.path when imported;
 they are loaded with both restored afterwards.
@@ -372,3 +373,68 @@ def test_sass_counts_find_the_dot_instances():
     del ok["f32 (384, 96) float"]
     assert sc.check_dot(ok) == ["f32 (384, 96) float", "f64 (96, 32) double",
                                 "bf16 (384, 96) bf16"]
+
+
+# K7's SASS counts (FMA, MUL, ADD of the type; LOP3; LDS) at n_ops 24, 72, 96,
+# as recorded on an H100 (sm_90a, float32 aligned) for four forms of the
+# register-fed kernel: the kernel's, no two terms on the same data sharing a
+# salted 0.31, and every statement's 0.31 salted apart (both keep every
+# statement); the operands through an empty asm register pass, and one salt
+# per period of the statement sequence (both merged by ptxas)
+K7_RECORDED = {
+    "salt per shared data": ((144, 72, 69, 12, 0), (432, 216, 213, 30, 0), (576, 288, 285, 39, 0)),
+    "salt per statement": ((144, 72, 69, 27, 0), (432, 216, 213, 75, 0), (576, 288, 285, 99, 0)),
+    "empty asm pass": ((20, 10, 69, 0, 0), (20, 10, 213, 0, 0), (20, 10, 285, 0, 0)),
+    "salt per period": ((60, 30, 69, 6, 0), (180, 90, 213, 11, 0), (240, 120, 285, 14, 0)),
+}
+
+
+def _k7(t, shift, form, lds=None):
+    """The K7 family (type t, shift) with the recorded counts of `form`;
+    lds(n) in place of its LDS when given."""
+    from adaflo_tpu_torch.scripts import sass_counts as sc
+
+    fma, mul, add = sc.FMA_FP[t]
+    return {f"{t} n_ops={n} {shift}": {fma: c[0], mul: c[1], add: c[2], "LOP3": c[3],
+                                        "LDS": c[4] if lds is None else lds(n)}
+            for n, c in zip(pk.N_OPS, K7_RECORDED[form])}
+
+
+def test_sass_counts_hold_k7_statements_to_registers():
+    """sass_counts keys K7's instances by type, n_ops and shift, reads their
+    registers from the ptxas lines, and passes a family (type and shift)
+    only if its FP instructions grow by 4 x 3 per statement (or a multiple:
+    unrolled work items) and its LDS do not grow. On counts recorded on the
+    card it passes the forms that keep every statement and flags the forms
+    that ptxas merged (K7_RECORDED); it flags operands read from
+    shared memory (LDS growing with the statements, 3 per statement and row
+    group, as the earlier design read them) and a missing instance."""
+    from adaflo_tpu_torch.scripts import sass_counts as sc
+
+    name = "_ZN12_GLOBAL__N_114row_fma_kernelI{}Li{}ELb{}EEEvPKT_PS1_iiij"
+    assert sc.fma_key(name.format("f", 96, 0)) == "float n_ops=96 aligned"
+    assert sc.fma_key(name.format("d", 24, 1)) == "double n_ops=24 shifted"
+    assert sc.fma_key("_ZN12_GLOBAL__N_117row_copies_kernelIfLi29EEEvPKT_PS1_iii") is None
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{name.format('d', 96, 1)}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name.format('d', 96, 1)}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 124 registers, 384 bytes cmem[0]",
+    ])
+    assert sc.fma_ptxas(log) == {"double n_ops=96 shifted": {
+        "registers": 124, "stack": 0, "spill_stores": 0, "spill_loads": 0}}
+
+    good = {}
+    for t in sc.FMA_FP:
+        good |= _k7(t, "aligned", "salt per shared data")
+        good |= _k7(t, "shifted", "salt per statement")
+    assert sc.check_fma(good) == []
+    unrolled = {k: {op: 2 * v for op, v in c.items()} for k, c in good.items()}
+    assert sc.check_fma(unrolled) == []  # two work items' code: 24 per statement
+    bad = dict(good)
+    bad |= _k7("float", "aligned", "empty asm pass")
+    bad |= _k7("float", "shifted", "salt per period")
+    bad |= _k7("double", "aligned", "salt per statement", lds=lambda n: 6 * 3 * n)
+    del bad["double n_ops=72 shifted"]
+    assert sc.check_fma(bad) == ["float aligned", "float shifted", "double aligned",
+                                 "double shifted"]

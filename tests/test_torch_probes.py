@@ -523,6 +523,31 @@ def test_sass_counts_find_the_schedule_instances():
     assert sass_counts.check_schedules(ok) == ["rowdma double", "pipe float"]
 
 
+def test_sass_counts_report_rowdma_on_the_one_shot_body():
+    """rowdma runs the one-shot body as pipe and unroll2 do (SCHEDULE_BODY),
+    and sass_counts keys its instances (schedule 1) by type, reads their
+    registers and spills, and flags an instance without cp.async (LDGSTS),
+    as it does the others."""
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.scripts import sass_counts
+
+    assert set(cm.SCHEDULE_BODY.values()) == {"lines"}
+    assert sass_counts.SCHEDULE_OPS["rowdma"] == ("LDGSTS",)
+    name = "_ZN12_GLOBAL__N_119coupled_cell_kernelILi3ELi3ELi3ELi2ELb1ELi0ELi0ELi0E{}Li63ELi1EEEvPKT7_"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{name.format('f')}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name.format('f')}",
+        "    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 384 bytes cmem[0]",
+    ])
+    assert sass_counts.schedule_ptxas(log) == {"rowdma float": {
+        "registers": 128, "stack": 16, "spill_stores": 12, "spill_loads": 12}}
+    ok = {f"{n} {t}": {op: 1 for op in ops}
+          for n, ops in sass_counts.SCHEDULE_OPS.items() for t in ("double", "float")}
+    ok["rowdma float"] = {"LDGSTS": 0, "LDG": 40, "STS": 180}  # plain loads and stores
+    assert sass_counts.check_schedules(ok) == ["rowdma float"]
+
+
 def test_cell_flops_split_by_phase():
     """The per-phase operation counts of the cell apply (the bounds of
     chip_smoke.py and of the probes): 14,482 per 3D Q2/Q1 cell, of which

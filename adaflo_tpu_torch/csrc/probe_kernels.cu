@@ -9,30 +9,29 @@
 //
 // The JAX probes (except K5) re-run one VMEM-resident block at every grid
 // step, so their time is compute alone. Here a grid step is not a loop
-// (identical work inside one thread would be hoisted): K7, K8 and K10 are
-// launched over steps x column tiles thread blocks, each of which loads its
-// columns (with the halo of its shifts) from L2 into shared memory or
-// registers and does one step's work on them; the dot's persistent blocks
-// loop over steps x tiles work items, each tile brought anew by the TMA
-// (see dense_dot_kernel). Every step writes the same
-// output with the same values, as the TPU kernels do. Timing two work levels
-// (the probe drivers' slopes) cancels the loads, as it cancelled the TPU's
-// refetch.
+// (identical work inside one thread would be hoisted): K7 is launched over
+// steps x column tiles thread blocks, each of which loads its columns (with
+// the halo of its shifts) from L2 into registers and does one step's work on
+// them; the dot's persistent blocks loop over steps x tiles work items, each
+// tile brought anew by the TMA (see dense_dot_kernel); K8 and K10 keep a
+// column tile's slab and output in shared memory for a group of steps, as
+// the TPU keeps them in VMEM, each step starting at a barrier and reloading
+// its operands from the resident slab (see "resident tiles" below). Every
+// step writes the same output with the same values, as the TPU kernels do.
+// Timing two work levels (the probe drivers' slopes) cancels the loads, as
+// it cancelled the TPU's refetch.
 //
 // The work must survive the compiler. The JAX statements repeat themselves
 // (K7's statement k and k + 8 read the same rows, and k + 24 also at the
-// same shift; K10's qy and qx planes compute the same values), and Mosaic
-// runs every one. K7 holds its operands in registers and takes each
-// statement's first coefficient in a form of its own (hopper.cuh salted),
-// so nvcc computes every statement from registers: the rate K7 measures is
-// that of FMA statements fed from registers. K10 reads every
-// operand from shared memory through a volatile pointer, so nvcc loads and
-// computes every statement: its rate is that of statements fed from shared
-// memory, the counterpart of VMEM-fed VPU statements. (An empty asm with a
-// memory clobber between the statements did not do it: nvcc still merged
-// K7's, 24 LDS for 96 statements.) K10 stores every q row it computes, so no
-// stage is dead. The instruction counts per instance are in PERF.md
-// (scripts/sass_counts.py).
+// same shift; K10's qz, qy and qx planes compute the same values), and
+// Mosaic runs every one. K7 and K10 hold their operands in registers and
+// take each repeated statement's first coefficient in a form of its own
+// (hopper.cuh salted), so nvcc computes every statement from registers: the
+// rate they measure is that of FMA statements fed from registers. (An empty
+// asm with a memory clobber between the statements did not do it: nvcc
+// still merged K7's, 24 LDS for 96 statements.) K10 stores every q row it
+// computes, so no stage is dead. The instruction counts per instance are in
+// PERF.md (scripts/sass_counts.py).
 //
 // Bounds on an H100 SXM at its 700 W limit (NVIDIA data sheet): 3.35 TB/s
 // HBM3; 67 TFLOP/s float32 and 34 TFLOP/s float64 on the CUDA cores; 495
@@ -157,36 +156,6 @@ row_fma_kernel(const T* __restrict__ x, T* __restrict__ out, int ldx, int block,
 #pragma unroll
     for (int i = 0; i < 3; ++i) out[(long long)(r + 8 * i) * block + col] = acc[i];
   });
-}
-
-// ---------------------------------------------------------------------------
-// K8: out[k, c] = x[row_k, off_k + c] for the first N_ROWS entries of the
-// 89-entry parity rows table of scripts/probe_sf.py:128-140: 3 components x
-// 27 Q2 nodes (parity row c 8 + 4 (z%2) + 2 (y%2) + x%2, offset
-// (z/2) 2401 + (y/2) 49 + x/2), then 8 Q1 nodes of row 24.
-// Bound: bytes (a copy). Design: the table is compile-time (copy_row,
-// copy_off), so every copy is a load and a store at a constant offset; one
-// thread per column, consecutive threads on consecutive addresses.
-__host__ __device__ constexpr int copy_row(int k) {
-  return k < 81 ? (k / 27) * 8 + 4 * ((k % 27 / 9) % 2) + 2 * ((k % 9 / 3) % 2) + (k % 3) % 2
-                : 24;
-}
-__host__ __device__ constexpr int copy_off(int k) {
-  return k < 81 ? (k % 27 / 9 / 2) * kSY + (k % 9 / 3 / 2) * kSX + (k % 3) / 2
-                : ((k - 81) / 4) * kSY + ((k - 81) % 4 / 2) * kSX + (k - 81) % 2;
-}
-
-template <typename T, int N_ROWS>
-__global__ void __launch_bounds__(kTile)
-row_copies_kernel(const T* __restrict__ x, T* __restrict__ out, int ldx, int block,
-                  int tiles) {
-  const int c0 = (int)(blockIdx.x % tiles) * kTile;
-  for (int col = threadIdx.x; col < kTile; col += blockDim.x) {
-#pragma unroll
-    for (int k = 0; k < N_ROWS; ++k)
-      out[(long long)k * block + c0 + col] =
-          x[(long long)copy_row(k) * ldx + copy_off(k) + c0 + col];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -835,126 +804,393 @@ dense_dot_kernel(const __grid_constant__ TileMap xmap, const __grid_constant__ T
 }
 
 // ---------------------------------------------------------------------------
+// K8 and K10 keep their tiles on the SM for a run of grid steps. The TPU
+// kernels hold their slab and output blocks in VMEM for every grid step (the
+// index maps are constant) and touch HBM once. Here a thread block owns a
+// work item, one column tile and a run of consecutive grid steps (a step
+// group): it loads the tile's slab into shared memory once (cp.async), runs
+// its steps on chip, each writing its outputs into an output tile in shared
+// memory, and writes that tile to global memory once, after the group. The
+// grid is persistent, as many blocks as are resident on the card (the
+// occupancy query x SMs: the slots), striding over tiles x G step groups, G =
+// max(1, min(slots / tiles, nblk / kGroupSteps)): a block of 2048 or 4096
+// columns has 32 to 128 tiles, and the groups fill the 132 SMs; the L2
+// traffic, a slab tile and an output tile an item, grows with G, not with
+// the steps, and a group takes at least kGroupSteps steps where there are
+// enough, so that those two transfers are spread over 4 steps' work (K8 at
+// block 4096, 29 steps, on the H100: 12 groups of 2-3 steps 0.0105 ms
+// float32, 6 of 4-5 steps 0.0082-0.0085; K10 fastest at slots / tiles,
+// which its 58 steps allow). Every step does its work: it begins at a barrier,
+// after which its operands are loaded anew from the resident tile (loads
+// after __syncthreads are not invariant), and no statement is fed from a
+// value held in registers from one step to the next. The blocks of a tile's
+// groups write the same values to the same output, as every TPU step does.
+struct Steps {
+  int tiles, groups, nblk;
+  __host__ __device__ int first(int g) const { return (int)((long long)g * nblk / groups); }
+  __host__ __device__ long long items() const { return (long long)tiles * groups; }
+};
+
+constexpr int kGroupSteps = 4;
+
+__host__ __device__ inline Steps step_groups(int tiles, int nblk, long long slots) {
+  long long g = slots / tiles;
+  if (g > nblk / kGroupSteps) g = nblk / kGroupSteps;
+  return {tiles, g < 1 ? 1 : (int)g, nblk};
+}
+
+// The work items of block b of `grid`, in turn: f(tile, first step, end step)
+template <typename F>
+__device__ __forceinline__ void resident_items(const Steps& st, long long b, long long grid, F f) {
+  for (long long i = b; i < st.items(); i += grid) {
+    const int g = (int)(i / st.tiles);
+    f((int)(i % st.tiles), st.first(g), st.first(g + 1));
+  }
+}
+
+// The (rows, W) tile `so` of shared memory to the rows of `dst` (row stride
+// ld elements), 16 bytes a thread (W * sizeof(T) a multiple of 16, both
+// 16-byte aligned)
+template <typename T, int W>
+__device__ __forceinline__ void store_tile(const T* so, int rows, T* dst, int ld) {
+  constexpr int E = 16 / (int)sizeof(T), V = W / E;  // elements of a vector, vectors of a row
+#pragma unroll 1
+  for (int v = threadIdx.x; v < rows * V; v += blockDim.x) {
+    const int r = v / V, e = v % V * E;
+    *reinterpret_cast<F4*>(dst + (long long)r * ld + e) =
+        *reinterpret_cast<const F4*>(so + r * W + e);
+  }
+}
+
+#ifdef ADAFLO_EMULATED
+long long emu_slots = 0;  // the CPU tests' slots in place of the query's (0: the query's)
+#endif
+
+// Resident blocks per SM (the occupancy calculator, after allowing the
+// shared memory) and SMs of a resident kernel instance (N, the type of
+// kern), queried once.
+struct Residency {
+  int per_sm, sms;
+};
+
+template <int N, typename K>
+int residency(K kern, int threads, int smem, Residency* r) {
+  static Residency cached = {0, 0};
+  if (cached.per_sm == 0) {
+    int dev = 0, rc = allow_shared(kern, smem);
+    if (rc == 0) rc = (int)cudaGetDevice(&dev);
+    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&cached.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == 0)
+      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached.per_sm, kern, threads, smem);
+    if (rc != 0) return rc;
+    if (cached.per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  *r = cached;
+  return 0;
+}
+
+constexpr int kPlanKeys = 8;
+
+// One launch of a resident kernel on its persistent grid, go(grid, steps);
+// or, with `plan`, the launch's plan in its place: [tile columns, threads,
+// shared memory, resident blocks per SM, slots, step groups, work items,
+// grid].
+template <int N, typename K, typename L>
+int launch_resident(K kern, int tile, int threads, int smem, int block, int nblk, int* plan,
+                    L go) {
+  Residency res;
+  const int rc = residency<N>(kern, threads, smem, &res);
+  if (rc != 0) return rc;
+  long long slots = (long long)res.per_sm * res.sms;
+#ifdef ADAFLO_EMULATED
+  if (emu_slots > 0) slots = emu_slots;
+#endif
+  const Steps st = step_groups(block / tile, nblk, slots);
+  const long long grid = st.items() < slots ? st.items() : slots;
+  if (plan != nullptr) {
+    const long long p[kPlanKeys] = {tile, threads, smem, res.per_sm, slots, st.groups, st.items(),
+                                    grid};
+    for (int i = 0; i < kPlanKeys; ++i) plan[i] = (int)p[i];
+    return 0;
+  }
+  go((unsigned)grid, st);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K8: out[k, c] = x[row_k, off_k + c] for the first N_ROWS entries of the
+// 89-entry parity rows table of scripts/probe_sf.py:128-140: 3 components x
+// 27 Q2 nodes (parity row c 8 + 4 (z%2) + 2 (y%2) + x%2, offset
+// (z/2) 2401 + (y/2) 49 + x/2), then 8 Q1 nodes of row 24.
+// Bound: bytes (a copy: the slab elements the copies read, and the output,
+// once). Every step still moves its rows through shared memory, one LDS and
+// one STS per element: the on-chip floor (scripts/probe_bounds.py).
+// Design: resident (above), a work item a tile of kCopyTile columns and a
+// step group. The slab tile holds what the copies read: for each source row
+// and z half (offset 0 or 2401) that they use, the columns from it to its
+// largest y/x offset + kCopyTile (copy_spans: at 64 columns a tile, the
+// union that probe_bounds.k8_read_elements counts), 3,432 values at 89
+// rows. A step copies the N_ROWS rows from the slab tile into the output
+// tile (N_ROWS, kCopyTile), one LDS and one STS per element at offsets fixed
+// at compile time (copy_src): a thread takes one column and a quarter of
+// the rows, consecutive threads on consecutive columns.
+__host__ __device__ constexpr int copy_row(int k) {
+  return k < 81 ? (k / 27) * 8 + 4 * ((k % 27 / 9) % 2) + 2 * ((k % 9 / 3) % 2) + (k % 3) % 2
+                : 24;
+}
+__host__ __device__ constexpr int copy_off(int k) {
+  return k < 81 ? (k % 27 / 9 / 2) * kSY + (k % 9 / 3 / 2) * kSX + (k % 3) / 2
+                : ((k - 81) / 4) * kSY + ((k - 81) % 4 / 2) * kSX + (k - 81) % 2;
+}
+
+constexpr int kCopyTile = 64, kCopyParts = 4, kCopyThreads = kCopyTile * kCopyParts;
+constexpr int kCopySpans = 2 * 25;  // (source row 0..24, z half)
+
+// The slab tile: span i holds width[i] columns (0: none) of source row i / 2
+// from column 2401 (i % 2), at at[i]; at[kCopySpans] values in all
+struct CopySpans {
+  int width[kCopySpans];
+  int at[kCopySpans + 1];
+};
+
+__host__ __device__ constexpr CopySpans copy_spans(int n_rows) {
+  CopySpans s{};
+  for (int k = 0; k < n_rows; ++k) {
+    const int i = 2 * copy_row(k) + copy_off(k) / kSY, w = copy_off(k) % kSY + kCopyTile;
+    if (w > s.width[i]) s.width[i] = w;
+  }
+  for (int i = 0; i < kCopySpans; ++i) s.at[i + 1] = s.at[i] + s.width[i];
+  return s;
+}
+
+// where copy k reads its first column in the slab tile
+__host__ __device__ constexpr int copy_src(int n_rows, int k) {
+  return copy_spans(n_rows).at[2 * copy_row(k) + copy_off(k) / kSY] + copy_off(k) % kSY;
+}
+
+// the first row of part p of the N rows
+__host__ __device__ constexpr int copy_part_first(int n_rows, int p) {
+  return p * n_rows / kCopyParts;
+}
+
+template <typename T, int N_ROWS, int K, int END>
+__device__ __forceinline__ void copy_rows(const T* slab, T* so, int j) {
+  if constexpr (K < END) {
+    constexpr int src = copy_src(N_ROWS, K);
+    so[K * kCopyTile + j] = slab[src + j];
+    copy_rows<T, N_ROWS, K + 1, END>(slab, so, j);
+  }
+}
+
+template <typename T, int N_ROWS, int P = 0>
+__device__ __forceinline__ void copy_part(int p, const T* slab, T* so, int j) {
+  if constexpr (P < kCopyParts) {
+    if (p == P)
+      copy_rows<T, N_ROWS, copy_part_first(N_ROWS, P), copy_part_first(N_ROWS, P + 1)>(slab, so, j);
+    else
+      copy_part<T, N_ROWS, P + 1>(p, slab, so, j);
+  }
+}
+
+// The (column, part) items of a step of K8's tile that thread t of nth takes
+template <typename F>
+__device__ __forceinline__ void copy_items(int t, int nth, F f) {
+#pragma unroll 1
+  for (int w = t; w < kCopyThreads; w += nth) f(w % kCopyTile, w / kCopyTile);
+}
+
+template <typename T>
+constexpr int copy_smem(int n_rows) {
+  return (n_rows * kCopyTile + copy_spans(n_rows).at[kCopySpans]) * (int)sizeof(T);
+}
+
+template <typename T, int N_ROWS>
+__global__ void __launch_bounds__(kCopyThreads)
+row_copies_kernel(const T* __restrict__ x, T* __restrict__ out, int ldx, int block, Steps st) {
+  constexpr CopySpans sp = copy_spans(N_ROWS);
+  T* so = shared_base<T>();  // the output tile (N_ROWS, kCopyTile)
+  T* slab = so + N_ROWS * kCopyTile;
+  resident_items(st, blockIdx.x, gridDim.x, [&](int tile, int s0, int s1) {
+    const int c0 = tile * kCopyTile;
+#pragma unroll
+    for (int i = 0; i < kCopySpans; ++i) {
+      const T* src = x + (long long)(i / 2) * ldx + i % 2 * kSY + c0;
+      for (int e = threadIdx.x; e < sp.width[i]; e += blockDim.x)
+        async_copy(slab + sp.at[i] + e, src + e, false);
+    }
+    async_commit();
+    async_wait<0>();
+#pragma unroll 1
+    for (int s = s0; s < s1; ++s) {
+      __syncthreads();  // the step's loads follow the barrier (and the slab's copies)
+      copy_items(threadIdx.x, blockDim.x,
+                 [&](int j, int p) { copy_part<T, N_ROWS>(p, slab, so, j); });
+    }
+    __syncthreads();
+    store_tile<T, kCopyTile>(so, N_ROWS, out + c0, block);
+  });
+}
+
+// ---------------------------------------------------------------------------
 // K10: the three-stage sum-factorized evaluation of scripts/probe_sf.py:204
 // (_sf_eval_body) from the (32, block + 2560) parity slab: stage z (flat shift
 // 2401) writes 18 statements of (4, w1), stage y (shift 49) 81 of (2, w2),
 // stage x (shift 1) 324 of (1, block) into the q rows kind 96 + c 32 + q of
-// the (384, block) output; the pad rows q = 27..31 are written as 0 (the JAX
-// kernel leaves them unwritten). Each statement is
+// the (384, block) output; the pad rows q = 27..31 are 0 (the JAX kernel
+// leaves them unwritten). Each statement is
 //   out = C0 a + C1 b + C2 a_shifted
 // with C the axis' value (V) or derivative (D) coefficients.
 // Bound: operations, 5 flops per written element of the JAX kernel's widths
 // (w1 = block + 64, w2 = block + 8).
-// Design: a block computes a 64-column tile of the output through all three
-// stages in shared memory. Stage x needs stage y over 65 columns, stage y
-// needs stage z over 114, stage z the slab over 114 at +0 and at +2401: the
-// halo is recomputed in every tile (about 10 % more statements' elements than
-// the JAX kernel's at block 2048). Stage z's statements (4 x 114 elements)
-// each take the whole block; those of stages y (2 x 65) and x (64) are too
-// narrow for it, and each warp runs its share of them, a loop over statement
-// indices that it decodes, so that every warp has work (one thread per
-// column of a stage-x statement left three of four threads idle) and runs
-// only its own statements' code. Statements in a runtime loop cannot be
-// merged, so stages y and x need no unrolled copy of each.
+// Design: resident (above). The stages mix neither the components c nor
+// the stage-z planes qz (stage y's plane (qz, qy) reads stage z's plane qz,
+// stage x's q row (qz, qy, qx) stage y's plane (qz, qy)), so a work item of
+// a step is one column j, one c and one qz: 9 a column, kSfTile columns a
+// tile (32 float32, 16 float64: 128 bytes of an output row), one thread
+// each. An item loads the 27 slab values its outputs depend on into
+// registers, once, and computes every statement from registers: stage z's
+// two kinds at the 9 places that stage y reads (rows 0-3 at j, 0 and 2 at
+// j + 1, 0 and 1 at j + 49, 0 at j + 50: sf_zcol, sf_zrow), stage y's 3
+// planes qy x 3 kinds at the 3 places that stage x reads (rows 0 and 1 at
+// j, 0 at j + 1), stage x's 3 qx x 4 kinds. The halo of the two shifts is
+// recomputed in registers, not exchanged through shared memory: 81
+// statements' elements an item, 729 a column, against the JAX kernel's 558
+// and its halo (probe_bounds.k10_elements_per_step). The item's 36 q rows
+// go into the output tile (384, kSfTile) in shared memory; its pad rows are
+// zeroed once a block. Stage y's planes qy and stage x's qx repeat one
+// expression on one datum, which ptxas merges once it is fed from registers
+// (K7's statements did): each statement's first coefficient is salted by its
+// qy or qx (hopper.cuh salted), its zero derived from the column and the
+// step, so that no two statements on the same data share a form and no
+// salted coefficient is held across steps. A statement is a multiply and two
+// FMAs: 243 FP instructions and 27 LDS an item and step
+// (scripts/sass_counts.check_sfeval).
+// Shared memory: the output tile and the slab tile, 36 rows (24 at +0, the
+// 12 pz = 0 rows at +2401) x (kSfTile + 50) columns: 60,960 B float32 and
+// 68,160 B float64, 3 blocks per SM (9 warps each float32, 4.5 float64).
 template <typename T>
 struct SfCoeffs {
   T V[3][3];  // per axis z, y, x: the three terms of the value
   T D[3][3];  // and of the derivative
 };
 
-constexpr int kSfThreads = 256;
+constexpr int kSfRows = 384, kSfSlabRows = 36;
+template <typename T>
+constexpr int kSfTile = 128 / (int)sizeof(T);
+template <typename T>
+constexpr int kSfThreads = 9 * kSfTile<T>;
+template <typename T>
+constexpr int kSfSmem = (kSfRows * kSfTile<T> + kSfSlabRows * (kSfTile<T> + kSX + 1)) * (int)sizeof(T);
 
-template <int TILE>
-struct SfShape {
-  static constexpr int WZ = TILE + kSX + 1;  // stage z columns
-  static constexpr int WY = TILE + 1;        // stage y columns
-  static constexpr int XR = 36;              // slab rows: 24 at +0, 12 at +2401
-  static constexpr int ZR = 72;              // (qz, kind, c, 4 rows)
-  static constexpr int YR = 162;             // (plane, kind, c, 2 rows)
-  static constexpr int ELEMS = XR * WZ + ZR * WZ + YR * WY;
-};
+// stage z's place i (0..8) that stage y reads: column offset and row 2 py + px
+__host__ __device__ constexpr int sf_zcol(int i) {
+  return i < 4 ? 0 : i < 6 ? 1 : i < 8 ? kSX : kSX + 1;
+}
+__host__ __device__ constexpr int sf_zrow(int i) { return i < 4 ? i : i == 5 ? 2 : i == 7 ? 1 : 0; }
 
-template <typename T, int TILE>
-__global__ void __launch_bounds__(kSfThreads)
-sf_eval_kernel(const T* __restrict__ x, T* __restrict__ out, int ldx, int block, int tiles,
-               SfCoeffs<T> co) {
-  using S = SfShape<TILE>;
-  constexpr int WZ = S::WZ, WY = S::WY;
-  T* sx = shared_base<T>();
-  T* sz = sx + S::XR * WZ;
-  T* sy = sz + S::ZR * WZ;
-  // the statements read through volatile pointers (see the file's head)
-  const volatile T* vx = sx;
-  const volatile T* vz = sz;
-  const volatile T* vy = sy;
-  const int j0 = (int)(blockIdx.x % tiles) * TILE;  // blockIdx.x / tiles: the step
-  T cf[2][3][3];  // [value, derivative][axis][term], indexed by constants below
+// the q row of output kind ko (value, d/dx, d/dy, d/dz), component c, q point q
+__host__ __device__ constexpr int sf_row(int ko, int c, int q) { return ko * 96 + c * 32 + q; }
+
+// the pad row of the i-th of the 60 (kind, c) x q = 27..31
+__host__ __device__ constexpr int sf_pad_row(int i) { return i / 5 * 32 + 27 + i % 5; }
+
+template <typename T>
+__device__ __forceinline__ T sf_coef(const SfCoeffs<T>& co, bool deriv, int axis, int term) {
+  return deriv ? co.D[axis][term] : co.V[axis][term];
+}
+
+// a statement, left to right: the first product alone (it carries the
+// salt), the others fused into the sums
+template <typename T>
+__device__ __forceinline__ T sf_stmt(T w, T c1, T c2, T a, T b, T a2) {
+  return fma_rn(c2, a2, fma_rn(c1, b, mul_rn(w, a)));
+}
+
+// The (column, c, qz) items of a step of K10's tile that thread t of nth takes
+template <int W, typename F>
+__device__ __forceinline__ void sf_items(int t, int nth, F f) {
+#pragma unroll 1
+  for (int w = t; w < 9 * W; w += nth) f(w % W, w / W / 3, w / W % 3);
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void sf_item(const T* slab, T* so, const SfCoeffs<T>& co, int j, int c,
+                                        int qz, unsigned zi) {
+  constexpr int WZ = W + kSX + 1;
+  const T* p = slab + c * 8 * WZ + j;          // slab rows c 8 + 4 pz + 2 py + px
+  const T* p2 = slab + (24 + c * 4) * WZ + j;  // rows c 8 + 2 py + px at +2401
+  T a[9], b[9], a2[9];
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      cf[0][a][i] = co.V[a][i];
-      cf[1][a][i] = co.D[a][i];
-    }
-  for (int i = threadIdx.x; i < S::XR * WZ; i += blockDim.x) {
-    const int r = i / WZ, j = i % WZ;
-    const int src = r < 24 ? r : ((r - 24) / 4) * 8 + (r - 24) % 4;
-    sx[i] = x[(long long)src * ldx + (r < 24 ? 0 : kSY) + j0 + j];
+  for (int i = 0; i < 9; ++i) {
+    a[i] = p[sf_zrow(i) * WZ + sf_zcol(i)];
+    b[i] = p[(4 + sf_zrow(i)) * WZ + sf_zcol(i)];
+    a2[i] = p2[sf_zrow(i) * WZ + sf_zcol(i)];
   }
-  __syncthreads();
-  // stage z: rows c 8 + r (pz = 0), c 8 + 4 + r (pz = 1), c 8 + r at +2401
+  T z[2][9];  // stage z: value and d/dz at the 9 places
 #pragma unroll
-  for (int qz = 0; qz < 3; ++qz)
+  for (int k = 0; k < 2; ++k)
 #pragma unroll
-    for (int kind = 0; kind < 2; ++kind)
+    for (int i = 0; i < 9; ++i)
+      z[k][i] = sf_stmt(sf_coef(co, k, 0, 0), sf_coef(co, k, 0, 1), sf_coef(co, k, 0, 2), a[i],
+                        b[i], a2[i]);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const T c0 = cf[kind][0][0], c1 = cf[kind][0][1], c2 = cf[kind][0][2];
-        T* dst = sz + ((qz * 2 + kind) * 3 + c) * 4 * WZ;
-        for (int i = threadIdx.x; i < 4 * WZ; i += blockDim.x) {
-          const int r = i / WZ, j = i % WZ;
-          dst[i] = c0 * vx[(c * 8 + r) * WZ + j] + c1 * vx[(c * 8 + 4 + r) * WZ + j] +
-                   c2 * vx[(24 + c * 4 + r) * WZ + j];
-        }
+  for (int qy = 0; qy < 3; ++qy) {
+    // stage y: value and d/dy of stage z's value, d/dz of its d/dz, at (j,
+    // row 0), (j, row 1), (j + 1, row 0)
+    T y[3][3];
+#pragma unroll
+    for (int ko = 0; ko < 3; ++ko) {
+      const bool d = ko == 1;
+      const T w = salted(sf_coef(co, d, 1, 0), zi, qy + 1), c1 = sf_coef(co, d, 1, 1),
+              c2 = sf_coef(co, d, 1, 2);
+      const T* zk = z[ko == 2];
+      y[ko][0] = sf_stmt(w, c1, c2, zk[0], zk[2], zk[6]);
+      y[ko][1] = sf_stmt(w, c1, c2, zk[1], zk[3], zk[7]);
+      y[ko][2] = sf_stmt(w, c1, c2, zk[4], zk[5], zk[8]);
+    }
+    // stage x: value and d/dx of stage y's value, d/dy, d/dz
+#pragma unroll
+    for (int qx = 0; qx < 3; ++qx)
+#pragma unroll
+      for (int ko = 0; ko < 4; ++ko) {
+        const bool d = ko == 1;
+        const T* yk = y[ko < 2 ? 0 : ko - 1];
+        so[sf_row(ko, c, qz * 9 + qy * 3 + qx) * W + j] =
+            sf_stmt(salted(sf_coef(co, d, 2, 0), zi, qx + 1), sf_coef(co, d, 2, 1),
+                    sf_coef(co, d, 2, 2), yk[0], yk[1], yk[2]);
       }
-  __syncthreads();
-  // stages y and x: warp w runs statements w, w + warps, ... (decoded from
-  // their index), its lanes striding over the statement's elements
-  const int lanes = blockDim.x < 32 ? blockDim.x : 32;
-  const int warps = blockDim.x / lanes, warp = threadIdx.x / lanes, lane = threadIdx.x % lanes;
-  // stage y, statement s = ((plane qz 3 + qy) 3 + ko) 3 + c: value -> value
-  // (V) and d/dy (D), d/dz -> d/dz (V)
-  for (int s = warp; s < 81; s += warps) {
-    const int c = s % 3, ko = (s / 3) % 3, qz = s / 27;
-    const int kind_in = ko == 2 ? 1 : 0;
-    const bool d = ko == 1;
-    const T c0 = d ? cf[1][1][0] : cf[0][1][0], c1 = d ? cf[1][1][1] : cf[0][1][1],
-            c2 = d ? cf[1][1][2] : cf[0][1][2];
-    const volatile T* src = vz + ((qz * 2 + kind_in) * 3 + c) * 4 * WZ;
-    T* dst = sy + s * 2 * WY;
-    for (int i = lane; i < 2 * WY; i += lanes) {
-      const int r = i / WY, j = i % WY;
-      dst[i] = c0 * src[r * WZ + j] + c1 * src[(2 + r) * WZ + j] + c2 * src[r * WZ + kSX + j];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSfThreads<T>, 3)
+sf_eval_kernel(const T* __restrict__ x, T* __restrict__ out, int ldx, int block, Steps st,
+               SfCoeffs<T> co, unsigned zero) {
+  // zero: 0
+  constexpr int W = kSfTile<T>, WZ = W + kSX + 1;
+  T* so = shared_base<T>();      // the output tile (384, W)
+  T* slab = so + kSfRows * W;    // the slab tile (36, WZ)
+  for (int i = threadIdx.x; i < 60 * W; i += blockDim.x) so[sf_pad_row(i / W) * W + i % W] = T(0);
+  resident_items(st, blockIdx.x, gridDim.x, [&](int tile, int s0, int s1) {
+    const int c0 = tile * W;
+    for (int i = threadIdx.x; i < kSfSlabRows * WZ; i += blockDim.x) {
+      const int r = i / WZ, e = i % WZ;  // slab row r (r < 24), or row c 8 + r' at +2401
+      const long long src = r < 24 ? (long long)r * ldx
+                                   : (long long)((r - 24) / 4 * 8 + (r - 24) % 4) * ldx + kSY;
+      async_copy(slab + i, x + src + c0 + e, false);
     }
-  }
-  __syncthreads();
-  // stage x, statement s = (q 4 + ko) 3 + c, q = qz 9 + qy 3 + qx: value ->
-  // value and d/dx, d/dy -> d/dy, d/dz -> d/dz
-  for (int s = warp; s < 324; s += warps) {
-    const int c = s % 3, ko = (s / 3) % 4, q = s / 12;
-    const int kind_in = ko == 0 ? 0 : ko - 1;
-    const bool d = ko == 1;
-    const T c0 = d ? cf[1][2][0] : cf[0][2][0], c1 = d ? cf[1][2][1] : cf[0][2][1],
-            c2 = d ? cf[1][2][2] : cf[0][2][2];
-    const volatile T* src = vy + (((q / 3) * 3 + kind_in) * 3 + c) * 2 * WY;
-    T* dst = out + (long long)(ko * 96 + c * 32 + q) * block + j0;
-    for (int j = lane; j < TILE; j += lanes)
-      dst[j] = c0 * src[j] + c1 * src[WY + j] + c2 * src[1 + j];
-  }
-  for (int i = threadIdx.x; i < 12 * 5 * TILE; i += blockDim.x) {
-    const int row = i / TILE, j = i % TILE;  // (kind, c) 12 groups x q 27..31
-    out[(long long)((row / 5) * 32 + 27 + row % 5) * block + j0 + j] = T(0);
-  }
+    async_commit();
+    async_wait<0>();
+#pragma unroll 1
+    for (int s = s0; s < s1; ++s) {
+      __syncthreads();  // the step's loads follow the barrier (and the slab's copies)
+      sf_items<W>(threadIdx.x, blockDim.x, [&](int j, int c, int qz) {
+        sf_item<T, W>(slab, so, co, j, c, qz, zero & (unsigned)(c0 + j + s));
+      });
+    }
+    __syncthreads();
+    store_tile<T, W>(so, kSfRows, out + c0, block);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -976,19 +1212,6 @@ int launch_row_fma(int n_ops, int shifted, const void* x, void* out, int block, 
   ADAFLO_FMA(72)
   ADAFLO_FMA(96)
 #undef ADAFLO_FMA
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-int launch_row_copies(int n_rows, const void* x, void* out, int block, int nblk,
-                      cudaStream_t st) {
-  const int tiles = block / kTile;
-  auto go = [&](auto kern) {
-    kern<<<(unsigned)(tiles * nblk), kTile, 0, st>>>((const T*)x, (T*)out, block + 2560, block, tiles);
-    return (int)cudaGetLastError();
-  };
-  if (n_rows == 29) return go(row_copies_kernel<T, 29>);
-  if (n_rows == 89) return go(row_copies_kernel<T, 89>);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1085,26 +1308,53 @@ int launch_dot(const void* A, const void* X, void* O, long long ncols, long long
   return (int)cudaGetLastError();
 }
 
+template <typename T, int N_ROWS>
+int launch_row_copies(const void* x, void* out, int block, int nblk, cudaStream_t st, int* plan) {
+  auto kern = row_copies_kernel<T, N_ROWS>;
+  constexpr int smem = copy_smem<T>(N_ROWS);
+  return launch_resident<N_ROWS>(kern, kCopyTile, kCopyThreads, smem, block, nblk, plan,
+                                 [&](unsigned grid, Steps s) {
+    kern<<<grid, kCopyThreads, smem, st>>>((const T*)x, (T*)out, block + 2560, block, s);
+  });
+}
+
+// coeffs: host doubles [V (3 axes z, y, x x 3 terms), D (3 x 3)]; none for a plan
 template <typename T>
 int launch_sf_eval(const void* x, void* out, int block, int nblk, const double* coeffs,
-                   cudaStream_t st) {
-  constexpr int TILE = kTile;
-  SfCoeffs<T> co;
-  for (int a = 0; a < 3; ++a)
+                   cudaStream_t st, int* plan) {
+  SfCoeffs<T> co = {};
+  for (int a = 0; a < 3 && coeffs != nullptr; ++a)
     for (int i = 0; i < 3; ++i) {
       co.V[a][i] = (T)coeffs[a * 3 + i];
       co.D[a][i] = (T)coeffs[9 + a * 3 + i];
     }
-  const int tiles = block / TILE;
-  const size_t smem = (size_t)SfShape<TILE>::ELEMS * sizeof(T);
-  auto kern = sf_eval_kernel<T, TILE>;
-  int rc = allow_shared(kern, smem);
-  if (rc != 0) return rc;
-  kern<<<(unsigned)(tiles * nblk), kSfThreads, smem, st>>>((const T*)x, (T*)out, block + 2560, block, tiles, co);
-  return (int)cudaGetLastError();
+  auto kern = sf_eval_kernel<T>;
+  return launch_resident<0>(kern, kSfTile<T>, kSfThreads<T>, kSfSmem<T>, block, nblk, plan,
+                            [&](unsigned grid, Steps s) {
+    kern<<<grid, kSfThreads<T>, kSfSmem<T>, st>>>((const T*)x, (T*)out, block + 2560, block, s, co, 0u);
+  });
 }
 
 bool bad_block(int block, int nblk) { return block <= 0 || block % kTile != 0 || nblk <= 0; }
+
+// K8's and K10's launches, or with `plan` their plans (launch_resident)
+int row_copies_entry(int dtype, int n_rows, const void* x, void* out, int block, int nblk,
+                     cudaStream_t st, int* plan) {
+  if (bad_block(block, nblk)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && n_rows == 29) return launch_row_copies<float, 29>(x, out, block, nblk, st, plan);
+  if (dtype == 0 && n_rows == 89) return launch_row_copies<float, 89>(x, out, block, nblk, st, plan);
+  if (dtype == 1 && n_rows == 29) return launch_row_copies<double, 29>(x, out, block, nblk, st, plan);
+  if (dtype == 1 && n_rows == 89) return launch_row_copies<double, 89>(x, out, block, nblk, st, plan);
+  return (int)cudaErrorInvalidValue;
+}
+
+int sf_eval_entry(int dtype, const void* x, void* out, int block, int nblk, const double* coeffs,
+                  cudaStream_t st, int* plan) {
+  if (bad_block(block, nblk)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_sf_eval<float>(x, out, block, nblk, coeffs, st, plan);
+  if (dtype == 1) return launch_sf_eval<double>(x, out, block, nblk, coeffs, st, plan);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -1124,10 +1374,15 @@ int adaflo_row_fma(int dtype, int n_ops, int shifted, const void* x, void* out, 
 // K8. x (32, block + 2560), out (n_rows, block); n_rows 29 or 89.
 int adaflo_row_copies(int dtype, int n_rows, const void* x, void* out, int block, int nblk,
                       void* stream) {
-  if (bad_block(block, nblk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_row_copies<float>(n_rows, x, out, block, nblk, st);
-  if (dtype == 1) return launch_row_copies<double>(n_rows, x, out, block, nblk, st);
+  return row_copies_entry(dtype, n_rows, x, out, block, nblk, (cudaStream_t)stream, nullptr);
+}
+
+// The plan of K8's (kernel 0, n_rows 29 or 89) or K10's (kernel 1) launch at
+// (dtype, block, nblk): out = [tile columns, threads, shared memory bytes,
+// resident blocks per SM, slots, step groups, work items, grid].
+int adaflo_resident_plan(int kernel, int dtype, int n_rows, int block, int nblk, int* out) {
+  if (kernel == 0) return row_copies_entry(dtype, n_rows, nullptr, nullptr, block, nblk, 0, out);
+  if (kernel == 1) return sf_eval_entry(dtype, nullptr, nullptr, block, nblk, nullptr, 0, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1194,17 +1449,52 @@ long long adaflo_emu_dot_items(long long block, long long grid, int parts, long 
   for (long long it = 0; it < d.n; ++it) out[it] = d.first + it * d.stride;
   return d.n;
 }
+// K8's and K10's launches on `slots` slots in place of the occupancy query's
+// (0: the query's)
+void adaflo_emu_set_slots(long long slots) { emu_slots = slots; }
+// K8's (kernel 0) or K10's (1) work at (dtype, n_rows, block, nblk) on its
+// persistent grid: runs[tile * nblk + step] += 1 for each step that a
+// block's work items run; writes[row * tile columns + col] += 1 for each
+// element of the output tile that the block's threads write in one step,
+// K10's pad rows (zeroed once) included
+int adaflo_emu_resident_work(int kernel, int dtype, int n_rows, int block, int nblk, int* runs,
+                             int* writes) {
+  int plan[kPlanKeys];
+  const int rc = adaflo_resident_plan(kernel, dtype, n_rows, block, nblk, plan);
+  if (rc != 0) return rc;
+  const int tile = plan[0], threads = plan[1];
+  const Steps st = step_groups(block / tile, nblk, plan[4]);
+  for (long long b = 0; b < plan[7]; ++b)
+    resident_items(st, b, plan[7], [&](int t, int s0, int s1) {
+      for (int s = s0; s < s1; ++s) ++runs[t * nblk + s];
+    });
+  for (int t = 0; t < threads; ++t) {
+    if (kernel == 0) {
+      copy_items(t, threads, [&](int j, int p) {
+        for (int k = copy_part_first(n_rows, p); k < copy_part_first(n_rows, p + 1); ++k)
+          ++writes[k * tile + j];
+      });
+      continue;
+    }
+    for (int i = t; i < 60 * tile; i += threads) ++writes[sf_pad_row(i / tile) * tile + i % tile];
+    auto item = [&](int j, int c, int qz) {
+      for (int q = 9 * qz; q < 9 * qz + 9; ++q)
+        for (int ko = 0; ko < 4; ++ko) ++writes[sf_row(ko, c, q) * tile + j];
+    };
+    if (tile == kSfTile<float>)
+      sf_items<kSfTile<float>>(t, threads, item);
+    else
+      sf_items<kSfTile<double>>(t, threads, item);
+  }
+  return 0;
+}
 #endif
 
 // K10. x (32, block + 2560), out (384, block); coeffs: host doubles
 // [V (3 axes z, y, x x 3 terms), D (3 x 3)].
 int adaflo_sf_eval(int dtype, const void* x, void* out, int block, int nblk,
                    const double* coeffs, void* stream) {
-  if (bad_block(block, nblk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_sf_eval<float>(x, out, block, nblk, coeffs, st);
-  if (dtype == 1) return launch_sf_eval<double>(x, out, block, nblk, coeffs, st);
-  return (int)cudaErrorInvalidValue;
+  return sf_eval_entry(dtype, x, out, block, nblk, coeffs, (cudaStream_t)stream, nullptr);
 }
 
 }  // extern "C"

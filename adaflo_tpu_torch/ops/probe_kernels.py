@@ -24,7 +24,9 @@ factorization for the cell apply (``csrc/probe_kernels.cu``):
 The resident probes (K7-K10) take ``nblk``, the JAX grid's steps: the kernel
 does the step's work nblk times over, as the TPU kernel re-runs its
 resident block, and writes the same output each time; the plain versions do
-the same. Precisions of the dot: "f32" (float32 on the CUDA cores), "tf32"
+the same. K8 and K10 keep a column tile's slab and output in shared memory
+for a group of steps (``resident_plan``: their tile, step groups and
+persistent grid on this card). Precisions of the dot: "f32" (float32 on the CUDA cores), "tf32"
 (TF32 tensor cores, float32 accumulation; its plain version is the float32
 product), "bf16" (inputs rounded to bf16, float32 accumulation), "f64"
 (float64 on the tensor cores). A wrapper given CUDA tensors launches its
@@ -225,8 +227,9 @@ def bind(lib):
     lib.adaflo_dense_dot.argtypes = [i, i, i, i, vp, vp, vp, ll, i, vp]
     lib.adaflo_dense_dot_plan.argtypes = [i, i, i, i, vp]
     lib.adaflo_sf_eval.argtypes = [i, vp, vp, i, i, vp, vp]
+    lib.adaflo_resident_plan.argtypes = [i, i, i, i, i, vp]
     for fn in (lib.adaflo_row_fma, lib.adaflo_row_copies, lib.adaflo_dense_dot,
-               lib.adaflo_dense_dot_plan, lib.adaflo_sf_eval):
+               lib.adaflo_dense_dot_plan, lib.adaflo_sf_eval, lib.adaflo_resident_plan):
         fn.restype = i
     return lib
 
@@ -278,6 +281,24 @@ def dot_plan(precision: str, m: int, k: int, streamed: bool) -> dict:
         PRECISIONS.index(precision), m, k, int(streamed), out.ctypes.data),
         f"dense_dot[{precision}] plan")
     return dict(zip(DOT_PLAN_KEYS, (int(v) for v in out)))
+
+
+RESIDENT_PLAN_KEYS = ("tile_cols", "threads", "smem", "blocks_per_sm", "slots", "groups", "items",
+                      "grid")
+RESIDENT = ("row_copies", "sf_eval")  # the kernels whose tiles stay on the SM for a step group
+
+
+def resident_plan(name: str, dtype, block: int, nblk: int, n_rows: int = 89) -> dict:
+    """The launch plan of K8 ("row_copies", n_rows) or K10 ("sf_eval") at
+    (dtype, block, nblk) (RESIDENT_PLAN_KEYS): columns of a tile, threads
+    per block, shared memory per block, resident blocks per SM (the
+    occupancy calculator), slots (blocks per SM x SMs), step groups, work
+    items (tiles x groups) and the persistent grid."""
+    out = np.zeros(len(RESIDENT_PLAN_KEYS), np.int32)
+    code = 1 if dtype == torch.float64 else 0
+    _raise_on(load_library().adaflo_resident_plan(
+        RESIDENT.index(name), code, n_rows, block, nblk, out.ctypes.data), f"{name} plan")
+    return dict(zip(RESIDENT_PLAN_KEYS, (int(v) for v in out)))
 
 
 def _launch_sf_eval(x, out, nblk, coeffs):

@@ -16,7 +16,11 @@ configuration they time from these functions. The probes:
 
 K7-K10 rerun one resident block at every grid step, so their bytes are the
 block in and the block out once (K8: the parts of the slab its copies read);
-their operations are every step's.
+their operations are every step's. K8 and K10 keep their tiles in shared
+memory across the steps, and each step moves its operands and outputs
+through it: beside the bound, their on-chip floor is those bytes over the
+shared memory's 128 bytes a clock on each of 132 SMs at the card's maximum
+SM clock (onchip_floor_ms).
 Rates: K7 and K10 are elementwise row statements, which the tensor cores
 cannot run, so their float64 rate is the CUDA cores' ("float64_simt"); the
 dot's float64 runs on the tensor cores (DMMA, "float64"), its "f32" on the
@@ -27,12 +31,15 @@ Run: python -m adaflo_tpu_torch.scripts.probe_bounds
 
 from __future__ import annotations
 
+import subprocess
+
 from adaflo_tpu_torch.ops.probe_kernels import copy_table
 from adaflo_tpu_torch.scripts import roofline
 
 DOT_RATE = {"f32": "float32", "tf32": "tf32", "bf16": "bf16", "f64": "float64"}
 SIMT_RATE = {"float32": "float32", "float64": "float64_simt"}
 SIZE = {"float32": 4, "float64": 8}
+SMEM_BYTES_PER_CLOCK, SMS = 128, 132  # an H100 SM's shared memory a clock; its SMs
 
 
 def _bound(nbytes: float, flops: float, rate: str) -> dict:
@@ -68,6 +75,35 @@ def k8_bound(block: int, nblk: int, n_rows: int, dtype: str = "float32") -> dict
     the (n_rows, block) rows."""
     s = SIZE[dtype]
     return _bound((k8_read_elements(block, n_rows) + n_rows * block) * s, 0, SIMT_RATE[dtype])
+
+
+def onchip_floor_ms(smem_bytes: float, clock_mhz: float) -> float:
+    """The least time to move `smem_bytes` through the shared memory of an
+    H100's SMS SMs at SMEM_BYTES_PER_CLOCK each (32 banks of 4 bytes) and
+    the SM clock `clock_mhz` (sm_clock_mhz)."""
+    return smem_bytes / (SMEM_BYTES_PER_CLOCK * SMS * clock_mhz * 1e6) * 1e3
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock in MHz, as nvidia-smi reports it
+    (clocks.max.sm; the card's machine only)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0])
+
+
+def k8_smem_bytes(block: int, nblk: int, n_rows: int, dtype: str = "float32") -> int:
+    """Shared-memory bytes of K8's resident steps: one load from the slab
+    tile and one store into the output tile per copied element and step
+    (csrc/probe_kernels.cu row_copies_kernel)."""
+    return 2 * n_rows * block * nblk * SIZE[dtype]
+
+
+def k10_smem_bytes(block: int, nblk: int, dtype: str = "float32") -> int:
+    """Shared-memory bytes of K10's resident steps: per column and step, 9
+    work items (c, qz) each loading 27 slab values and storing 36 q rows
+    (csrc/probe_kernels.cu sf_eval_kernel)."""
+    return 9 * (27 + 36) * block * nblk * SIZE[dtype]
 
 
 def k9_bound(block: int, nblk: int, m: int, k: int, precision: str = "f32") -> dict:

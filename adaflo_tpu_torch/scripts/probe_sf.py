@@ -20,7 +20,10 @@ computes the same work: one step's work by one library call into one
 output, repeated for the nblk steps as the kernel does (``per_step``: one
 CUDA graph of the nblk calls on the card), for copies
 ``torch.index_select`` of the table's windows of x, for mxu
-``torch.matmul``. vpu and sfeval have none. Float32 is the default, as
+``torch.matmul``. vpu and sfeval have none. On the card copies and sfeval
+also print their on-chip floor (probe_bounds.onchip_floor_ms): the
+shared-memory bytes that their resident steps move, at the card's maximum
+SM clock. Float32 is the default, as
 in the JAX script; float64 is the port's working type.
 
 Run: python -m adaflo_tpu_torch.scripts.probe_sf [--block 4096] [--nblk 29]
@@ -37,7 +40,16 @@ import torch
 from adaflo_tpu_torch.device import resolve_device
 from adaflo_tpu_torch.ops import probe_kernels as pk
 from adaflo_tpu_torch.scripts import allow_tf32, per_step, sync, time_ms, time_rounds
-from adaflo_tpu_torch.scripts.probe_bounds import k7_bound, k8_bound, k9_bound, k10_bound
+from adaflo_tpu_torch.scripts.probe_bounds import (
+    k7_bound,
+    k8_bound,
+    k8_smem_bytes,
+    k9_bound,
+    k10_bound,
+    k10_smem_bytes,
+    onchip_floor_ms,
+    sm_clock_mhz,
+)
 
 # tolerances, max-abs error over max-abs (chip_smoke.py holds phase 4 to them)
 TOL = {"float64": 1e-12, "float32": 1e-5}
@@ -104,8 +116,8 @@ def probes(block, nblk, dtype, device, seed):
         name=f"copies[n_rows={n}]", counter="row_copies",
         run=lambda n=n: pk.row_copies(x8, n, nblk),
         plain=lambda n=n: pk.row_copies_plain(x8, n, nblk),
-        library=_library_copies(x8, n, nblk), bound=k8_bound(block, nblk, n, d), tol=0.0)
-        for n in (29, 89)])
+        library=_library_copies(x8, n, nblk), bound=k8_bound(block, nblk, n, d), tol=0.0,
+        smem_bytes=k8_smem_bytes(block, nblk, n, d)) for n in (29, 89)])
     dots = [("mxu_k96", 96, "f64" if d == "float64" else "f32")]
     if d == "float32":
         dots += [("mxu_k96tf", 96, "tf32"), ("mxu_k96bf", 96, "bf16")]
@@ -127,7 +139,7 @@ def probes(block, nblk, dtype, device, seed):
     out["sfeval"] = (None, "apply", [dict(
         name="sfeval", counter="sf_eval", run=lambda: pk.sf_eval(x10, n10),
         plain=lambda: pk.sf_eval_plain(x10, n10), library=None,
-        bound=k10_bound(b10, n10, d), tol=TOL[d])])
+        bound=k10_bound(b10, n10, d), tol=TOL[d], smem_bytes=k10_smem_bytes(b10, n10, d))])
     return out
 
 
@@ -145,6 +157,7 @@ def run(block: int = 4096, nblk: int = 29, reps: int = 20, dtype=torch.float32, 
     d = str(dtype).removeprefix("torch.")
     out(f"K7-K10 contraction-rate probes: block={block} nblk={nblk} reps={reps} {d}, {dev}")
     configs, slopes = {}, {}
+    clock = sm_clock_mhz() if dev.type == "cuda" else None
     for probe, (levels, unit, cfgs) in probes(block, nblk, dtype, dev, seed).items():
         for c in cfgs:
             got, ref = c["run"](), c["plain"]()
@@ -156,12 +169,16 @@ def run(block: int = 4096, nblk: int = 29, reps: int = 20, dtype=torch.float32, 
                        library_ms=None, **c["bound"])
             if c["library"] is not None:
                 rec["library_ms"] = time_ms(c["library"], dev, reps)["ms"]
+            if clock is not None and "smem_bytes" in c:  # K8, K10: their on-chip floor
+                rec["onchip_ms"] = onchip_floor_ms(c["smem_bytes"], clock)
             configs[c["name"]] = rec
         for name, t in time_rounds({c["name"]: c["run"] for c in cfgs}, dev, reps).items():
             configs[name].update(t)
         for c in cfgs:
             r = configs[c["name"]]
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            if "onchip_ms" in r:
+                lib += f", on-chip floor {r['onchip_ms']:.4f} ms"
             out(f"{c['name']:20s} {r['ms']:8.4f} ms ({dev.type}), one waited call "
                 f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['rate']} rate: "

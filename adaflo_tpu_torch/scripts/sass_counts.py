@@ -8,7 +8,11 @@ does. K7's register-fed statements are checked (check_fma): at each type
 and shift its FP instructions (FFMA + FMUL + FADD, or DFMA + DMUL + DADD)
 grow by 4 x 3 per statement and work item of the code (a multiply, two
 FMAs and an add for each of an item's three output rows), and its LDS do
-not grow with n_ops (no operand comes from shared memory). K13's schedules
+not grow with n_ops (no operand comes from shared memory). K8's step must
+be one LDS and one STS per copied row of a work item, with no global store
+growing with the rows (check_copies), and K10's work item must compute
+every statement, 3 FP instructions each, from the 27 operands it loads
+from shared memory once (check_sfeval). K13's schedules
 of the cell kernel must copy asynchronously: rowdma
 and unroll2 through cp.async (LDGSTS), pipe through bulk copies (UBLKCP)
 completing on an mbarrier (SYNCS); if nvcc turned a schedule's copies into
@@ -25,8 +29,8 @@ DMMA, LDS, STS, LDG, STG, LDGSTS, UBLKCP, UTMALDG, UTMASTG, SYNCS and LOP3
 same of every production instance of the cell kernel (each entry at each
 table set, float64 and float32; their LDS against DFMA or FFMA show how many
 of the one-shot body's operands come from shared memory); it fails if a
-schedule lacks its asynchronous copies, a dot instance its instructions or
-K7 its statements.
+schedule lacks its asynchronous copies, a dot instance its instructions, K7
+or K10 its statements, or K8 its one LDS and STS a row.
 
 Run: python -m adaflo_tpu_torch.scripts.sass_counts
 """
@@ -68,7 +72,20 @@ _FMA_KERNEL = re.compile(r"row_fma_kernelI([fd])Li(\d+)ELb([01])E")
 # K7's FP instructions per type, and their growth per statement and work item
 FMA_FP = {"float": ("FFMA", "FMUL", "FADD"), "double": ("DFMA", "DMUL", "DADD")}
 FMA_PER_STATEMENT = 4 * 3
-_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+# the mangled K8 instance <T, N_ROWS>: "<float|double> n_rows=<n>"
+_COPIES_KERNEL = re.compile(r"row_copies_kernelI([fd])Li(\d+)E")
+# the mangled K10 instance <T>: "<float|double>"
+_SFEVAL_KERNEL = re.compile(r"sf_eval_kernelI([fd])E")
+# a K10 work item (column, c, qz) and step: 81 statements' elements (stage z
+# 2 kinds x 9 places, y 3 qy x 3 kinds x 3 places, x 3 qy x 3 qx x 4 kinds),
+# 3 FP instructions each (a multiply, two FMAs), from 27 operands
+SF_ITEM_STATEMENTS, SF_ITEM_LOADS, SF_ITEM_ROWS = 81, 27, 36
+SF_PER_STATEMENT = 3
+SF_OTHER_LDS = 1  # LDS outside the items: the output tile's loads for its store
+# an instruction and its opcode; one under the never-true predicate @!PT (the
+# placeholders that nvcc puts before each LDGSTS: @!PT LDS RZ, [RZ]) never
+# runs and is not counted
+_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?!@!PT\s)(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 
 
 def _tool(name: str) -> str:
@@ -271,6 +288,91 @@ def check_fma(res: dict) -> list:
     return bad
 
 
+def copies_key(mangled: str):
+    """"<float|double> n_rows=<n>" of a mangled K8 instance, or None."""
+    m = _COPIES_KERNEL.search(mangled)
+    if m is None:
+        return None
+    return f"{'double' if m.group(1) == 'd' else 'float'} n_rows={m.group(2)}"
+
+
+def copies_counts(library: Path) -> dict:
+    """{copies_key: {opcode: count}} of K8's instances in `library`."""
+    return {copies_key(n): c for n, c in _sass(library).items() if copies_key(n)}
+
+
+def copies_ptxas(log: str) -> dict:
+    """{copies_key: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from the ptxas lines of the probe library's build log."""
+    return _ptxas(log, copies_key)
+
+
+def check_copies(res: dict) -> list:
+    """The K8 types ("float", "double") whose instances are missing from
+    `res`, or whose step is not one LDS and one STS per copied row of a
+    work item: STS n_rows x u at both row counts (u, the work items whose
+    code the instance holds, >= 1), the LDS growing by the same amount
+    between them; or whose global stores (STG) grow with the rows (a store
+    inside the step loop), or without the slab's cp.async (LDGSTS)."""
+    bad = []
+    lo, hi = pk.N_ROWS
+    for t in FMA_FP:
+        a, b = res.get(f"{t} n_rows={lo}"), res.get(f"{t} n_rows={hi}")
+        if a is None or b is None:
+            bad.append(t)
+            continue
+        u, rem = divmod(b.get("STS", 0), hi)
+        ok = (u >= 1 and rem == 0 and a.get("STS", 0) == lo * u
+              and b.get("LDS", 0) - a.get("LDS", 0) == (hi - lo) * u
+              and a.get("LDS", 0) >= lo * u
+              and a.get("STG", 0) == b.get("STG", 0)
+              and a.get("LDGSTS", 0) > 0 and b.get("LDGSTS", 0) > 0)
+        if not ok:
+            bad.append(t)
+    return bad
+
+
+def sfeval_key(mangled: str):
+    """"<float|double>" of a mangled K10 instance, or None."""
+    m = _SFEVAL_KERNEL.search(mangled)
+    if m is None:
+        return None
+    return "double" if m.group(1) == "d" else "float"
+
+
+def sfeval_counts(library: Path) -> dict:
+    """{sfeval_key: {opcode: count}} of K10's instances in `library`."""
+    return {sfeval_key(n): c for n, c in _sass(library).items() if sfeval_key(n)}
+
+
+def sfeval_ptxas(log: str) -> dict:
+    """{sfeval_key: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from the ptxas lines of the probe library's build log."""
+    return _ptxas(log, sfeval_key)
+
+
+def check_sfeval(res: dict) -> list:
+    """The K10 types missing from `res`, or whose work item does not compute
+    every statement from registers: FP instructions (FMA_FP) a positive
+    multiple u of SF_PER_STATEMENT x SF_ITEM_STATEMENTS (u, the work items
+    whose code the instance holds; a merged qy or qx plane takes some
+    away), at least SF_ITEM_ROWS STS an item (its q rows), and at most
+    SF_ITEM_LOADS LDS an item besides SF_OTHER_LDS (an operand read from
+    shared memory per statement would take 3 each)."""
+    bad = []
+    per_item = SF_PER_STATEMENT * SF_ITEM_STATEMENTS
+    for t, ops in FMA_FP.items():
+        c = res.get(t)
+        if c is None:
+            bad.append(t)
+            continue
+        u, rem = divmod(sum(c.get(op, 0) for op in ops), per_item)
+        if (u < 1 or rem or c.get("STS", 0) < SF_ITEM_ROWS * u
+                or c.get("LDS", 0) > SF_ITEM_LOADS * u + SF_OTHER_LDS):
+            bad.append(t)
+    return bad
+
+
 def check_dot(res: dict) -> list:
     """The dot instances missing from `res` or without the instructions of
     their design (DOT_OPS)."""
@@ -296,6 +398,8 @@ def main() -> None:
     show(counts(pk.library_path()))
     missing_dot = check_dot(dot_counts(pk.library_path()))
     merged = check_fma(fma_counts(pk.library_path()))
+    copies = check_copies(copies_counts(pk.library_path()))
+    sfeval = check_sfeval(sfeval_counts(pk.library_path()))
     sched = schedule_counts(cm.library_path())
     show(sched)
     missing = check_schedules(sched)
@@ -305,6 +409,10 @@ def main() -> None:
         raise SystemExit(f"dot instances without their design's instructions: {missing_dot}")
     if merged:
         raise SystemExit(f"K7 instances whose statements did not all survive: {merged}")
+    if copies:
+        raise SystemExit(f"K8 types whose steps are not one LDS and STS a row: {copies}")
+    if sfeval:
+        raise SystemExit(f"K10 types whose statements are not all fed from registers: {sfeval}")
 
 
 if __name__ == "__main__":

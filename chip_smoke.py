@@ -20,7 +20,14 @@ Phases:
      and spills (ptxas), none may spill, and SASS whose FP instructions grow
      by 4 x 3 per statement and work item and whose LDS do not grow with
      n_ops (sass_counts.check_fma: no statement merged, none fed from shared
-     memory);
+     memory); K8's instances (29 and 89 rows) and K10's, per type: registers
+     and spills (none may spill), the launch plan at the scripts' defaults
+     (tile, threads, shared memory, blocks per SM, step groups, work items,
+     grid; ops/probe_kernels.resident_plan) and SASS: K8's step one LDS and
+     one STS per copied row of a work item and no global store in it
+     (sass_counts.check_copies), K10's 3 FP instructions for each of a work
+     item's 81 statements and at most its 27 operands' LDS
+     (sass_counts.check_sfeval);
      the SASS of the dense dot's 17 instances (K5, K9): each
      must hold TMA tile loads (UTMALDG) and mbarrier operations (SYNCS), and
      wgmma (HGMMA) in bf16 and TF32, DMMA in float64, FFMA in float32
@@ -66,6 +73,10 @@ Phases:
        and checks the rest); the drivers' tolerances (float64 1e-12, float32
        1e-5, TF32 2e-3, K9 bf16 1e-5, K5's bf16 output 8e-3), K8 exact; K7
        also at block 200 (its last 64-column tile cut short) in every mode;
+       K8 (block 4096) and K10 (2048) in both types at a step count whose
+       step groups on the card are uneven (partial_group_cases), and their
+       device times at the scripts' defaults in a CUDA graph of 20 calls
+       (resident_graph_ms);
   3. the slice, each path driven with the launch counts set to 0 before it
      and read after it:
      - the port's Beltrami driver on tests/prms/beltrami_3d.prm in float64
@@ -662,7 +673,75 @@ def check_sf_entries(device):
             records[(label, shape)] = dict(max_abs_err=max_abs, rel_err=err, counter=counter)
             del got, ref
         torch.cuda.empty_cache()
+    for label, counter, run, plain in partial_group_cases(device, 5):
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        max_abs = float((got.double() - ref.double()).abs().max())
+        err = max_abs / max(float(ref.double().abs().max()), 1e-300)
+        tol = 0.0 if counter == "row_copies" else TOL[str(got.dtype)[6:]]
+        print(f"kernel {label} (partial step group): rel err {err:.3e} (max abs {max_abs:.3e}), "
+              f"tolerance {tol:g}", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{label} (partial step group): relative error {err:.3e} > {tol:g}")
+        records[(label, "partial")] = dict(max_abs_err=max_abs, rel_err=err, counter=counter)
     return records
+
+
+def resident_graph_ms(device, seed: int = 5) -> dict:
+    """Phase 2: the device time of K8 (29 and 89 rows, block 4096, 29 steps)
+    and K10 (block 2048, 58 steps), float32 and float64, at the scripts'
+    defaults: one replay of a CUDA graph of 20 calls (graph_ms), no host
+    work between the kernels; phase 4's back-to-back time also holds the
+    host's issue of each call. {"<probe_sf config> <dtype>": ms}."""
+    import torch
+
+    from adaflo_tpu_torch.ops import probe_kernels as pk
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        d = str(dtype)[6:]
+        x8 = torch.randn((32, 4096 + pk.SLAB_PAD), generator=gen, dtype=torch.float64).to(
+            device=device, dtype=dtype)
+        x10 = x8[:, :2048 + pk.SLAB_PAD].contiguous()
+        for n in pk.N_ROWS:
+            out[f"copies[n_rows={n}] {d}"] = graph_ms(lambda n=n: pk.row_copies(x8, n, 29))
+        out[f"sfeval {d}"] = graph_ms(lambda: pk.sf_eval(x10, 58))
+        del x8, x10
+    print("K8/K10 device time, CUDA graph of 20 calls (ms): " + json.dumps(out), flush=True)
+    return out
+
+
+def partial_group_cases(device, seed: int):
+    """K8 (block 4096, both row counts) and K10 (block 2048) in float32 and
+    float64 at the first step count from 13 whose step groups on this card
+    (ops/probe_kernels.resident_plan) do not all take as many steps: (label,
+    counter, run, plain)."""
+    import torch
+
+    from adaflo_tpu_torch.ops import probe_kernels as pk
+
+    gen = torch.Generator().manual_seed(seed)
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        for name, block, n_rows in (("row_copies", 4096, 29), ("row_copies", 4096, 89),
+                                    ("sf_eval", 2048, 89)):
+            nblk = next((n for n in range(13, 64)
+                         if n % pk.resident_plan(name, dtype, block, n, n_rows)["groups"]), None)
+            if nblk is None:
+                raise AssertionError(f"{name}: no step count in 13..63 with uneven step groups")
+            groups = pk.resident_plan(name, dtype, block, nblk, n_rows)["groups"]
+            x = torch.randn((32, block + pk.SLAB_PAD), generator=gen, dtype=torch.float64).to(
+                device=device, dtype=dtype)
+            label = (f"{name}{f' n_rows={n_rows}' if name == 'row_copies' else ''} block={block} "
+                     f"nblk={nblk} ({groups} groups) {str(dtype)[6:]}")
+            if name == "row_copies":
+                cases.append((label, name, lambda x=x, n=n_rows, b=nblk: pk.row_copies(x, n, b),
+                              lambda x=x, n=n_rows, b=nblk: pk.row_copies_plain(x, n, b)))
+            else:
+                cases.append((label, name, lambda x=x, b=nblk: pk.sf_eval(x, b),
+                              lambda x=x, b=nblk: pk.sf_eval_plain(x, b)))
+    return cases
 
 
 def run_probes():
@@ -816,6 +895,55 @@ def check_fma_build(pk):
            if r.get("registers") is None or r.get("spill_stores") or r.get("spill_loads")]
     if bad:
         raise AssertionError(f"K7 instances missing or spilling registers: {bad}")
+    return out
+
+
+def check_resident_build(pk):
+    """Phase 1: K8's and K10's instances (row_copies_kernel at 29 and 89
+    rows, sf_eval_kernel; float32 and float64) in the built library: ptxas
+    registers, stack and spills, the launch plan at the scripts' defaults
+    (K8 block 4096, 29 steps; K10 2048, 58: tile columns, threads, shared
+    memory, resident blocks per SM, step groups, work items, grid) and SASS
+    counts. K8's step must be one LDS and one STS per copied row of a work
+    item with no global store in the step loop (sass_counts.check_copies),
+    K10's work item must compute every statement from registers
+    (sass_counts.check_sfeval), and no instance may spill or be missing.
+    Returns {"row_copies" | "sf_eval": {instance: record}}."""
+    import torch
+
+    from adaflo_tpu_torch.scripts import sass_counts
+
+    log = pk.build_info.get("log", "")
+    found = {"row_copies": (sass_counts.copies_counts(pk.library_path()),
+                            sass_counts.copies_ptxas(log)),
+             "sf_eval": (sass_counts.sfeval_counts(pk.library_path()),
+                         sass_counts.sfeval_ptxas(log))}
+    out = {"row_copies": {}, "sf_eval": {}}
+    for t, dtype in (("float", torch.float32), ("double", torch.float64)):
+        fp = sass_counts.FMA_FP[t]
+        for name, key, plan in (
+                *((("row_copies", f"{t} n_rows={n}", pk.resident_plan("row_copies", dtype, 4096, 29, n))
+                   for n in pk.N_ROWS)),
+                ("sf_eval", t, pk.resident_plan("sf_eval", dtype, 2048, 58))):
+            sass, ptxas = found[name]
+            c = sass.get(key, {})
+            r = out[name][key] = dict(sass=c, **ptxas.get(key, {}), plan=plan)
+            shown = fp + ("LOP3", "LDS", "STS", "LDG", "STG", "LDGSTS")
+            print(f"{'K8' if name == 'row_copies' else 'K10'} {key}: {r.get('registers')} registers, "
+                  f"stack {r.get('stack')} B, spills {r.get('spill_stores')} / "
+                  f"{r.get('spill_loads')} B; tile {plan['tile_cols']} columns, {plan['threads']} "
+                  f"threads, {plan['smem']} B shared, {plan['blocks_per_sm']} blocks/SM, "
+                  f"{plan['groups']} step groups, {plan['items']} items, grid {plan['grid']}; SASS "
+                  + ", ".join(f"{op} {c.get(op, 0)}" for op in shown)
+                  + f", FP {sum(c.get(op, 0) for op in fp)}", flush=True)
+    failed = {"K8": sass_counts.check_copies(found["row_copies"][0]),
+              "K10": sass_counts.check_sfeval(found["sf_eval"][0])}
+    if any(failed.values()):
+        raise AssertionError(f"resident kernels whose SASS misses its design: {failed}")
+    bad = [k for recs in out.values() for k, r in recs.items()
+           if r.get("registers") is None or r.get("spill_stores") or r.get("spill_loads")]
+    if bad:
+        raise AssertionError(f"K8/K10 instances missing or spilling registers: {bad}")
     return out
 
 
@@ -1047,11 +1175,12 @@ def run_slice():
     return dict(setup_s=setup_s, steps=steps, launches=launches)
 
 
-def sf_kernel_entries(sf_probes, sf_rec):
+def sf_kernel_entries(sf_probes, sf_rec, resident_graph):
     """The kernels-line entries of K7, K8, K9, K10 and K5: each at its main
     configuration (float32; K7 at 96 aligned statements, K8 at 89 rows, K9
     at m = 384, k = 96 on the CUDA cores, K5 in f32), launches summed over
-    phase 4, and every timed configuration of phase 4 beside it."""
+    phase 4, and every timed configuration of phase 4 beside it; K8's and
+    K10's device times in a CUDA graph (resident_graph_ms) beside them."""
     keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "rate",
             "max_abs_err")
     sf32, sf64 = (sf_probes["sf"][d]["configs"] for d in ("float32", "float64"))
@@ -1062,8 +1191,11 @@ def sf_kernel_entries(sf_probes, sf_rec):
             "name": name, "route": "cuda", "source": SF_SOURCE, "replaces": replaces,
             "launches": sum(v for k, v in launches.items() if k.split("[")[0] == counter),
             **{k: rec[k] for k in keys},
-            "configs": {n: {k: r[k] for k in keys} for n, r in configs.items()},
+            "configs": {n: {k: r[k] for k in keys + ("onchip_ms",) if k in r}
+                        for n, r in configs.items()},
         }
+        if "onchip_ms" in rec:  # K8, K10: the on-chip floor (probe_bounds.onchip_floor_ms)
+            e["onchip_ms"] = rec["onchip_ms"]
         if slopes:
             e["slopes"] = slopes
         return e
@@ -1090,6 +1222,10 @@ def sf_kernel_entries(sf_probes, sf_rec):
         entry("dense_dot_streamed", K5_REPLACES, "dense_dot_streamed", k5["K5 f32"], k5),
     ]
     entries[-1]["library_lines"] = {n: r["ms"] for n, r in mxu.items() if n.startswith("matmul")}
+    for e, main in ((entries[1], "copies[n_rows=89] float32"), (entries[3], "sfeval float32")):
+        e["graph_ms"] = resident_graph[main]
+        e["graph_ms_by_config"] = {k: v for k, v in resident_graph.items()
+                                   if k.split("[")[0].split()[0] == main.split("[")[0].split()[0]}
     for e in entries:  # the phase-2 errors of every mode, at both shapes
         e["phase2_max_rel_err"] = max(
             r["rel_err"] for r in sf_rec.values() if r["counter"].split("[")[0] == e["name"])
@@ -1146,6 +1282,7 @@ def main() -> int:
     sched_build = check_schedule_build(cm)
     dot_build = check_dot_build(pk)
     fma_build = check_fma_build(pk)
+    resident_build = check_resident_build(pk)
     marks = [("1", time.perf_counter())]
 
     # ---- phase 2: kernels against the plain versions -------------------------
@@ -1153,6 +1290,7 @@ def main() -> int:
     block_rec = check_block_entries(device)
     probe_rec = check_probe_entries(device)
     sf_rec = check_sf_entries(device)
+    resident_graph = resident_graph_ms(device)
     marks.append(("2", time.perf_counter()))
 
     # ---- phase 3: the slice, each path with the counts from 0 ---------------
@@ -1233,10 +1371,12 @@ def main() -> int:
                                K11_REPLACES, "K11", "lattice"))
     kernels.append(probe_entry("scatter_cells", "scatter_cells", K6_REPLACES, "K6",
                                "scatter_cells", library="library_ms"))
-    kernels += sf_kernel_entries(sf_probes, sf_rec)
+    kernels += sf_kernel_entries(sf_probes, sf_rec, resident_graph)
     for e in kernels:  # the dot's instances (phase 1); K5 shares f32, tf32, f64 with K9
         if e["name"] == "row_fma":
             e["build"] = fma_build
+        elif e["name"] in resident_build:
+            e["build"] = resident_build[e["name"]]
         elif e["name"] == "dense_dot":
             e["build"] = {k: v for k, v in dot_build.items() if k != "bf16 (384, 96) bf16"}
         elif e["name"] == "dense_dot_streamed":

@@ -90,13 +90,44 @@ def test_emulated_row_fma_items_write_every_output_once(emulated, block):
     assert (counts == 1).all()
 
 
+# (block, nblk, step groups) of the resident kernels' runs: the emulated
+# card's 2 slots (groups None: 1 group, the blocks looping over the tiles at
+# 256 columns), or slots set to groups x tiles (a group takes 4 steps at
+# least): 13 steps in groups of 4, 4 and 5, and a block of one K8 tile (2
+# K10 tiles float32, 4 float64) in groups of 4 and 5
+RESIDENT_RUNS = pytest.mark.parametrize("block,nblk,groups", [
+    (BLOCK, NBLK, None), (256, 3, None), (BLOCK, 13, 3), (64, 9, 2)])
+
+
+@pytest.fixture
+def slots(emulated):
+    """set(n): K8's and K10's launches on n slots (the persistent grid's
+    blocks at most) in place of the emulated query's 2; reset after the
+    test."""
+    fn = _emu(emulated, "adaflo_emu_set_slots", None, ctypes.c_longlong)
+    yield fn
+    fn(0)
+
+
+def _set_groups(slots, name, dtype, block, groups, n_rows=89):
+    """Slots for `groups` step groups of `name`'s tiles at `block` (None:
+    the emulated query's)."""
+    if groups is not None:
+        slots(groups * block // pk.resident_plan(name, dtype, block, 1, n_rows)["tile_cols"])
+
+
 @DTYPES
+@RESIDENT_RUNS
 @pytest.mark.parametrize("n_rows", pk.N_ROWS)
-def test_emulated_row_copies_equal_plain_version(emulated, n_rows, dtype):
-    x = _randn(8, 32, BLOCK + 2560, dtype=dtype)
-    out = torch.full((n_rows, BLOCK), float("nan"), dtype=dtype)
-    pk._launch_row_copies(x, out, NBLK)
-    assert torch.equal(out, pk.row_copies_plain(x, n_rows, NBLK))
+def test_emulated_row_copies_equal_plain_version(emulated, slots, n_rows, block, nblk, groups,
+                                                 dtype):
+    """K8's resident tile (a NaN fill would show an output left unwritten)
+    on every kind of step group (RESIDENT_RUNS), exact."""
+    _set_groups(slots, "row_copies", dtype, block, groups, n_rows)
+    x = _randn(8, 32, block + 2560, dtype=dtype)
+    out = torch.full((n_rows, block), float("nan"), dtype=dtype)
+    pk._launch_row_copies(x, out, nblk)
+    assert torch.equal(out, pk.row_copies_plain(x, n_rows, nblk))
 
 
 @pytest.mark.parametrize("nblk", [NBLK, 3])
@@ -257,15 +288,48 @@ def test_emulated_dot_plan_reports_the_launch(emulated):
 
 
 @DTYPES
-def test_emulated_sf_eval_matches_plain_version(emulated, dtype):
-    """Every q row of the three stages, and the pad rows q = 27..31 zero."""
-    x = _randn(15, 32, BLOCK + 2560, dtype=dtype)
+@RESIDENT_RUNS
+def test_emulated_sf_eval_matches_plain_version(emulated, slots, block, nblk, groups, dtype):
+    """Every q row of the three stages, and the pad rows q = 27..31 zero, on
+    every kind of step group (RESIDENT_RUNS) at each type's tile (32
+    columns float32, 16 float64)."""
+    _set_groups(slots, "sf_eval", dtype, block, groups)
+    x = _randn(15, 32, block + 2560, dtype=dtype)
     coeffs = ((0.3, 0.5, 0.2), (0.25, 0.6, 0.15), (0.1, 0.7, 0.2)), ((-1.0, 0.0, 1.0),
                                                                    (-0.5, 0.1, 0.4),
                                                                    (-0.8, -0.2, 1.0))
-    out = torch.full((384, BLOCK), float("nan"), dtype=dtype)
-    pk._launch_sf_eval(x, out, NBLK, coeffs)
-    ref = pk.sf_eval_plain(x, NBLK, coeffs)
+    out = torch.full((384, block), float("nan"), dtype=dtype)
+    pk._launch_sf_eval(x, out, nblk, coeffs)
+    ref = pk.sf_eval_plain(x, nblk, coeffs)
     assert _rel(out, ref) <= TOL[dtype]
-    pad = out.reshape(12, 32, BLOCK)[:, 27:]
+    pad = out.reshape(12, 32, block)[:, 27:]
     assert torch.equal(pad, torch.zeros_like(pad))
+
+
+@DTYPES
+@pytest.mark.parametrize("block,nblk,n_slots", [
+    (64, 9, 2), (256, 3, None), (4096, 29, 6 * 132), (2048, 58, 3 * 132), (2048, 13, 3 * 132)])
+@pytest.mark.parametrize("name,n_rows", [("row_copies", 29), ("row_copies", 89), ("sf_eval", 0)])
+def test_emulated_resident_items_run_every_step_once(emulated, slots, name, n_rows, block, nblk,
+                                                     n_slots, dtype):
+    """K8's and K10's work items (tile, step group) over the blocks of their
+    persistent grid run every step of every tile exactly once, and a step's
+    items over the threads of a block write every element of the output
+    tile exactly once (K10's pad rows, zeroed once a block, included); on
+    the emulated query's 2 slots and on a card's 132 SMs x 3 or 6 resident
+    blocks. The plan reports at most as many blocks as slots and items."""
+    if n_slots is not None:
+        slots(n_slots)
+    plan = pk.resident_plan(name, dtype, block, nblk, n_rows or 89)
+    assert plan["slots"] == (n_slots or 2) and plan["groups"] <= nblk
+    assert plan["grid"] == min(plan["slots"], plan["items"])
+    assert plan["items"] == plan["groups"] * block // plan["tile_cols"]
+    rows = n_rows or 384
+    fn = _emu(emulated, "adaflo_emu_resident_work", ctypes.c_int, *[ctypes.c_int] * 5,
+              ctypes.c_void_p, ctypes.c_void_p)
+    runs = np.zeros((block // plan["tile_cols"], nblk), np.int32)
+    writes = np.zeros((rows, plan["tile_cols"]), np.int32)
+    kernel = pk.RESIDENT.index(name)
+    assert fn(kernel, int(dtype == torch.float64), n_rows, block, nblk, runs.ctypes.data,
+              writes.ctypes.data) == 0
+    assert (runs == 1).all() and (writes == 1).all()

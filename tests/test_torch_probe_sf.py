@@ -24,7 +24,11 @@ package's probe kernels, on the CPU.
   follows the headers a source includes (``ops/build.source_tag``), and
   ``scripts/sass_counts`` keys the dot's instances and flags one without its
   design's instructions; it keys K7's instances and flags a family whose
-  statements were merged or whose operands come from shared memory.
+  statements were merged or whose operands come from shared memory; it
+  keys K8's and K10's instances, counts no never-executed (@!PT)
+  instruction, and flags a K8 step that is not one LDS and STS a row or
+  stores to global memory, and a K10 work item whose statements were
+  merged or read from shared memory.
 
 The JAX probe scripts set ADAFLO_* variables and sys.path when imported;
 they are loaded with both restored afterwards.
@@ -438,3 +442,95 @@ def test_sass_counts_hold_k7_statements_to_registers():
     del bad["double n_ops=72 shifted"]
     assert sc.check_fma(bad) == ["float aligned", "float shifted", "double aligned",
                                  "double shifted"]
+
+
+# K8's and K10's SASS counts (sass_counts, executed instructions) as the
+# card's build gave them: K8 one LDS and one STS per copied row, the output
+# tile's one LDS and STG, the slab's cp.async (LDGSTS) per span; K10 243 FP
+# instructions (81 statements), its 27 operands' LDS and 36 q rows' STS, the
+# output tile's LDS and the pad rows' STS
+K8_RECORDED = {29: {"LDS": 30, "STS": 29, "STG": 1, "LDGSTS": 50, "LOP3": 10},
+               89: {"LDS": 90, "STS": 89, "STG": 1, "LDGSTS": 50, "LOP3": 10}}
+K10_RECORDED = {"mul": 81, "fma": 162, "LDS": 28, "STS": 37, "STG": 1, "LDGSTS": 1, "LOP3": 25}
+
+
+def _k10(t, **change):
+    from adaflo_tpu_torch.scripts import sass_counts as sc
+
+    fma, mul, _ = sc.FMA_FP[t]
+    c = dict(K10_RECORDED, **change)
+    return {fma: c.pop("fma"), mul: c.pop("mul"), **c}
+
+
+def test_sass_counts_hold_k8_and_k10_to_their_design(monkeypatch):
+    """sass_counts keys K8's instances by type and rows and K10's by type,
+    reads their registers from the ptxas lines, and skips the placeholders
+    under the never-true predicate @!PT that nvcc puts before a cp.async.
+    On the counts recorded on the card it passes both; it flags a K8 whose
+    step reads or stores global memory per row (the earlier design: LDG and
+    STG a row), one without the slab's cp.async, a K10 whose qy or qx planes
+    merged (fewer FP instructions than 243 a work item), one whose operands
+    come from shared memory per statement, and missing instances."""
+    from adaflo_tpu_torch.scripts import sass_counts as sc
+
+    k8 = "_ZN12_GLOBAL__N_117row_copies_kernelI{}Li{}EEEvPKT_PS1_iiNS_5StepsE"
+    k10 = "_ZN12_GLOBAL__N_114sf_eval_kernelI{}EEvPKT_PS1_iiNS_5StepsENS_8SfCoeffsIS1_EEj"
+    assert sc.copies_key(k8.format("f", 29)) == "float n_rows=29"
+    assert sc.copies_key(k8.format("d", 89)) == "double n_rows=89"
+    assert sc.sfeval_key(k10.format("d")) == "double" and sc.sfeval_key(k8.format("f", 29)) is None
+    assert sc.copies_key(k10.format("f")) is None and sc.fma_key(k10.format("f")) is None
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{k10.format('f')}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {k10.format('f')}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+    ])
+    assert sc.sfeval_ptxas(log) == {"float": {"registers": 64, "stack": 0, "spill_stores": 0,
+                                              "spill_loads": 0}}
+    sass = "\n".join([
+        f"\t\tFunction : {k10.format('f')}",
+        "        /*0bd0*/              @!PT LDS RZ, [RZ] ;                /* 0x00000000fffff984 */",
+        "        /*0c00*/                   LDGSTS.E [R7+0xc000], desc[UR8][R4.64] ;  /* 0x0c00 */",
+        "        /*0ea0*/                   LDS R21, [R40+0xc000] ;        /* 0x00c0000028157984 */",
+        "        /*0f10*/              @!P0 LDS R34, [R36+0xdec0] ;        /* 0x00dec00024227984 */",
+        "        /*1d70*/                   FFMA R3, R30, c[0x0][0x2a4], R3 ;  /* 0x0000a9001e037a23 */",
+    ])
+    monkeypatch.setattr(sc, "_dump", lambda library: sass)
+    got = sc.sfeval_counts(Path("lib.so"))["float"]
+    assert (got["LDS"], got["LDGSTS"], got["FFMA"]) == (2, 1, 1)
+
+    good = {f"{t} n_rows={n}": dict(c) for t in sc.FMA_FP for n, c in K8_RECORDED.items()}
+    assert sc.check_copies(good) == []
+    bad = dict(good)
+    bad["float n_rows=29"] = {"LDG": 29, "STG": 29}  # the earlier design
+    bad["float n_rows=89"] = {"LDG": 89, "STG": 89}
+    bad["double n_rows=89"] = dict(K8_RECORDED[89], STG=90)  # a store inside the steps
+    assert sc.check_copies(bad) == ["float", "double"]
+    no_async = {k: dict(c, LDGSTS=0) for k, c in good.items()}
+    assert sc.check_copies(no_async) == ["float", "double"]
+    del good["double n_rows=29"]
+    assert sc.check_copies(good) == ["double"]
+
+    ok = {t: _k10(t) for t in sc.FMA_FP}
+    assert sc.check_sfeval(ok) == []
+    two_items = {t: _k10(t, mul=2 * 81, fma=2 * 162, LDS=2 * 27 + 1, STS=2 * 36 + 1)
+                 for t in sc.FMA_FP}  # two work items' code
+    assert sc.check_sfeval(two_items) == []
+    merged_qy = _k10("float", mul=18 + 3 * 3 + 3 * 4, fma=2 * (18 + 9 + 12))
+    shared_fed = _k10("double", LDS=3 * 81)
+    assert sc.check_sfeval({"float": merged_qy, "double": shared_fed}) == ["float", "double"]
+    assert sc.check_sfeval({"float": ok["float"]}) == ["double"]
+
+
+def test_onchip_floors_count_the_resident_steps_shared_bytes():
+    """K8's and K10's on-chip floors: the shared-memory bytes of their
+    resident steps (K8 a load and a store per copied element, K10 9 work
+    items of 27 loads and 36 stores a column) over 128 bytes a clock on
+    each of 132 SMs."""
+    from adaflo_tpu_torch.scripts import probe_bounds as pb
+
+    assert pb.k8_smem_bytes(4096, 29, 89, "float32") == 2 * 89 * 4096 * 29 * 4
+    assert pb.k10_smem_bytes(2048, 58, "float64") == 9 * 63 * 2048 * 58 * 8
+    assert pb.onchip_floor_ms(128 * 132 * 1000, 1000.0) == pytest.approx(1e-3)
+    assert pb.onchip_floor_ms(pb.k8_smem_bytes(4096, 29, 89), 1980.0) == pytest.approx(
+        0.0025281, rel=1e-4)

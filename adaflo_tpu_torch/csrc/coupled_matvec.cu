@@ -16,10 +16,11 @@
 //                           make_kernel_unroll2),
 //   K11 probe_pr_grouped.py build_call (make_kernel_grouped): the apply with
 //                           a gather that reads no per-dof table,
-//   K6  probe_pr.py         ring_scatter: the cell-block scatter alone.
+//   K6  probe_pr.py         ring_scatter (scatter_ring_kernel): the
+//                           cell-block scatter alone.
 // K1-K4, K11, K12 and K13 are template instances of one cell kernel (K12 and
 // K13 through its phase mask, K13's TPU schedules through its schedule, K11
-// through the lattice source); K6 is scatter_cells_kernel. The cell kernel
+// through the lattice source); K6 is scatter_tiles_kernel. The cell kernel
 // computes, for every cell of a uniform Cartesian lattice, the
 // Newton-linearized Navier-Stokes operator
 //
@@ -1185,26 +1186,233 @@ coupled_cell_kernel(const T* __restrict__ u, const T* __restrict__ p,
   }
 }
 
-// K6: add a cell-major (E, LDX) block, LDX = DIM NL + NP, into the nodal
-// output through the cell tables, one thread per block entry (consecutive
-// threads read consecutive entries).
-template <int DIM, int NL, int NP, typename T>
-__global__ void __launch_bounds__(256)
-scatter_cells_kernel(const T* __restrict__ block, const int32_t* __restrict__ cell_u,
-                     const int32_t* __restrict__ cell_p, T* __restrict__ out_u,
-                     T* __restrict__ out_p, long long n_u, long long n_cells) {
-  constexpr int LDX = DIM * NL + NP;
-  const long long n = n_cells * LDX;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long e = i / LDX;
-    const int k = (int)(i % LDX);
-    const T v = block[i];
-    if (k < DIM * NL) {
-      atomicAdd(out_u + (k / NL) * n_u + cell_u[e * NL + k % NL], v);
-    } else {
-      atomicAdd(out_p + cell_p[e * NP + k - DIM * NL], v);
+// K6: the cell-block scatter as the TPU's resident accumulator. It replaces
+// scripts/probe_pr.py scatter_ring_kernel, whose grid steps add (89, B)
+// blocks by static shifted row slices into one (32, win) parity accumulator
+// that stays in VMEM across the grid: no cell table, no atomics. Here the
+// accumulator is a tile of the lattice in shared memory: a thread block owns
+// a brick of kScatterTX x kScatterTY x kScatterTZ cells (8 x 4 x 4, x
+// fastest; partial at the high end of an axis that the tile does not
+// divide), sums its cells' 89 entries into shared copies of the brick's Q2
+// nodes (3 components) and Q1 nodes, and then adds each node into the
+// nodal output once. The addresses come from the cell's lattice coordinates
+// (node deg c + l of cell c on axis a, node deg nc of a periodic axis
+// wrapping to 0, ops/lattice.py), so no cell table is read.
+//
+// Adds inside the tile: eight parity passes with a barrier between them.
+// Cells whose coordinates agree mod 2 share no node, so the 16 cells of a
+// pass write 16 x 89 distinct slots with plain adds, in a fixed order (the
+// in-tile sums do not change from run to run), and nothing waits on a
+// shared-memory atomic (a float add there is a compare-and-swap loop; with
+// them and no barriers the kernel ran slower, PERF.md). A pass has
+// 384 threads, one per entry (89, padded to 96) of its 4 cells along x,
+// consecutive threads on consecutive entries of a cell's contiguous row;
+// each thread adds its entry of the pass's 2 x 2 cells along y and z, so
+// its entry's slot (a table of 96 ints in shared memory, built per block)
+// and x offsets are worked out once a pass. The next pass's values are
+// loaded into registers before this pass's are added, so the loads run
+// across the barrier.
+//
+// Writing out: a node that only this tile's cells touch gets one plain
+// read-add-write of out, read at the start (cp.async straight into its
+// accumulator slot, in flight with the first pass's loads) and written at
+// the end; a node on a face that another tile shares, or that a periodic
+// axis wraps (onto another tile or this one), starts at zero and is added
+// with one global atomicAdd. So the end of a tile waits on no load. At a
+// full 8 x 4 x 4 tile with neighbours on every side that is 1,926 velocity
+// and 162 pressure atomics per 128 cells (16 a cell, against 89 for an
+// atomic per block entry). The node's address and kind, found at the start,
+// wait in shared memory (one int32 a node) for the end. One block per
+// tile: at the probes' 48^3 box the 864 tiles take the card's resident
+// blocks (4 of 384 threads an SM, 40 registers) less than twice, and a
+// persistent pencil walk that carried the shared face plane from tile to
+// tile (the TPU's win overlap) would leave SMs idle there.
+//
+// Bound: bytes. The block is read once, the nodal output read and written
+// once: at 48^3 in float64 124.4 MB, 0.0371 ms at 3.35 TB/s
+// (scripts.scatter_bound); one add per block entry is far below any peak.
+// What holds the kernel above it is each tile's fixed work, not its bytes:
+// float32 takes nearly as long as float64, and the ablations of
+// scripts/scatter_variants.py time the start and the write-out alone, and
+// the passes without their loads, at most of the kernel (PERF.md).
+constexpr int kScatterTX = 8, kScatterTY = 4, kScatterTZ = 4;
+constexpr int kScatterPad = 96;  // a cell's 89 entries padded to 3 x 32
+// A parity pass: one thread per entry (padded) of the pass's kScatterTX / 2
+// cells along x, each thread taking its entry of the pass's cells along y
+// and z in turn (kScatterPer of them), so its entry, its slot table entry
+// and its x are the same for every cell it takes.
+constexpr int kScatterThreads = kScatterTX / 2 * kScatterPad;
+constexpr int kScatterPer = (kScatterTY / 2) * (kScatterTZ / 2);
+
+// The node box of a tile of degree DEG (x fastest).
+template <int DEG>
+struct TileNodes {
+  static constexpr int X = DEG * kScatterTX + 1, Y = DEG * kScatterTY + 1,
+                       Z = DEG * kScatterTZ + 1, N = X * Y * Z;
+};
+
+// The tile's shared memory: the accumulator [u_0 | u_1 | u_2] on the Q2
+// node box and p on the Q1 node box, each node's destination (int32: node
+// + 1 for a plain write, -(node + 1) for an atomic, 0 outside the tile),
+// then the slot table of a cell's entries.
+template <typename T>
+struct ScatterTile {
+  using U = TileNodes<2>;
+  using P = TileNodes<1>;
+  static constexpr int VALUES = 3 * U::N + P::N;
+  static constexpr int SMEM = VALUES * ((int)sizeof(T) + (int)sizeof(int)) +
+                              kScatterPad * (int)sizeof(int);
+};
+
+// The lattice of a K6 launch: cells, Q2 and Q1 nodes and tiles per axis,
+// and the periodic axes (bit a: axis a wraps).
+struct ScatterLattice {
+  int nc[3], nu[3], np[3], tiles[3];
+  int periodic;
+};
+
+// The tile slot of entry k (0..88: [u_0 .. u_2 | p], local dofs x fastest)
+// of the tile's cell (0, 0, 0); -1 for the padding.
+__device__ __forceinline__ int scatter_slot(int k) {
+  using U = TileNodes<2>;
+  using P = TileNodes<1>;
+  if (k < 81) {
+    const int c = k / 27, l = k - 27 * c;
+    const int lz = l / 9, ly = (l - 9 * lz) / 3, lx = l - 9 * lz - 3 * ly;
+    return c * U::N + (lz * U::Y + ly) * U::X + lx;
+  }
+  if (k < 89) {
+    const int l = k - 81;
+    return 3 * U::N + ((l >> 2) * P::Y + ((l >> 1) & 1)) * P::X + (l & 1);
+  }
+  return -1;
+}
+
+// Node m of the tile's degree-DEG box (x fastest): its index in its nodal
+// vector (dof numbering x fastest, node DEG nc of a periodic axis wrapped to
+// 0), whether the tile's cells reach it, and whether another tile's box, or
+// a wrap of this one, holds it too.
+template <int DEG>
+__device__ __forceinline__ int scatter_node(int m, const ScatterLattice& lat, const int* c0,
+                                            const int* n, bool* inside, bool* shared) {
+  using B = TileNodes<DEG>;
+  const int g[3] = {m % B::X, (m / B::X) % B::Y, m / (B::X * B::Y)};
+  int addr = 0;
+  *inside = true;
+  *shared = false;
+#pragma unroll
+  for (int a = 2; a >= 0; --a) {
+    const bool wraps = (lat.periodic >> a) & 1;
+    const int nodes = DEG == 2 ? lat.nu[a] : lat.np[a];
+    *inside = *inside && g[a] <= DEG * n[a];
+    *shared = *shared || (g[a] == 0 && (c0[a] > 0 || wraps)) ||
+              (g[a] == DEG * n[a] && (c0[a] + n[a] < lat.nc[a] || wraps));
+    int ga = DEG * c0[a] + g[a];
+    if (ga >= nodes) ga -= nodes;
+    addr = addr * nodes + ga;
+  }
+  return addr;
+}
+
+// The work of thread unit u (entry k of the pass's u / kScatterPad-th cell
+// along x; none for u >= kScatterThreads) in parity pass par: the values of
+// its kScatterPer cells along y and z, loaded into v, and their slots in the
+// tile into sl (-1: padding, or a cell outside the tile). e0: the tile's
+// first cell.
+template <typename T>
+__device__ __forceinline__ void scatter_load(const T* __restrict__ block, const int* rel,
+                                             const ScatterLattice& lat, long long e0,
+                                             const int* n, int par, int u, T* v, int* sl) {
+  using U = TileNodes<2>;
+  using P = TileNodes<1>;
+  const int a = u / kScatterPad, k = u - a * kScatterPad;
+  const int r = u < kScatterThreads ? rel[k] : -1;
+  const bool vel = k < 81;
+  const int cx = (par & 1) + 2 * a, py = (par >> 1) & 1, pz = par >> 2;
+  const int sx = r + (vel ? 2 * cx : cx);
+#pragma unroll
+  for (int q = 0; q < kScatterPer; ++q) {
+    const int cy = py + 2 * (q % (kScatterTY / 2)), cz = pz + 2 * (q / (kScatterTY / 2));
+    v[q] = T(0);
+    sl[q] = -1;
+    if (r >= 0 && cx < n[0] && cy < n[1] && cz < n[2]) {
+      const long long e = e0 + (cz * lat.nc[1] + cy) * lat.nc[0] + cx;
+      v[q] = block[e * 89 + k];
+      sl[q] = sx + (vel ? (2 * cz * U::Y + 2 * cy) * U::X : (cz * P::Y + cy) * P::X);
     }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kScatterThreads, 4)
+scatter_tiles_kernel(const T* __restrict__ block, T* __restrict__ out_u, T* __restrict__ out_p,
+                     long long n_u, ScatterLattice lat) {
+  using S = ScatterTile<T>;
+  using U = TileNodes<2>;
+  using P = TileNodes<1>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const acc = reinterpret_cast<T*>(smem_raw);
+  int* const dst = reinterpret_cast<int*>(acc + S::VALUES);
+  int* const rel = dst + S::VALUES;
+  const int b = blockIdx.x;
+  const int t0[3] = {b % lat.tiles[0], (b / lat.tiles[0]) % lat.tiles[1],
+                     b / (lat.tiles[0] * lat.tiles[1])};
+  const int c0[3] = {t0[0] * kScatterTX, t0[1] * kScatterTY, t0[2] * kScatterTZ};
+  const int n[3] = {min(kScatterTX, lat.nc[0] - c0[0]), min(kScatterTY, lat.nc[1] - c0[1]),
+                    min(kScatterTZ, lat.nc[2] - c0[2])};
+  for (int k = threadIdx.x; k < kScatterPad; k += blockDim.x) rel[k] = scatter_slot(k);
+  __syncthreads();
+
+  // the passes as a sequence of batches of thread units (one batch a pass on
+  // the card), the next batch loaded before this one is added; a barrier
+  // after a pass's last batch. The first batch's loads go out before the
+  // accumulator's.
+  const long long e0 = ((long long)c0[2] * lat.nc[1] + c0[1]) * lat.nc[0] + c0[0];
+  const int per_pass = (kScatterThreads + blockDim.x - 1) / blockDim.x;
+  T v[kScatterPer], w[kScatterPer];
+  int sv[kScatterPer], sw[kScatterPer];
+  scatter_load(block, rel, lat, e0, n, 0, threadIdx.x, v, sv);
+
+  // each node's destination, and its accumulator's start: the old value of
+  // a node of this tile alone, zero for one that tiles share
+  for (int i = threadIdx.x; i < S::VALUES; i += blockDim.x) {
+    bool inside, shared;
+    const int c = i / U::N;
+    const int node = i < 3 * U::N ? scatter_node<2>(i - c * U::N, lat, c0, n, &inside, &shared)
+                                  : scatter_node<1>(i - 3 * U::N, lat, c0, n, &inside, &shared);
+    const bool plain = inside && !shared;
+    dst[i] = inside ? (shared ? -(node + 1) : node + 1) : 0;
+    const T* src = (i < 3 * U::N ? out_u + c * n_u : out_p) + (plain ? node : 0);
+    async_copy(acc + i, src, !plain);
+  }
+  async_commit();
+  async_wait<0>();
+  __syncthreads();
+
+  for (int s = 0; s < 8 * per_pass; ++s) {
+    if (s + 1 < 8 * per_pass)
+      scatter_load(block, rel, lat, e0, n, (s + 1) / per_pass,
+                   (s + 1) % per_pass * blockDim.x + threadIdx.x, w, sw);
+#pragma unroll
+    for (int q = 0; q < kScatterPer; ++q)
+      if (sv[q] >= 0) acc[sv[q]] += v[q];
+    if ((s + 1) % per_pass == 0) __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kScatterPer; ++q) {
+      v[q] = w[q];
+      sv[q] = sw[q];
+    }
+  }
+
+  // each node of the tile into the nodal output once
+  for (int i = threadIdx.x; i < S::VALUES; i += blockDim.x) {
+    const int d = dst[i];
+    if (d == 0) continue;
+    T* const out = i < 3 * U::N ? out_u + (i / U::N) * n_u : out_p;
+    if (d < 0)
+      atomicAdd(out + (-d - 1), acc[i]);
+    else
+      out[d - 1] = acc[i];
   }
 }
 
@@ -1268,13 +1476,13 @@ Scalars<T> make_scalars(const double* scal) {
 // The blocks of `kern` with `smem` bytes of shared memory that one SM holds
 // (the occupancy calculator), after allowing that shared memory.
 template <typename K>
-cudaError_t resident_blocks(K kern, size_t smem, int* per_sm) {
+cudaError_t resident_blocks(K kern, size_t smem, int* per_sm, int threads = kThreads) {
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, kThreads, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads, smem);
 }
 
 // An instance of the cell kernel with the one-shot body and its launch
@@ -1494,18 +1702,50 @@ int geometry(int mode, int pres, int dim, int degree, int* cpb, int* smem, int* 
   });
 }
 
+// K6's launch on the ncx x ncy x ncz lattice: one block of kScatterThreads
+// per tile, ScatterTile<T>::SMEM bytes of shared memory each.
+ScatterLattice scatter_lattice(int ncx, int ncy, int ncz, int periodic, long long* grid) {
+  ScatterLattice lat;
+  const int nc[3] = {ncx, ncy, ncz}, tile[3] = {kScatterTX, kScatterTY, kScatterTZ};
+  *grid = 1;
+  for (int a = 0; a < 3; ++a) {
+    const int wraps = (periodic >> a) & 1;
+    lat.nc[a] = nc[a];
+    lat.nu[a] = 2 * nc[a] + 1 - wraps;
+    lat.np[a] = nc[a] + 1 - wraps;
+    lat.tiles[a] = (nc[a] + tile[a] - 1) / tile[a];
+    *grid *= lat.tiles[a];
+  }
+  lat.periodic = periodic;
+  return lat;
+}
+
 template <typename T>
-int launch_scatter(const void* block, const int32_t* cell_u, const int32_t* cell_p,
-                   void* out_u, void* out_p, long long n_u, long long n_cells,
-                   cudaStream_t stream) {
-  const long long n = n_cells * (27 * 3 + 8);
-  if (n == 0) return 0;
-  long long blocks = (n + 255) / 256;
-  if (blocks > (1 << 20)) blocks = 1 << 20;
-  auto kern = scatter_cells_kernel<3, 27, 8, T>;
-  kern<<<(unsigned)blocks, 256, 0, stream>>>((const T*)block, cell_u, cell_p, (T*)out_u,
-                                             (T*)out_p, n_u, n_cells);
+int launch_scatter(const void* block, void* out_u, void* out_p, long long n_u, int ncx,
+                   int ncy, int ncz, int periodic, cudaStream_t stream) {
+  if (ncx < 1 || ncy < 1 || ncz < 1) return (int)cudaErrorInvalidValue;
+  long long grid;
+  const ScatterLattice lat = scatter_lattice(ncx, ncy, ncz, periodic, &grid);
+  if (grid > 0x7fffffffLL || n_u > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      scatter_tiles_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, ScatterTile<T>::SMEM);
+  if (allowed != cudaSuccess) return (int)allowed;
+  scatter_tiles_kernel<T><<<(unsigned)grid, kScatterThreads, ScatterTile<T>::SMEM, stream>>>(
+      (const T*)block, (T*)out_u, (T*)out_p, n_u, lat);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int scatter_plan(int ncx, int ncy, int ncz, int* tile, int* threads, int* smem,
+                 int* blocks_per_sm, long long* grid) {
+  scatter_lattice(ncx, ncy, ncz, 0, grid);
+  tile[0] = kScatterTX;
+  tile[1] = kScatterTY;
+  tile[2] = kScatterTZ;
+  *threads = kScatterThreads;
+  *smem = ScatterTile<T>::SMEM;
+  return (int)resident_blocks(scatter_tiles_kernel<T>, ScatterTile<T>::SMEM, blocks_per_sm,
+                              kScatterThreads);
 }
 
 }  // namespace
@@ -1622,16 +1862,29 @@ int adaflo_coupled_geometry(int dtype, int mode, int pres, int dim, int degree, 
   return (int)cudaErrorInvalidValue;
 }
 
-// K6, 3D Q2/Q1: out_u (3, n_u) and out_p += the cell-major block (E, 89)
-// through the cell tables.
-int adaflo_scatter_cells(int dtype, const void* block, const int32_t* cell_u,
-                         const int32_t* cell_p, void* out_u, void* out_p, long long n_u,
-                         long long n_cells, void* stream) {
+// K6, 3D Q2/Q1: out_u (3, n_u) and out_p += the cell-major block (E, 89) of
+// the uniform ncx x ncy x ncz lattice (cells x fastest, E = ncx ncy ncz),
+// each dof's address from its cell's lattice coordinates; periodic: bit a
+// set where axis a wraps (its deg nc nodes, node deg nc being node 0).
+int adaflo_scatter_cells(int dtype, const void* block, void* out_u, void* out_p, long long n_u,
+                         int ncx, int ncy, int ncz, int periodic, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch_scatter<double>(block, cell_u, cell_p, out_u, out_p, n_u, n_cells, st);
+    return launch_scatter<double>(block, out_u, out_p, n_u, ncx, ncy, ncz, periodic, st);
   if (dtype == 0)
-    return launch_scatter<float>(block, cell_u, cell_p, out_u, out_p, n_u, n_cells, st);
+    return launch_scatter<float>(block, out_u, out_p, n_u, ncx, ncy, ncz, periodic, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6's launch plan on the ncx x ncy x ncz lattice: the tile (tile[3], cells
+// per axis), threads per block, dynamic shared memory of one block (bytes),
+// resident blocks per SM (the occupancy calculator) and grid (tiles).
+int adaflo_scatter_plan(int dtype, int ncx, int ncy, int ncz, int* tile, int* threads,
+                        int* smem, int* blocks_per_sm, long long* grid) {
+  if (dtype == 1)
+    return scatter_plan<double>(ncx, ncy, ncz, tile, threads, smem, blocks_per_sm, grid);
+  if (dtype == 0)
+    return scatter_plan<float>(ncx, ncy, ncz, tile, threads, smem, blocks_per_sm, grid);
   return (int)cudaErrorInvalidValue;
 }
 

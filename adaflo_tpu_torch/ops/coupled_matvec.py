@@ -36,7 +36,9 @@ their own, 3D Q2/Q1 only (the probes' configuration), driven by
   constant coefficients, its addresses computed from the lattice
   coordinates in place of the cell tables;
 - ``scatter_cells`` (K6 ``probe_pr.py``): a cell block added into the nodal
-  vectors through the cell tables with atomicAdd.
+  vectors; the kernel sums lattice tiles in shared memory, its addresses
+  from the cells' lattice coordinates (periodic axes wrapped), and reads
+  no cell table.
 
 n_cols = dim n_u + n_p per cell, the velocity components first. Nodal
 vectors: u (dim, n_u), p (n_p,), the frozen Newton linearization point u*
@@ -653,19 +655,20 @@ def scatter_cells_plain(block, cells: CoupledCells, out_u, out_p):
     return out_u, out_p
 
 
-def lattice_cell_dofs(n_cells_axis, degree: int) -> np.ndarray:
+def lattice_cell_dofs(n_cells_axis, degree: int, periodic=(False, False, False)) -> np.ndarray:
     """(E, (degree+1)^3) int64: the dof of each cell's local dof on the
-    uniform non-periodic 3D lattice, from the cell's lattice coordinates,
-    as the K11 kernel computes it (lattice_dof in csrc/coupled_matvec.cu);
-    equals LatticeOps.cell_dof_table() there."""
+    uniform 3D lattice, from the cell's lattice coordinates, as the K11 and
+    K6 kernels compute it (lattice_dof and scatter_tiles_kernel in
+    csrc/coupled_matvec.cu): a periodic axis has degree n_c nodes, and its
+    node degree n_c is node 0. Equals LatticeOps.cell_dof_table() there."""
     ncx, ncy, ncz = n_cells_axis
     n1 = degree + 1
     e = np.arange(ncx * ncy * ncz)[:, None]
     cx, cy, cz = e % ncx, (e // ncx) % ncy, e // (ncx * ncy)
     loc = np.arange(n1**3)[None, :]
     lx, ly, lz = loc % n1, (loc // n1) % n1, loc // (n1 * n1)
-    nx, ny = degree * ncx + 1, degree * ncy + 1
-    return ((degree * cz + lz) * ny + degree * cy + ly) * nx + degree * cx + lx
+    nx, ny, nz = (degree * n + (0 if w else 1) for n, w in zip(n_cells_axis, periodic))
+    return ((degree * cz + lz) % nz * ny + (degree * cy + ly) % ny) * nx + (degree * cx + lx) % nx
 
 
 # ---------------------------------------------------------------------------
@@ -694,9 +697,11 @@ def bind(lib):
     lib.adaflo_coupled_epilogue.restype = i
     lib.adaflo_coupled_variant.argtypes = [i] * 4 + [vp] * 10 + [ll, ll, ll, i, i, vp, vp, vp]
     lib.adaflo_coupled_variant.restype = i
-    lib.adaflo_scatter_cells.argtypes = [i] + [vp] * 5 + [ll, ll, vp]
+    lib.adaflo_scatter_cells.argtypes = [i] + [vp] * 3 + [ll] + [i] * 4 + [vp]
     lib.adaflo_scatter_cells.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
+    lib.adaflo_scatter_plan.argtypes = [i] * 4 + [ip] * 4 + [ctypes.POINTER(ll)]
+    lib.adaflo_scatter_plan.restype = i
     lib.adaflo_coupled_residency.argtypes = [i, i, i, ip, ip, ip]
     lib.adaflo_coupled_residency.restype = i
     lib.adaflo_coupled_geometry.argtypes = [i] * 5 + [ip] * 3
@@ -1050,10 +1055,53 @@ def coupled_apply_lattice(u, p, u_star, cells: CoupledCells, sc: ApplyScalars):
     return out_u, out_p
 
 
+def _lattice_of(cells: CoupledCells):
+    """(cells per axis, periodic-axis bit mask) of cells.lattice, checked
+    against the cell tables that the plain version reads."""
+    n_cells_axis, periodic = cells.lattice
+    n_u, n_p = (
+        int(np.prod([d * n + (0 if w else 1) for n, w in zip(n_cells_axis, periodic)]))
+        for d in (2, 1)
+    )
+    if int(np.prod(n_cells_axis)) != cells.n_cells or (n_u, n_p) != (cells.min_n_u, cells.min_n_p):
+        raise ValueError("scatter_cells: the lattice shape does not match the cell tables")
+    return tuple(int(n) for n in n_cells_axis), sum(1 << a for a, w in enumerate(periodic) if w)
+
+
+def _launch_scatter(block, cells: CoupledCells, out_u, out_p):
+    """One launch of K6 (adaflo_scatter_cells) on cells.lattice."""
+    (ncx, ncy, ncz), periodic = _lattice_of(cells)
+    rc = load_library().adaflo_scatter_cells(
+        1 if block.dtype == torch.float64 else 0, _ptr(block), _ptr(out_u), _ptr(out_p),
+        out_u.shape[1], ncx, ncy, ncz, periodic, _stream(block.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"scatter_cells kernel launch failed (CUDA error {rc})")
+
+
+def scatter_plan(dtype, n_cells_axis) -> dict:
+    """K6's launch on a lattice of n_cells_axis cells: the tile (cells per
+    axis), threads per block, shared memory per block (bytes), resident
+    blocks per SM (the occupancy calculator) and grid (one block per tile)."""
+    ip = ctypes.c_int
+    tile, threads, smem, blocks = (ip * 3)(), ip(), ip(), ip()
+    grid = ctypes.c_longlong()
+    rc = load_library().adaflo_scatter_plan(
+        1 if dtype == torch.float64 else 0, *(int(n) for n in n_cells_axis), tile,
+        ctypes.byref(threads), ctypes.byref(smem), ctypes.byref(blocks), ctypes.byref(grid),
+    )
+    if rc != 0:
+        raise RuntimeError(f"scatter_cells plan query failed (CUDA error {rc})")
+    return {"tile": tuple(tile), "threads": threads.value, "smem": smem.value,
+            "blocks_per_sm": blocks.value, "grid": grid.value}
+
+
 def scatter_cells(block, cells: CoupledCells, out_u, out_p):
     """K6: add the cell-major block (E, n_cols) [u_0 .. u_2 | p] into the
-    nodal out_u (dim, n_u) and out_p (n_p,) in place through the cell tables
-    (atomicAdd). 3D Q2/Q1. Returns (out_u, out_p)."""
+    nodal out_u (dim, n_u) and out_p (n_p,) in place. 3D Q2/Q1. The kernel
+    reads no cell table: it takes the lattice shape and periodic axes of
+    cells.lattice (every CoupledCells of the operator carries them).
+    Returns (out_u, out_p)."""
     _probe_cells(cells, "scatter_cells")
     n_cols = cells.dim * cells.ev_u.n_local + cells.ev_p.n_local
     if block.dtype not in (torch.float32, torch.float64):
@@ -1075,14 +1123,8 @@ def scatter_cells(block, cells: CoupledCells, out_u, out_p):
         return scatter_cells_plain(block, cells, out_u, out_p)
     if not block.is_cuda:
         raise RuntimeError(f"scatter_cells: no kernel for device {block.device}")
-    if cells.device != block.device:
-        raise ValueError("scatter_cells: cell tables live on another device")
-    rc = load_library().adaflo_scatter_cells(
-        1 if block.dtype == torch.float64 else 0, _ptr(block), _ptr(cells.cell_u),
-        _ptr(cells.cell_p), _ptr(out_u), _ptr(out_p), out_u.shape[1], cells.n_cells,
-        _stream(block.device),
-    )
-    if rc != 0:
-        raise RuntimeError(f"scatter_cells kernel launch failed (CUDA error {rc})")
+    if cells.lattice is None:
+        raise ValueError("scatter_cells: the cells carry no lattice shape")
+    _launch_scatter(block, cells, out_u, out_p)
     launches["scatter_cells"] += 1
     return out_u, out_p

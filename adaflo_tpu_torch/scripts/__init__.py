@@ -21,7 +21,9 @@ and the contraction-rate and matrix-unit probes, with options of their own:
 - ``probe_mxu``: K5, the streamed dense dot, beside the library's products
   (``--n 4096 --cols 110592``);
 - ``probe_bounds``: the bounds of K5 and K7-K10 at a configuration;
-- ``sass_counts``: the probe kernels' instruction counts (cuobjdump).
+- ``sass_counts``: the probe kernels' instruction counts (cuobjdump);
+- ``scatter_variants``: K6's design choices undone one at a time, and K6 of
+  another checkout, timed side by side (``--checkout DIR``).
 
 Without ``--device cpu`` a probe needs a CUDA device and raises otherwise; on
 the CPU it runs the plain versions, and its times are CPU times. This module
@@ -271,14 +273,14 @@ def variant_bound(variant: str, cells, n_u: int, n_p: int, dtype) -> dict:
     return roofline(nbytes, flops, _rate(dtype))
 
 
-def scatter_bound(cells, n_u: int, n_p: int, dtype, pres: bool = True) -> dict:
-    """K6: read the (E, n_cols) block and the cell tables once, read and
-    write the nodal output once; one add per block entry."""
+def scatter_bound(cells, n_u: int, n_p: int, dtype) -> dict:
+    """K6: read the (E, n_cols) block once, read and write the nodal output
+    (3 n_u + n_p values) once; one add per block entry. No cell table: the
+    TPU kernel reads none, and neither does the port's."""
     s = torch.finfo(dtype).bits // 8
     E, nl, npl = cells.n_cells, cells.ev_u.n_local, cells.ev_p.n_local
-    n_cols = 3 * nl + (npl if pres else 0)
-    nbytes = E * n_cols * s + E * (nl + (npl if pres else 0)) * 4
-    nbytes += 2 * (3 * n_u + (n_p if pres else 0)) * s
+    n_cols = 3 * nl + npl
+    nbytes = E * n_cols * s + 2 * (3 * n_u + n_p) * s
     return roofline(nbytes, E * n_cols, _rate(dtype))
 
 

@@ -7,10 +7,12 @@ ring-accumulator scatter (``scatter_ring_kernel``) on their own. Here:
   K3  coupled_apply_cells on a pre-gathered (E, 89) block and u* dof stream
   K4  coupled_apply_gather on the nodal vectors, (E, 89) block out
   K6  scatter_cells: the (E, 89) block added into the nodal velocity and
-      pressure through the int32 cell tables with atomicAdd, beside one
-      Tensor.index_add_ over the flattened table (the library call that
-      computes the same function) and the port's lattice scatter
-      (LatticeOps.scatter_add, the K3 route's), which are timed only
+      pressure; the kernel reads no cell table (lattice tiles summed in
+      shared memory, addresses from the cells' lattice coordinates, global
+      atomics only where tiles meet), beside one Tensor.index_add_ over the
+      flattened table (the library call that computes the same function)
+      and the port's lattice scatter (LatticeOps.scatter_add, the K3
+      route's), which are timed only
 
 Each kernel is held against its plain version; times are CUDA events
 (time_rounds), the calls issued back to back and one waited call, with the
@@ -117,6 +119,7 @@ def run(cells: int = 48, reps: int = 20, dtype=torch.float64, device=None,
            f", err {errs['k_pi'][1]:.2e}")
     report("scatter_cells", b["bytes"],
            f", plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+           f"index_add_ {ms['index_add_']['ms']:.4f} ms, lattice {ms['lattice']['ms']:.4f} ms, "
            f"err {errs['scatter_cells'][1]:.2e}")
     report("index_add_", b["bytes"], f", err {errs['index_add_'][1]:.2e}")
     report("lattice", b["bytes"], f", err {errs['lattice'][1]:.2e}")

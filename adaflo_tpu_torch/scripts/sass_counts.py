@@ -12,7 +12,9 @@ not grow with n_ops (no operand comes from shared memory). K8's step must
 be one LDS and one STS per copied row of a work item, with no global store
 growing with the rows (check_copies), and K10's work item must compute
 every statement, 3 FP instructions each, from the 27 operands it loads
-from shared memory once (check_sfeval). K13's schedules
+from shared memory once (check_sfeval). K6's tiled scatter must sum its
+tile in shared memory without a shared-memory atomic and add where tiles
+meet with global atomics (check_scatter). K13's schedules
 of the cell kernel must copy asynchronously: rowdma
 and unroll2 through cp.async (LDGSTS), pipe through bulk copies (UBLKCP)
 completing on an mbarrier (SYNCS); if nvcc turned a schedule's copies into
@@ -48,7 +50,8 @@ from adaflo_tpu_torch.ops import coupled_matvec as cm
 from adaflo_tpu_torch.ops import probe_kernels as pk
 
 OPS = ("FFMA", "FMUL", "FADD", "DFMA", "DMUL", "DADD", "HMMA", "HGMMA", "DMMA", "LDS", "STS",
-       "LDG", "STG", "LDGSTS", "UBLKCP", "UTMALDG", "UTMASTG", "SYNCS", "LOP3")
+       "LDG", "STG", "LDGSTS", "UBLKCP", "UTMALDG", "UTMASTG", "SYNCS", "LOP3", "RED", "REDG",
+       "ATOM", "ATOMG", "ATOMS")
 # the asynchronous copies each schedule must show
 SCHEDULE_OPS = {"rowdma": ("LDGSTS",), "pipe": ("UBLKCP", "SYNCS"), "unroll2": ("LDGSTS",)}
 # the mangled cell kernel <3, 3, 3, 2, true, kSrcTable, kStreamDofs,
@@ -82,6 +85,11 @@ _SFEVAL_KERNEL = re.compile(r"sf_eval_kernelI([fd])E")
 SF_ITEM_STATEMENTS, SF_ITEM_LOADS, SF_ITEM_ROWS = 81, 27, 36
 SF_PER_STATEMENT = 3
 SF_OTHER_LDS = 1  # LDS outside the items: the output tile's loads for its store
+# the mangled K6 instance scatter_tiles_kernel<T>: "<float|double>"
+_SCATTER_KERNEL = re.compile(r"scatter_tiles_kernelI([fd])E")
+# K6's global atomics (a reduction without a result, or an atomic), and the
+# shared-memory atomic its parity passes leave out
+SCATTER_GLOBAL_ATOMICS = ("RED", "REDG", "ATOM", "ATOMG")
 # an instruction and its opcode; one under the never-true predicate @!PT (the
 # placeholders that nvcc puts before each LDGSTS: @!PT LDS RZ, [RZ]) never
 # runs and is not counted
@@ -373,6 +381,41 @@ def check_sfeval(res: dict) -> list:
     return bad
 
 
+def scatter_key(mangled: str):
+    """"<float|double>" of a mangled K6 instance, or None."""
+    m = _SCATTER_KERNEL.search(mangled)
+    if m is None:
+        return None
+    return "double" if m.group(1) == "d" else "float"
+
+
+def scatter_counts(library: Path) -> dict:
+    """{scatter_key: {opcode: count}} of K6's instances in `library`
+    (coupled_matvec's)."""
+    return {scatter_key(n): c for n, c in _sass(library).items() if scatter_key(n)}
+
+
+def scatter_ptxas(log: str) -> dict:
+    """{scatter_key: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from the ptxas lines of the coupled_matvec library's build log."""
+    return _ptxas(log, scatter_key)
+
+
+def check_scatter(res: dict) -> list:
+    """The K6 types missing from `res`, or whose SASS misses the design:
+    global atomics where tiles meet (SCATTER_GLOBAL_ATOMICS), plain global
+    stores for the nodes of one tile, the tile summed in shared memory (LDS,
+    STS) and no shared-memory atomic (ATOMS: the parity passes need none)."""
+    bad = []
+    for t in ("float", "double"):
+        c = res.get(t)
+        if (c is None or not any(c.get(op, 0) for op in SCATTER_GLOBAL_ATOMICS)
+                or not c.get("STG", 0) or not c.get("LDS", 0) or not c.get("STS", 0)
+                or c.get("ATOMS", 0)):
+            bad.append(t)
+    return bad
+
+
 def check_dot(res: dict) -> list:
     """The dot instances missing from `res` or without the instructions of
     their design (DOT_OPS)."""
@@ -400,6 +443,7 @@ def main() -> None:
     merged = check_fma(fma_counts(pk.library_path()))
     copies = check_copies(copies_counts(pk.library_path()))
     sfeval = check_sfeval(sfeval_counts(pk.library_path()))
+    scatter = check_scatter(scatter_counts(cm.library_path()))
     sched = schedule_counts(cm.library_path())
     show(sched)
     missing = check_schedules(sched)
@@ -413,6 +457,8 @@ def main() -> None:
         raise SystemExit(f"K8 types whose steps are not one LDS and STS a row: {copies}")
     if sfeval:
         raise SystemExit(f"K10 types whose statements are not all fed from registers: {sfeval}")
+    if scatter:
+        raise SystemExit(f"K6 types whose SASS misses the tiled scatter's design: {scatter}")
 
 
 if __name__ == "__main__":

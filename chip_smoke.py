@@ -34,6 +34,12 @@ Phases:
      (sass_counts.DOT_OPS); beside it each instance's registers, stack and
      spills (ptxas), shared memory, resident blocks per SM, threads, tile
      columns, parts of A and ring stages (ops/probe_kernels.dot_plan);
+     K6's tiled scatter (scatter_tiles_kernel, float64 and float32):
+     registers and spills (none may spill), its launch plan at 48^3 (tile,
+     threads, shared memory per block, blocks per SM, grid;
+     ops/coupled_matvec.scatter_plan) and SASS with global atomics, plain
+     stores, shared-memory sums and no shared-memory atomic
+     (sass_counts.check_scatter);
   2. kernels against their plain PyTorch versions, on the card, max-abs error
      over max-abs <= 1e-12 (float64) / 1e-5 (float32), with the time per
      apply beside the plain version's time and the bound (bytes over the
@@ -62,7 +68,12 @@ Phases:
        three schedules rowdma, pipe and unroll2 (coupled_apply_ablated)
        against coupled_apply_ablated_plain (full's, for a schedule), K11
        (coupled_apply_lattice, no cell table) against coupled_apply_plain,
-       K6 (scatter_cells) against scatter_cells_plain;
+       K6 (scatter_cells) against scatter_cells_plain into nonzero outputs;
+     - K6 also on the channel's periodic 16^3 lattice (x and z wrap), a
+       20 x 12 x 9 lattice periodic on every axis and a 17 x 9 x 5 one that
+       its tile divides on no axis, float64 and float32, into nonzero
+       outputs; cells without a lattice shape must raise ValueError; and
+       K6's device time at 48^3 in a CUDA graph of 20 calls (graph_ms);
      - the contraction-rate probes (ops/probe_kernels: K7 row_fma, K8
        row_copies, K9 dense_dot and K5 dense_dot_streamed in f32, tf32, bf16
        and f64, K10 sf_eval) against their plain versions at block 256 and 2
@@ -91,8 +102,8 @@ Phases:
      (probe_pr_phases K12, probe_pr_parts K13, probe_pr K6 with K3 and K4
      alone, probe_pr_grouped K11) at the probes' 48^3-cell Q2/Q1 box in
      float64 and float32: per variant ms/apply, bound and plain ms, K12's
-     phase attribution, K13's schedules beside full, K6's index_add_ and
-     lattice-scatter times; then the
+     phase attribution, K13's schedules beside full, K6's time beside its
+     bound, index_add_ and the lattice scatter; then the
      contraction-rate probes (probe_sf K7-K10 at block 4096 and 29 steps in
      float32 and float64, probe_mxu K5 at 110,592 columns, each precision in
      5 rounds interleaved with its stacked torch.matmul): per configuration
@@ -560,10 +571,10 @@ def check_probe_entries(device):
                 lambda: cm.coupled_apply_lattice(u, p, s, cells, sc),
                 lambda: cm.coupled_apply_plain(u, p, s, cells, sc),
             )
-            zeros = lambda: (torch.zeros_like(u), torch.zeros_like(p))
+            # K6 adds into nonzero outputs
             checks["scatter_cells"] = (
-                lambda: cm.scatter_cells(block, cells, *zeros()),
-                lambda: cm.scatter_cells_plain(block, cells, *zeros()),
+                lambda: cm.scatter_cells(block, cells, u.clone(), p.clone()),
+                lambda: cm.scatter_cells_plain(block, cells, u.clone(), p.clone()),
             )
             for name, (run, plain) in checks.items():
                 got, ref = run(), plain()
@@ -585,6 +596,89 @@ def check_probe_entries(device):
             del op, u, p, s, block, checks
             torch.cuda.empty_cache()
     return records
+
+
+# K6's lattices beyond the probe boxes: the periodic channel's 16^3 (x and z
+# wrap), every axis periodic (uneven too), and one that its 8 x 4 x 4 tile
+# divides on no axis
+SCATTER_LATTICES = {
+    "16^3 periodic x, z": ((16, 16, 16), (True, False, True)),
+    "20x12x9 periodic x, y, z": ((20, 12, 9), (True, True, True)),
+    "17x9x5": ((17, 9, 5), (False, False, False)),
+}
+
+
+def scatter_case(shape, periodic, dtype, device, seed: int):
+    """Q2/Q1 cells of a uniform lattice with its periodic axes (tables from
+    the port's LatticeOps, lattice shape attached), a random (E, 89) block
+    and random nonzero nodal outputs (numpy seed)."""
+    import torch
+
+    from adaflo_tpu_torch.fe.space import ScalarSpace
+    from adaflo_tpu_torch.mesh.structured import StructuredMesh
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.ops.lattice import LatticeOps
+    from adaflo_tpu_torch.ops.tensor import CellEvaluator
+
+    mesh = StructuredMesh(shape, (0.0,) * 3, (1.0,) * 3)
+    for axis, wraps in enumerate(periodic):
+        if wraps:
+            mesh.set_periodic(axis)
+    us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
+    cells = cm.CoupledCells(
+        CellEvaluator(3, us.basis, 3, mesh.h, device=device),
+        CellEvaluator(3, ps.basis, 3, mesh.h, device=device),
+        LatticeOps.for_space(us).cell_dof_table(), LatticeOps.for_space(ps).cell_dof_table(),
+        None, None, device, lattice=(mesh.n_cells_axis, tuple(mesh.periodic)),
+    )
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=device)
+    return cells, t(cells.n_cells, 89), t(3, us.n_dofs), t(ps.n_dofs)
+
+
+def check_scatter_lattices(device):
+    """Phase 2, K6 beyond the probe boxes (which check_probe_entries holds):
+    the tiled scatter against scatter_cells_plain into nonzero outputs on
+    SCATTER_LATTICES in float64 (1e-12) and float32 (1e-5); cells without a
+    lattice shape must raise ValueError on the card; then K6's device time
+    at the probes' 48^3 box in a CUDA graph of 20 calls (graph_ms) in both
+    types. Returns {"errors": {label: rel err}, "graph_ms": {dtype: ms}}."""
+    import torch
+
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.scripts import joint_err
+
+    errors = {}
+    for i, (name, (shape, periodic)) in enumerate(SCATTER_LATTICES.items()):
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype)[6:]
+            cells, block, u, p = scatter_case(shape, periodic, dtype, device, 700 + i)
+            got = cm.scatter_cells(block, cells, u.clone(), p.clone())
+            ref = cm.scatter_cells_plain(block, cells, u.clone(), p.clone())
+            torch.cuda.synchronize()
+            max_abs, err = joint_err(got, ref)
+            label = f"{name} {dname}"
+            print(f"kernel scatter_cells {label}: rel err {err:.3e} (max abs {max_abs:.3e}), "
+                  f"tolerance {TOL[dname]:g}", flush=True)
+            if not err <= TOL[dname]:
+                raise AssertionError(f"scatter_cells {label}: relative error {err:.3e}")
+            errors[label] = err
+    cells.lattice = None
+    try:
+        cm.scatter_cells(block, cells, u, p)
+    except ValueError as exc:
+        if "no lattice shape" not in str(exc):
+            raise
+    else:
+        raise AssertionError("scatter_cells launched on cells without a lattice shape")
+    graph = {}
+    for dtype in (torch.float64, torch.float32):
+        cells, block, u, p = scatter_case((48, 48, 48), (False,) * 3, dtype, device, 748)
+        graph[str(dtype)[6:]] = graph_ms(lambda: cm.scatter_cells(block, cells, u, p))
+        del cells, block, u, p
+    print("K6 device time at 48^3, CUDA graph of 20 calls (ms): " + json.dumps(graph), flush=True)
+    torch.cuda.empty_cache()
+    return {"errors": errors, "graph_ms": graph}
 
 
 def sf_cases(device, block: int, nblk: int, cols, seed: int, timed: bool):
@@ -947,6 +1041,42 @@ def check_resident_build(pk):
     return out
 
 
+def check_scatter_build(cm):
+    """Phase 1: K6's instances (scatter_tiles_kernel, float64 and float32) in
+    the built library: ptxas registers, stack and spills, SASS counts (the
+    tile summed in shared memory without a shared-memory atomic, global
+    atomics where tiles meet: sass_counts.check_scatter), and the launch plan
+    at the probes' 48^3 box (tile, threads, shared memory per block,
+    resident blocks per SM, grid). No instance may spill or be missing.
+    Returns {"double" | "float": record}."""
+    import torch
+
+    from adaflo_tpu_torch.scripts import sass_counts
+
+    sass = sass_counts.scatter_counts(cm.library_path())
+    ptxas = sass_counts.scatter_ptxas(cm.build_info.get("log", ""))
+    out = {}
+    for t, dtype in (("double", torch.float64), ("float", torch.float32)):
+        c = sass.get(t, {})
+        plan = cm.scatter_plan(dtype, (48, 48, 48))
+        r = out[t] = dict(sass=c, **ptxas.get(t, {}), plan=plan)
+        print(f"K6 scatter_tiles_kernel<{t}>: {r.get('registers')} registers, stack "
+              f"{r.get('stack')} B, spills {r.get('spill_stores')} / {r.get('spill_loads')} B; "
+              f"tile {'x'.join(map(str, plan['tile']))} cells (one tile a block, no pencil), "
+              f"{plan['threads']} threads, {plan['smem']} B shared, {plan['blocks_per_sm']} "
+              f"blocks/SM, grid {plan['grid']} at 48^3; SASS " + ", ".join(
+                  f"{op} {c.get(op, 0)}" for op in ("LDG", "STG", "LDS", "STS", "RED", "REDG",
+                                                    "ATOMG", "ATOMS")), flush=True)
+    bad = sass_counts.check_scatter(sass)
+    if bad:
+        raise AssertionError(f"K6 instances whose SASS misses the tiled scatter: {bad}")
+    bad = [k for k, r in out.items()
+           if r.get("registers") is None or r.get("spill_stores") or r.get("spill_loads")]
+    if bad:
+        raise AssertionError(f"K6 instances missing or spilling registers: {bad}")
+    return out
+
+
 def check_cell_build(cm):
     """Phase 1: every production instance of the cell kernel's one-shot body
     (each entry at each table set, float64 and float32) in the built
@@ -1283,12 +1413,14 @@ def main() -> int:
     dot_build = check_dot_build(pk)
     fma_build = check_fma_build(pk)
     resident_build = check_resident_build(pk)
+    scatter_build = check_scatter_build(cm)
     marks = [("1", time.perf_counter())]
 
     # ---- phase 2: kernels against the plain versions -------------------------
     rec = check_kernels(device)
     block_rec = check_block_entries(device)
     probe_rec = check_probe_entries(device)
+    scatter_rec = check_scatter_lattices(device)
     sf_rec = check_sf_entries(device)
     resident_graph = resident_graph_ms(device)
     marks.append(("2", time.perf_counter()))
@@ -1371,6 +1503,14 @@ def main() -> int:
                                K11_REPLACES, "K11", "lattice"))
     kernels.append(probe_entry("scatter_cells", "scatter_cells", K6_REPLACES, "K6",
                                "scatter_cells", library="library_ms"))
+    k6_32 = probes["results"][("K6", "float32")]["scatter_cells"]
+    kernels[-1].update(
+        graph_ms=scatter_rec["graph_ms"]["float64"],
+        lattice_ms=probes["results"][("K6", "float64")]["scatter_cells"]["lattice_ms"],
+        build=scatter_build, lattices=scatter_rec["errors"],
+    )
+    kernels[-1]["f32"].update(graph_ms=scatter_rec["graph_ms"]["float32"],
+                              library_ms=k6_32["library_ms"], lattice_ms=k6_32["lattice_ms"])
     kernels += sf_kernel_entries(sf_probes, sf_rec, resident_graph)
     for e in kernels:  # the dot's instances (phase 1); K5 shares f32, tf32, f64 with K9
         if e["name"] == "row_fma":

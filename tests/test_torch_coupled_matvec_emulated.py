@@ -12,7 +12,9 @@ q-field streams, K4's in-kernel gather; coupled and velocity-only) against
 on a periodic lattice (wrapped cell tables); and the probe instances on a
 4^3 box (K12's and K13's phase-masked instances against
 `coupled_apply_ablated_plain`, K11's table-free lattice source against
-`coupled_apply_plain`, K6's scatter against `scatter_cells_plain`), and K13's
+`coupled_apply_plain`, K6's tiled scatter against `scatter_cells_plain` on
+boxes, uneven, periodic and sub-tile lattices, with its node multiplicities
+and its count of global atomics), and K13's
 three schedules (rowdma, pipe and unroll2, each on the one-shot body's
 gather and compute) against full's plain version on boxes whose group
 counts, at each schedule's own cells per group, make the persistent grid's
@@ -484,16 +486,151 @@ def test_emulated_lattice_source_matches_plain_version(emulated, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_emulated_scatter_cells_matches_plain_version(emulated, dtype):
-    """K6: the atomic block scatter adds into nonzero outputs as index_add_
-    does."""
+    """K6: the tiled scatter, given the lattice shape and no cell table, adds
+    into nonzero outputs as index_add_ through the tables does."""
     cells, u, p, _, t = _box4(dtype)
     block = t(cells.n_cells, 89)
     ref = cm.scatter_cells_plain(block, cells, u.clone(), p.clone())
     out_u, out_p = u.clone(), p.clone()
     rc = cm.load_library().adaflo_scatter_cells(
-        1 if dtype == torch.float64 else 0, block.data_ptr(), cells.cell_u.data_ptr(),
-        cells.cell_p.data_ptr(), out_u.data_ptr(), out_p.data_ptr(), u.shape[1],
-        cells.n_cells, None,
+        1 if dtype == torch.float64 else 0, block.data_ptr(), out_u.data_ptr(),
+        out_p.data_ptr(), u.shape[1], 4, 4, 4, 0, None,
     )
     assert rc == 0
     assert joint_err((out_u, out_p), ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+def _lattice_cells(shape, periodic):
+    """Q2/Q1 cells of an n_x x n_y x n_z lattice with the given periodic axes,
+    their tables from LatticeOps and their lattice shape."""
+    mesh = StructuredMesh(shape, (0.0,) * 3, (1.0, 1.3, 0.7))
+    for axis, wraps in enumerate(periodic):
+        if wraps:
+            mesh.set_periodic(axis)
+    us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
+    return cm.CoupledCells(
+        CellEvaluator(3, us.basis, 3, mesh.h, device="cpu"),
+        CellEvaluator(3, ps.basis, 3, mesh.h, device="cpu"),
+        LatticeOps.for_space(us).cell_dof_table(), LatticeOps.for_space(ps).cell_dof_table(),
+        None, None, "cpu", lattice=(mesh.n_cells_axis, tuple(mesh.periodic)),
+    )
+
+
+# K6's tile is 8 x 4 x 4 cells: a box of one full tile's parity cells, an
+# uneven lattice with partial tiles on every axis, the channel's periodic
+# axes (x, z), every axis periodic, and lattices smaller than one tile
+# (the all-periodic one wraps a tile onto itself)
+SCATTER_LATTICES = [
+    ((4, 4, 4), (False, False, False)),
+    ((9, 5, 6), (False, False, False)),
+    ((10, 3, 9), (True, False, True)),
+    ((9, 6, 5), (True, True, True)),
+    ((3, 2, 3), (False, False, False)),
+    ((3, 2, 3), (True, True, True)),
+]
+SCATTER_IDS = ["x".join(map(str, s)) + "-" + "".join("p" if w else "n" for w in per)
+               for s, per in SCATTER_LATTICES]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape,periodic", SCATTER_LATTICES, ids=SCATTER_IDS)
+def test_emulated_scatter_tiles_match_plain_version(emulated, shape, periodic, dtype):
+    """K6 on lattices that its tile does not divide, periodic ones and ones
+    smaller than a tile, into nonzero outputs (n_u with padding)."""
+    cells = _lattice_cells(shape, periodic)
+    rng = np.random.default_rng(sum(shape))
+    t = lambda *s: torch.tensor(rng.standard_normal(s), dtype=dtype)
+    block = t(cells.n_cells, 89)
+    u, p = t(3, cells.min_n_u + 5), t(cells.min_n_p + 3)
+    ref = cm.scatter_cells_plain(block, cells, u.clone(), p.clone())
+    got = (u.clone(), p.clone())
+    cm._launch_scatter(block, cells, *got)
+    assert joint_err(got, ref)[1] <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("shape,periodic", SCATTER_LATTICES, ids=SCATTER_IDS)
+def test_emulated_scatter_tiles_count_each_node_as_often_as_its_cells(emulated, shape, periodic):
+    """A block of ones gives each node its multiplicity (the cells that
+    touch it), as the plain version counts it: a face added twice or an
+    interior node dropped changes a count."""
+    cells = _lattice_cells(shape, periodic)
+    block = torch.ones(cells.n_cells, 89, dtype=torch.float64)
+    got = (torch.zeros(3, cells.min_n_u, dtype=torch.float64),
+           torch.zeros(cells.min_n_p, dtype=torch.float64))
+    cm._launch_scatter(block, cells, *got)
+    ref = cm.scatter_cells_plain(block, cells, *(torch.zeros_like(g) for g in got))
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert float(got[0].sum()) == 3 * 27 * cells.n_cells
+    assert float(got[1].sum()) == 8 * cells.n_cells
+    assert float(got[0].min()) >= 1 and float(got[1].min()) >= 1
+
+
+TILE = (8, 4, 4)
+
+
+def _tile_touches(shape, periodic):
+    """Per tile of TILE cells, the nodes of its node box (Q2 velocity, 3
+    components, and Q1 pressure) that another tile's box or a second node
+    of its own box (a periodic wrap) also holds: the global atomics the
+    tiled scatter must issue, counted from how often each lattice node is
+    held, not from the kernel's face rule. Returns {tile: count}."""
+    out = {}
+    for deg, comps in ((2, 3), (1, 1)):
+        nodes = [deg * n + (0 if w else 1) for n, w in zip(shape, periodic)]
+        boxes = {}
+        for tz in range(-(-shape[2] // TILE[2])):
+            for ty in range(-(-shape[1] // TILE[1])):
+                for tx in range(-(-shape[0] // TILE[0])):
+                    axes = []
+                    for a, t in enumerate((tx, ty, tz)):
+                        c0 = t * TILE[a]
+                        n = min(TILE[a], shape[a] - c0)
+                        axes.append(np.arange(deg * c0, deg * (c0 + n) + 1) % nodes[a])
+                    gz, gy, gx = np.meshgrid(axes[2], axes[1], axes[0], indexing="ij")
+                    boxes[(tx, ty, tz)] = ((gz * nodes[1] + gy) * nodes[0] + gx).ravel()
+        held = np.bincount(np.concatenate(list(boxes.values())), minlength=int(np.prod(nodes)))
+        for tile, ids in boxes.items():
+            out[tile] = out.get(tile, 0) + comps * int(np.sum(held[ids] > 1))
+    return out
+
+
+@pytest.mark.parametrize("shape,periodic",
+                         SCATTER_LATTICES + [((24, 12, 12), (False, False, False))],
+                         ids=SCATTER_IDS + ["24x12x12-nnn"])
+def test_emulated_scatter_tiles_use_atomics_only_where_tiles_meet(emulated, shape, periodic):
+    """The tiled scatter issues one global atomicAdd per node that two tile
+    boxes hold (or a periodic axis wraps onto its own box) and none for a
+    node of one tile alone: the emulation runs one thread, so a plain
+    read-add-write where tiles meet would still sum right there, and only
+    this count shows it. A full tile with neighbours on every side takes
+    1,926 velocity and 162 pressure atomics."""
+    cells = _lattice_cells(shape, periodic)
+    touches = _tile_touches(shape, periodic)
+    if shape == (24, 12, 12):
+        assert touches[(1, 1, 1)] == 1926 + 162
+    block = torch.ones(cells.n_cells, 89, dtype=torch.float64)
+    got = (torch.zeros(3, cells.min_n_u, dtype=torch.float64),
+           torch.zeros(cells.min_n_p, dtype=torch.float64))
+    before = emulated.adaflo_emu_atomics()
+    cm._launch_scatter(block, cells, *got)
+    assert emulated.adaflo_emu_atomics() - before == sum(touches.values())
+
+
+def test_emulated_scatter_plan_and_lattice_checks(emulated):
+    """K6's plan: 8 x 4 x 4 cell tiles, one block of 384 threads each (one a
+    padded entry of a pass's 4 cells along x), the
+    tile's 3 x 17 x 9 x 9 velocity and 9 x 5 x 5 pressure nodes (a value and
+    an int32 destination each) and a slot table of a cell's 96 padded
+    entries (int32) in shared memory; and the launch refuses a lattice shape
+    that the tables do not number."""
+    for dtype, size in ((torch.float64, 8), (torch.float32, 4)):
+        plan = cm.scatter_plan(dtype, (17, 9, 5))
+        assert plan["tile"] == TILE and plan["threads"] == 4 * 96
+        assert plan["smem"] == (3 * 17 * 9 * 9 + 9 * 5 * 5) * (size + 4) + 96 * 4
+        assert plan["grid"] == 3 * 3 * 2 and plan["blocks_per_sm"] >= 1
+    cells = _lattice_cells((3, 2, 3), (True, False, False))
+    cells.lattice = ((3, 2, 3), (False, False, False))
+    z = torch.zeros(3, cells.min_n_u + 20, dtype=torch.float64)
+    with pytest.raises(ValueError, match="does not match"):
+        cm._launch_scatter(torch.zeros(cells.n_cells, 89, dtype=torch.float64), cells, z,
+                           torch.zeros(cells.min_n_p + 20, dtype=torch.float64))

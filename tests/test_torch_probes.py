@@ -22,7 +22,10 @@ package's probe kernels and lattice scatter, on the CPU.
   (F14), to 1e-7; and at 6^3 (3 blocks) unroll2's grid of one step leaves
   the last block unwritten (F13), while the port's output covers it.
 - ``scatter_cells_plain`` (K6) against the JAX ``LatticeOps.scatter_add``
-  (1e-13), and K11's lattice addresses against ``cell_dof_table()``.
+  (1e-13; also on periodic lattices), K6's wrapped lattice addresses
+  against the JAX lattice's cell -> dof map, K6's bound counted by hand and
+  its argument checks' order, and K11's lattice addresses against
+  ``cell_dof_table()``.
 - The probe drivers: CUDA needed unless ``--device cpu``, their CPU runs, and
   no import of JAX, the JAX package or ``scripts/``.
 
@@ -440,6 +443,114 @@ def test_lattice_addresses_equal_cell_dof_table(shape, degree):
     )
 
 
+PERIODIC_LATTICES = [((4, 3, 5), (True, False, True)), ((3, 2, 4), (True, True, True)),
+                     ((2, 3, 1), (False, True, False))]
+PERIODIC_IDS = ["x".join(map(str, s)) + "-" + "".join("p" if w else "n" for w in per)
+                for s, per in PERIODIC_LATTICES]
+
+
+def _jax_periodic_space(shape, periodic, degree):
+    mesh = JStructuredMesh(shape, (0.0,) * 3, (1.0,) * 3)
+    for axis, wraps in enumerate(periodic):
+        if wraps:
+            mesh.set_periodic(axis)
+    return JScalarSpace(mesh, degree)
+
+
+@pytest.mark.parametrize("degree", [2, 1], ids=["q2", "q1"])
+@pytest.mark.parametrize("shape,periodic", PERIODIC_LATTICES, ids=PERIODIC_IDS)
+def test_periodic_lattice_addresses_equal_jax_cell_dofs(shape, periodic, degree):
+    """K6's wrapped addresses (lattice_cell_dofs with the periodic axes) are
+    the JAX lattice's cell -> dof map (its gather of the dof numbers) and
+    the JAX space's cell_dofs: node degree n_c of a periodic axis is node 0."""
+    space = _jax_periodic_space(shape, periodic, degree)
+    jlat = JLatticeOps.for_space(space)
+    jtable = np.asarray(jlat.gather(jnp.arange(space.n_dofs, dtype=jnp.int32)))
+    got = cm.lattice_cell_dofs(shape, degree, periodic)
+    np.testing.assert_array_equal(got, jtable)
+    np.testing.assert_array_equal(got, space.cell_dofs)
+
+
+@pytest.mark.parametrize("shape,periodic", PERIODIC_LATTICES, ids=PERIODIC_IDS)
+def test_scatter_cells_matches_jax_scatter_add_on_periodic_lattices(shape, periodic):
+    """scatter_cells on the CPU (its plain version) adds the (E, 89) block
+    as the JAX lattice scatter_add does on a periodic lattice, into nonzero
+    outputs."""
+    mesh = StructuredMesh(shape, (0.0,) * 3, (1.0,) * 3)
+    for axis, wraps in enumerate(periodic):
+        if wraps:
+            mesh.set_periodic(axis)
+    us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
+    cells = cm.CoupledCells(
+        CellEvaluator(3, us.basis, 3, mesh.h, device="cpu"),
+        CellEvaluator(3, ps.basis, 3, mesh.h, device="cpu"),
+        LatticeOps.for_space(us).cell_dof_table(), LatticeOps.for_space(ps).cell_dof_table(),
+        None, None, "cpu", lattice=(mesh.n_cells_axis, tuple(mesh.periodic)),
+    )
+    rng = np.random.default_rng(len(shape) + sum(shape))
+    block = rng.standard_normal((cells.n_cells, 89))
+    u0, p0 = rng.standard_normal((3, us.n_dofs)), rng.standard_normal(ps.n_dofs)
+    out_u, out_p = cm.scatter_cells(torch.as_tensor(block), cells, torch.as_tensor(u0.copy()),
+                                    torch.as_tensor(p0.copy()))
+    jlu = JLatticeOps.for_space(_jax_periodic_space(shape, periodic, 2))
+    jlp = JLatticeOps.for_space(_jax_periodic_space(shape, periodic, 1))
+    ref_u = u0 + np.stack([np.asarray(jlu.scatter_add(jnp.asarray(block[:, 27 * c : 27 * (c + 1)])))
+                           for c in range(3)])
+    ref_p = p0 + np.asarray(jlp.scatter_add(jnp.asarray(block[:, 81:])))
+    assert _rel([out_u.numpy(), out_p.numpy()], [ref_u, ref_p]) <= 1e-13
+
+
+def test_scatter_bound_counts_the_block_and_the_output_once():
+    """K6's bound at 3 x 2 x 2 cells, by hand: the (12, 89) block read once,
+    the 7 x 5 x 5 velocity nodes (3 components) and 4 x 3 x 3 pressure
+    nodes read and written once; no cell table (the TPU kernel reads none,
+    nor does the port's), so 12 x (27 + 8) int32 are not counted."""
+    from adaflo_tpu_torch.scripts import HBM_BYTES_PER_S, scatter_bound
+
+    mesh = StructuredMesh((3, 2, 2), (0.0,) * 3, (1.0,) * 3)
+    us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
+    cells = cm.CoupledCells(
+        CellEvaluator(3, us.basis, 3, mesh.h, device="cpu"),
+        CellEvaluator(3, ps.basis, 3, mesh.h, device="cpu"),
+        LatticeOps.for_space(us).cell_dof_table(), LatticeOps.for_space(ps).cell_dof_table(),
+        None, None, "cpu", lattice=(mesh.n_cells_axis, tuple(mesh.periodic)),
+    )
+    assert (us.n_dofs, ps.n_dofs) == (175, 36)
+    for dtype, size in ((torch.float64, 8), (torch.float32, 4)):
+        b = scatter_bound(cells, us.n_dofs, ps.n_dofs, dtype)
+        assert b["bytes"] == 12 * 89 * size + 2 * (3 * 175 + 36) * size
+        assert b["flops"] == 12 * 89 and b["bound_by"] == "bytes"
+        assert b["bound_ms"] == pytest.approx(b["bytes"] / HBM_BYTES_PER_S * 1e3)
+    # the probes' 48^3 box: 124,432,192 B in float64, 0.0371 ms
+    n_u, n_p = 97**3, 49**3
+    big = types.SimpleNamespace(n_cells=48**3, ev_u=cells.ev_u, ev_p=cells.ev_p)
+    assert scatter_bound(big, n_u, n_p, torch.float64)["bytes"] == 124_432_192
+    assert scatter_bound(big, n_u, n_p, torch.float32)["bytes"] == 62_216_096
+
+
+def test_scatter_cells_checks_its_arguments_in_order():
+    """scatter_cells: the table set first, then the tensors, then the CPU's
+    plain version (with or without a lattice shape), then any device
+    without a kernel, before the lattice shape that only the kernel needs."""
+    mesh = StructuredMesh((2, 2, 2), (0.0,) * 3, (1.0,) * 3)
+    us, ps = ScalarSpace(mesh, 2), ScalarSpace(mesh, 1)
+    cells = cm.CoupledCells(
+        CellEvaluator(3, us.basis, 3, mesh.h, device="cpu"),
+        CellEvaluator(3, ps.basis, 3, mesh.h, device="cpu"),
+        LatticeOps.for_space(us).cell_dof_table(), LatticeOps.for_space(ps).cell_dof_table(),
+        None, None, "cpu",
+    )
+    meta = lambda *s: torch.zeros(*s, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="block must be"):
+        cm.scatter_cells(meta(8, 88), cells, meta(3, us.n_dofs), meta(ps.n_dofs))
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        cm.scatter_cells(meta(8, 89), cells, meta(3, us.n_dofs), meta(ps.n_dofs))
+    block = torch.ones(8, 89, dtype=torch.float64)
+    out_u, out_p = cm.scatter_cells(block, cells, torch.zeros(3, us.n_dofs, dtype=torch.float64),
+                                    torch.zeros(ps.n_dofs, dtype=torch.float64))
+    assert float(out_u.sum()) == 3 * 27 * 8 and float(out_p.sum()) == 8 * 8
+
+
 def test_k11_refuses_periodic_lattices_and_other_table_sets():
     mesh = StructuredMesh((2, 2, 2), (0.0,) * 3, (1.0,) * 3)
     mesh.set_periodic(0)
@@ -546,6 +657,55 @@ def test_sass_counts_report_rowdma_on_the_one_shot_body():
           for n, ops in sass_counts.SCHEDULE_OPS.items() for t in ("double", "float")}
     ok["rowdma float"] = {"LDGSTS": 0, "LDG": 40, "STS": 180}  # plain loads and stores
     assert sass_counts.check_schedules(ok) == ["rowdma float"]
+
+
+def test_sass_counts_find_the_tiled_scatter_instances():
+    """sass_counts keys K6's instances (scatter_tiles_kernel<T>) by type,
+    reads their registers and spills, and flags a type whose SASS has no
+    global atomic, no plain store, no shared-memory sum, or a shared-memory
+    atomic."""
+    from adaflo_tpu_torch.scripts import sass_counts
+
+    name = "_ZN12_GLOBAL__N_120scatter_tiles_kernelI{}EEvPKT_PS1_S4_x14ScatterLattice"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{name.format('d')}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name.format('d')}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 1 barriers, 392 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{name.format('f')}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name.format('f')}",
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 392 bytes cmem[0]",
+    ])
+    got = sass_counts.scatter_ptxas(log)
+    assert got["double"] == {"registers": 56, "stack": 0, "spill_stores": 0, "spill_loads": 0}
+    assert got["float"]["spill_stores"] == 8
+    assert sass_counts.scatter_key("_ZN12_GLOBAL__N_120scatter_cells_kernelIdEEv") is None
+    ok = {t: {"REDG": 12, "STG": 12, "LDS": 30, "STS": 20, "ATOMS": 0} for t in ("float", "double")}
+    assert sass_counts.check_scatter(ok) == []
+    ok["float"] = dict(ok["float"], ATOMS=12)
+    ok["double"] = dict(ok["double"], REDG=0)
+    assert sass_counts.check_scatter(ok) == ["float", "double"]
+    assert sass_counts.check_scatter({"double": ok["double"]}) == ["float", "double"]
+
+
+def test_scatter_variants_each_undo_one_choice_of_the_source(monkeypatch):
+    """scripts/scatter_variants: every variant's substitutions apply to K6's
+    source once each (the script fails loudly if the source drifts), each
+    variant differs from the source, its timer runs the plain version on the
+    CPU (error 0), and the script needs a card."""
+    from adaflo_tpu_torch.scripts import scatter_variants as sv
+
+    source = sv.SOURCE.read_text()
+    for name in sv.VARIANTS:
+        assert (sv.variant_source(name) == source) == (name == "tiled")
+    assert set(sv.ABLATIONS) < set(sv.VARIANTS)
+    res = sv.time_scatter(cm, 2, "cpu")
+    assert set(res) == {"float64", "float32"}
+    assert all(r["rel_err"] == 0.0 and r["blocks_per_sm"] is None for r in res.values())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        sv.main([])
 
 
 def test_cell_flops_split_by_phase():

@@ -6,7 +6,8 @@ still be held against its plain version: a source is compiled with g++
 against a small header that defines the CUDA keywords, gives each block one
 thread (every kernel is a strided loop over its work items, so one thread
 does all of them), turns `__syncthreads` into a no-op and each `<<<...>>>`
-launch into a loop over the blocks. The header defines ADAFLO_EMULATED, under
+launch into a loop over the blocks, and counts the atomicAdd calls
+(`adaflo_emu_atomics`). The header defines ADAFLO_EMULATED, under
 which a source leaves out what g++ cannot run (inline PTX) and makes its
 asynchronous copies (cp.async, bulk copies) plain copies and their barriers
 no-ops. The occupancy and SM-count queries report one block on each of
@@ -56,7 +57,9 @@ inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = EMU_SMS; r
 template <class F>
 int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
 inline int cudaGetLastError() { return 0; }
-template <class T> T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
+static long long emu_atomics = 0;  // atomicAdd calls since the library was loaded
+template <class T> T atomicAdd(T* p, T v) { ++emu_atomics; T o = *p; *p += v; return o; }
+extern "C" long long adaflo_emu_atomics() { return emu_atomics; }
 alignas(16) static unsigned char emu_smem[1 << 22];
 inline void emu_launch(unsigned grid, size_t smem, const std::function<void()>& f) {
   if (smem > sizeof(emu_smem)) throw 1;

@@ -310,7 +310,7 @@ class NavierStokesOperator:
                     Linearization.coupled_implicit_picard,
                 ):
                     raise NotImplementedError(
-                        f"{par.linearization} is not ported (ROADMAP.md queue 1, item 9)"
+                        f"{par.linearization} is not ported (ROADMAP.md queue 1, item 9c)"
                     )
                 # Newton / Picard: linearize around the current iterate
                 res = beta * div[..., None, :] * val_u + _dot_dq(val_u, grad_u)
@@ -417,13 +417,14 @@ class NavierStokesOperator:
             raise NotImplementedError(
                 "the mat-vec is ported for the coupled implicit Newton "
                 "linearization of the incompressible equations only "
-                "(ROADMAP.md queue 1, item 9)"
+                "(ROADMAP.md queue 1, item 9c)"
             )
         if self._cell_coeffs(coeffs) is not None:
             if lin.u is None:
                 raise NotImplementedError(
                     "variable coefficients need the nodal linearization point "
-                    "of K1 (ROADMAP.md queue 1, item 10)"
+                    "of K1, which the coupled Newton residual sets; other "
+                    "linearizations are not ported (ROADMAP.md queue 1, item 9c)"
                 )
             return "nodal"
         layout = self.layout

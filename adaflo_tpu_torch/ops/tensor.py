@@ -27,8 +27,10 @@ class CellEvaluator:
     """Tabulated evaluation of one scalar basis at one quadrature rule.
 
     Arrays: V (n_q_1d, n_1d) values and D (n_q_1d, n_1d) derivatives on
-    [0, 1]; contractions map (..., n_1d**dim) to (..., n_q_1d**dim), and
-    gradients carry an extra axis of length dim right before the q axis.
+    [0, 1], at the Gauss rule of `quad_points_1d` points or at the explicit
+    (points, weights) pair it gives; contractions map (..., n_1d**dim) to
+    (..., n_q_1d**dim), and gradients carry an extra axis of length dim right
+    before the q axis.
     The tables live on `device`: the card unless the caller asks for the
     CPU (device=None resolves as adaflo_tpu_torch.device.resolve_device)."""
 
@@ -36,14 +38,17 @@ class CellEvaluator:
         self,
         dim: int,
         basis: LagrangeBasis1D,
-        quad_points_1d: int,
+        quad_points_1d,
         h: Sequence[float],
         dtype: torch.dtype = torch.float64,
         device=None,
     ) -> None:
         self.dim = dim
         self.n_1d = basis.n_dofs
-        q, w = gauss_quadrature(int(quad_points_1d))
+        if isinstance(quad_points_1d, tuple):
+            q, w = quad_points_1d  # explicit (points, weights) on [0, 1]
+        else:
+            q, w = gauss_quadrature(int(quad_points_1d))
         V, D = basis.tabulate(q)
         self.n_q_1d = len(q)
         self.n_q = self.n_q_1d**dim

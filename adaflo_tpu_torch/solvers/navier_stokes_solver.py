@@ -14,8 +14,10 @@ ops/coupled_matvec.py. The solver runs on the card unless the caller passes
 device="cpu".
 
 Ported: structured lattices with Dirichlet / no-slip velocity boundaries,
-periodic axes (the lattice wraps, as in the JAX package) and a pressure-fix
-point, time-dependent incompressible flow, coupled implicit Newton.
+symmetry boundaries (the normal component constrained), periodic axes (the
+lattice wraps, as in the JAX package) and a pressure-fix point,
+time-dependent incompressible flow, coupled implicit Newton, with constant
+or per-q-point (two-phase) density and viscosity.
 Everything else raises NotImplementedError with the ROADMAP.md queue that
 brings it.
 """
@@ -77,12 +79,12 @@ class NavierStokes(FlowBaseAlgorithm):
         if parameters.linearization != Linearization.coupled_implicit_newton:
             raise NotImplementedError(
                 f"linearization '{parameters.linearization.value}' is not "
-                "ported (ROADMAP.md queue 1, item 9)"
+                "ported (ROADMAP.md queue 1, item 9c)"
             )
         if parameters.physical_type != PhysicalType.incompressible:
             raise NotImplementedError(
                 f"physical type '{parameters.physical_type.value}' is not "
-                "ported (ROADMAP.md queue 1, item 9)"
+                "ported (ROADMAP.md queue 1, item 9c)"
             )
         self.time_stepping = TimeStepping(parameters)
         self.out = out
@@ -109,10 +111,10 @@ class NavierStokes(FlowBaseAlgorithm):
         `initial_velocity_fn(coords, t)` where one is given."""
         par = self.parameters
         bd = self.boundary
-        if bd.symmetry or bd.normal_flux or bd.open_conditions_p:
+        if bd.normal_flux or bd.open_conditions_p:
             raise NotImplementedError(
-                "symmetry, normal-flux and open boundaries are not ported "
-                "(ROADMAP.md queue 1, item 9)"
+                "normal-flux and open boundaries are not ported "
+                "(ROADMAP.md queue 1, item 9a)"
             )
         if par.global_refinements < 15:
             self.mesh.refine_global(par.global_refinements)
@@ -166,19 +168,34 @@ class NavierStokes(FlowBaseAlgorithm):
             self.solution[0] = u
 
     def _build_constraints(self) -> None:
-        """Dirichlet and no-slip constrain all velocity components
+        """Dirichlet and no-slip constrain all velocity components, a
+        symmetry side only the component normal to it
         (navier_stokes.cc:228-360); the Schur-complement constraints hold
         the pressure-fix dof (ns_prec.cc:1087-1186)."""
         bd = self.boundary
         u_space, p_space = self.u_space, self.p_space
         cu = [Constraints(u_space.n_dofs) for _ in range(self.dim)]
-        for bid in set(bd.dirichlet_conditions_u) | bd.no_slip:
+        dirichlet_ids = set(bd.dirichlet_conditions_u) | bd.no_slip
+        for bid in dirichlet_ids:
             dofs = u_space.boundary_dofs(bid)
             for c in range(self.dim):
                 cu[c].add_dirichlet(dofs)
+        for bid in sorted(bd.symmetry):
+            for axis, _, face_dofs in u_space.boundary_faces(bid):
+                cu[axis].add_dirichlet(np.unique(face_dofs))
         for c in cu:
             c.close()
         self.constraints_u = cu
+        # symmetry dofs that no Dirichlet function covers: their constrained
+        # component is written to zero with the boundary values
+        covered = (
+            np.unique(np.concatenate([u_space.boundary_dofs(b) for b in dirichlet_ids]))
+            if dirichlet_ids
+            else np.empty(0, dtype=np.int64)
+        )
+        self._zero_dofs_u = [
+            np.setdiff1d(con.dirichlet_dofs, covered) for con in cu
+        ]
         cp = Constraints(p_space.n_dofs)
         cp.close()
         self.constraints_p = cp
@@ -227,11 +244,26 @@ class NavierStokes(FlowBaseAlgorithm):
             dofs = self.u_space.boundary_dofs(bid)
             if len(dofs):
                 u[:, torch.as_tensor(dofs, device=self.device)] = 0.0
+        for c, dofs in enumerate(self._zero_dofs_u):
+            if len(dofs):
+                u[c, torch.as_tensor(dofs, device=self.device)] = 0.0
         self.solution[0] = u
         self.const_rhs = [
             self._zeros(self.dim, self.u_space.n_dofs_padded),
             self._zeros(self.p_space.n_dofs_padded),
         ]
+
+    def compute_initial_stokes_field(self) -> None:
+        """Divergence-free initial velocity when the boundary conditions are
+        inconsistent with u = 0 (navier_stokes.cc:1162-1210): with zero
+        boundary data there is nothing to solve."""
+        self.apply_boundary_conditions()
+        if float(torch.linalg.vector_norm(self.solution[0])) == 0:
+            return
+        raise NotImplementedError(
+            "the initial Stokes solve needs the Stokes physical type, which is "
+            "not ported (ROADMAP.md queue 1, item 9c)"
+        )
 
     # ------------------------------------------------------------------
     def init_time_advance(self, print_time_info: bool = True) -> None:
@@ -361,8 +393,10 @@ class NavierStokes(FlowBaseAlgorithm):
         def A(x):
             # the system matrix linearizes around the CURRENT iterate while
             # the preconditioner keeps its frozen copy in `st`
-            # (navier_stokes_matrix.cc:1144-1152)
-            ru, rp = op.vmult(*split(x), tw, lin, self.coefficients)
+            # (navier_stokes_matrix.cc:1144-1152); its variable coefficients
+            # are those the preconditioner was built with, as in the JAX
+            # package's solve
+            ru, rp = op.vmult(*split(x), tw, lin, st.coeffs)
             return torch.cat([ru.reshape(-1), rp])
 
         def M(r):

@@ -12,9 +12,13 @@ block structure
   3. Schur complement: Cahouet-Chabbard (scaled pressure-mass solve plus a
      pressure-Poisson approximation).
 
-State lives in a NamedTuple (`PrecState`) rebuilt by `compute`. Forest and
-mapped meshes, the graded lattice and the stationary (Kay-Loghin-Wathen) and
-projection variants raise NotImplementedError (ROADMAP.md queue 1).
+With the two-phase flow's per-q-point density and viscosity, the Schur
+complement takes per-q 1/rho in the pressure Poisson operator and per-cell
+1/(mu + tau_gd) in the pressure mass, and the GMG levels per-subcell
+coefficients. State lives in a NamedTuple (`PrecState`) rebuilt by
+`compute`. Forest and mapped meshes, the graded lattice and the stationary
+(Kay-Loghin-Wathen) and projection variants raise NotImplementedError
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -123,7 +127,7 @@ class PrecState(NamedTuple):
     mass_diag: torch.Tensor  # (n_p,) lumped pressure mass (unweighted)
     mass_diag_w: torch.Tensor  # (n_p,) lumped mass weighted by mass_coefficient
     inv_rho_weight: float  # 1/(time weight * rho_min)
-    mass_coefficient: float  # 1/(mu + tau_gd)
+    mass_coefficient: object  # 1/(mu + tau_gd): a float, or per cell (E,)
     lin: object  # frozen Linearized state
     coeffs: Coefficients
     u_gmg: object = None  # tuple of per-component GMGState, or None
@@ -155,7 +159,7 @@ class NavierStokesPreconditioner:
         ):
             raise NotImplementedError(
                 "only the time-dependent coupled preconditioner is ported "
-                "(ROADMAP.md queue 1, item 9)"
+                "(ROADMAP.md queue 1, item 9c)"
             )
         # geometric multigrid on the Q1-subelement lattice replaces the
         # reference's AMG ('lin velocity preconditioner = amg*'); 'ilu*'
@@ -193,11 +197,6 @@ class NavierStokesPreconditioner:
         fix_linearization_point + assemble + ILU/AMG setup)."""
         par = self.parameters
         op = self.op
-        if coeffs.rho is not None or coeffs.mu is not None:
-            raise NotImplementedError(
-                "variable-coefficient preconditioning is not ported "
-                "(ROADMAP.md queue 1, item 10)"
-            )
         u_diag = op.velocity_block_diagonal(tw, lin, coeffs)
         uA = lambda v: op.velocity_vmult(v, tw, lin, coeffs)
         u_dinv = DiagonalPreconditioner(u_diag).inverse
@@ -216,27 +215,52 @@ class NavierStokesPreconditioner:
             torch.sqrt(torch.sum(e2 * e2) / torch.clamp(torch.sum(e1 * e1), min=1e-300))
         )
 
+        # variable-coefficient Schur pieces (the reference's
+        # use_variable_coefficients branches): per-q 1/rho in the pressure
+        # Poisson (nsm.cc:976-997) and per-cell 1/(mu + tau) at the cell's
+        # centre q-point in the scaled pressure mass (nsm.cc:1050-1061)
         rho_min = min(par.density, par.density + par.density_diff)
         inv_rho_weight = 1.0 / (tw.weight * rho_min) if rho_min > 0 else 0.0
-        mass_coefficient = 1.0 / (par.viscosity + par.tau_grad_div)
+        if coeffs.mu is not None:
+            mu_cell = coeffs.mu[:, coeffs.mu.shape[1] // 2]
+            mass_coefficient = 1.0 / (mu_cell + par.tau_grad_div)
+        else:
+            mass_coefficient = 1.0 / (par.viscosity + par.tau_grad_div)
 
-        pscale = inv_rho_weight if inv_rho_weight > 0 else 1.0
-        poisson_diag = op.pressure_poisson_diagonal(pscale, self.constraints_schur)
+        pscale, pcoeffs = self._poisson_scale_coeffs(inv_rho_weight, coeffs)
+        poisson_diag = op.pressure_poisson_diagonal(
+            pscale, self.constraints_schur, pcoeffs
+        )
         pA = lambda p: op.pressure_poisson_vmult(
-            p, pscale, Coefficients(), self.constraints_schur
+            p, pscale, pcoeffs, self.constraints_schur
         )
         p_dinv = DiagonalPreconditioner(poisson_diag).inverse
         p_lmax = estimate_lambda_max(pA, p_dinv, poisson_diag)
         mass_diag = op.pressure_lumped_mass()
-        mass_diag_w = mass_diag * mass_coefficient
+        if torch.is_tensor(mass_coefficient):
+            mass_diag_w = op.pressure_lumped_mass(mass_coefficient)
+        else:
+            mass_diag_w = mass_diag * mass_coefficient
 
+        # the velocity V-cycle serves constant coefficients only (see
+        # _u_approx_inverse); the pressure GMG smooths on Q1 subcells, with
+        # per-cell 1/rho upsampled to the deg^dim subcells of each cell
+        n_cells_axis = op.u_space.mesh.n_cells_axis
         u_gmg = p_gmg = None
-        if self.use_gmg and self.u_gmg_geom is not None:
+        constant = coeffs.rho is None and coeffs.mu is None
+        if self.use_gmg and self.u_gmg_geom is not None and constant:
             alpha_u = tw.weight * par.density
             beta_u = tw.tau1 * par.viscosity
             u_gmg = tuple(g.compute(alpha_u, beta_u) for g in self.u_gmg_geom)
         if self.p_gmg_geom is not None:
-            p_gmg = self.p_gmg_geom.compute(0.0, pscale)
+            if pcoeffs.rho is not None:
+                inv_rho_cell = torch.mean(1.0 / pcoeffs.rho, dim=1)
+                beta_p = pscale * _cells_to_subcells(
+                    inv_rho_cell, n_cells_axis, max(par.pressure_degree, 1)
+                )
+            else:
+                beta_p = pscale
+            p_gmg = self.p_gmg_geom.compute(0.0, beta_p)
 
         return PrecState(
             u_diag,
@@ -255,6 +279,17 @@ class NavierStokesPreconditioner:
         )
 
     # -- pieces ---------------------------------------------------------
+    def _poisson_scale_coeffs(self, inv_rho_weight: float, coeffs: Coefficients):
+        """(scale, coeffs) of the pressure Poisson operator: with variable
+        density the per-q 1/rho enters and the scale is 1/weight
+        (= inv_rho_weight * rho_min); otherwise the constant
+        1/(weight * rho_min) and no coefficients."""
+        scale = inv_rho_weight if inv_rho_weight > 0 else 1.0
+        if coeffs.rho is None:
+            return scale, Coefficients()
+        par = self.parameters
+        return scale * min(par.density, par.density + par.density_diff), coeffs
+
     def _u_approx_inverse(
         self, st: PrecState, ru, tw, do_inner: bool, u_robust: bool = False
     ):
@@ -269,7 +304,10 @@ class NavierStokesPreconditioner:
                 uA, ru, torch.zeros_like(ru), tol, n_it, restart=n_it,
                 M=lambda r: dinv * r,
             ).x
-        # 'amg linear': one GMG V-cycle per component (ns_prec.cc velocity AMG)
+        # 'amg linear': one GMG V-cycle per component (ns_prec.cc velocity
+        # AMG); the Q1-subcell model of a two-phase (variable-coefficient)
+        # block underperforms the Chebyshev of the true operator, so the
+        # V-cycle serves constant coefficients only, as in the JAX package
         if st.u_gmg is not None:
             M = lambda r: torch.stack(
                 [
@@ -292,9 +330,9 @@ class NavierStokesPreconditioner:
         return M(ru)
 
     def _poisson_approx_inverse(self, st: PrecState, rp, strong: bool):
-        pscale = st.inv_rho_weight if st.inv_rho_weight > 0 else 1.0
+        pscale, pcoeffs = self._poisson_scale_coeffs(st.inv_rho_weight, st.coeffs)
         pA = lambda p: self.op.pressure_poisson_vmult(
-            p, pscale, Coefficients(), self.constraints_schur
+            p, pscale, pcoeffs, self.constraints_schur
         )
         if st.p_gmg is not None:
             M = lambda r: self.p_gmg_geom.vmult(st.p_gmg, r)
@@ -342,3 +380,13 @@ class NavierStokesPreconditioner:
         if self.parameters.density > 0:
             dp = dp + self._poisson_approx_inverse(st, temp, do_inner)
         return (du, dp)
+
+
+def _cells_to_subcells(x_cells, n_cells_axis, deg: int):
+    """Upsample a per-cell tensor to the deg^dim Q1 subcells of each cell
+    (lexicographic subcell order of the GMG's finest level)."""
+    dim = len(n_cells_axis)
+    xx = x_cells.reshape(tuple(reversed(n_cells_axis)))
+    for a in range(dim):
+        xx = torch.repeat_interleave(xx, deg, dim=a)
+    return xx.reshape(-1)

@@ -97,6 +97,24 @@ Phases:
        (4,096 cells, Q2/Q1, float64), 3 coupled-Newton BDF-2 steps of
        dt = 0.1, held to Newton convergence in every step, exact no-slip
        walls and a finite, bounded velocity; it runs K3;
+     - the 3D rising bubble at its flagship size (the rising bubble
+       driver's flagship mesh: 32^3 cells, symmetry on the four side faces,
+       no-slip bottom and top; tests/prms/rising_bubble_ls_3d_bench.prm at
+       global refinements = 0 with its solver tolerances; 859,812 NS and
+       35,937 level-set dofs, float64): setup, then phase 2's check of K1
+       (identity rows) and K2 in variable mode on its fields (rho/mu from
+       the level set's compute_force on the initial bubble, the velocity
+       masks differing by component; 1e-12 float64, 1e-5 float32), then
+       RB3_STEPS steps, each with its seconds, Newton and Krylov counts and
+       launches, and its bubble statistics timed apart; held to the dof
+       anchors, Newton convergence, finite statistics, a kept volume, a
+       rising bubble, K1 and K2 in every step and no plain call; the peak
+       device memory; it runs K1 and K2 in variable mode;
+     - the 2D rising bubble (tests/prms/rising_bubble_ls_short.prm, 20 x 40
+       cells, 3 steps): setup, then the same check of K1 and K2 in variable
+       mode on its fields and symmetry masks, then its steps, held to
+       tests/golden/rising_bubble_ls_short.output with the port's
+       compare_with_golden; it runs K1 and K2 in variable mode;
   4. the probes, their path driven with the launch counts set to 0 before it
      and read after it: each probe driver of adaflo_tpu_torch/scripts
      (probe_pr_phases K12, probe_pr_parts K13, probe_pr K6 with K3 and K4
@@ -242,10 +260,12 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> dict:
     return time_ms(fn, torch.device("cuda", 0), reps, warmup)
 
 
-def bound(cells, dtype: str, n_u: int, n_p: int, velocity_only: bool, variable: bool):
+def bound(cells, dtype: str, n_u: int, n_p: int, velocity_only: bool, variable: bool,
+          n_coeffs: int = 3):
     """(bytes, flops, bound_ms, bound_by) of one apply: every input read
-    once, every output written once; the operations of scripts.cell_flops
-    at the dtype's peak rate."""
+    once (`n_coeffs` per-q-point coefficient fields when `variable`), every
+    output written once; the operations of scripts.cell_flops at the dtype's
+    peak rate."""
     from adaflo_tpu_torch.scripts import cell_flops, roofline
 
     s = 4 if dtype == "float32" else 8
@@ -256,7 +276,7 @@ def bound(cells, dtype: str, n_u: int, n_p: int, velocity_only: bool, variable: 
     if not velocity_only:
         nbytes += n_p * s + E * npl * 4 + n_p + n_p * s
     if variable:
-        nbytes += 3 * E * cells.n_q * s
+        nbytes += n_coeffs * E * cells.n_q * s
     flops = E * sum(cell_flops(
         dim, cells.degree + 1, cells.degree + 1, cells.degree, variable, velocity_only
     ).values())
@@ -1305,6 +1325,234 @@ def run_slice():
     return dict(setup_s=setup_s, steps=steps, launches=launches)
 
 
+RB3_PRM = ROOT / "tests" / "prms" / "rising_bubble_ls_3d_bench.prm"
+RB2_PRM = ROOT / "tests" / "prms" / "rising_bubble_ls_short.prm"
+RB2_GOLDEN = ROOT / "tests" / "golden" / "rising_bubble_ls_short.output"
+RB3_STEPS = 6  # the first step and five more
+RB3_ANCHORS = {
+    "cells": "Number of active cells: 32768.",
+    "ns_dofs": "Number of Navier-Stokes degrees of freedom: 859812 (823875 + 35937).",
+    "ls_dofs": "Number of level set degrees of freedom: 35937.",
+}
+K12 = ("coupled_apply", "coupled_apply_velocity")
+
+
+def check_flagship_variable(problem, device, label="32^3"):
+    """Phase 2 on a rising bubble's fields, after its setup: K1 (identity
+    rows) and K2 in their variable-coefficient mode against their plain
+    versions on the problem's spaces and constraints (the symmetric side
+    faces make the velocity masks differ by component), rho/mu from the
+    level set's compute_force on the initial bubble, random u, p and u*
+    (numpy seed); float64 (1e-12) and float32 (1e-5, a float32 operator on
+    the same spaces and constraints). Run on the 32^3 box of phase 3 and on
+    the 2D golden's 20 x 40 lattice."""
+    import torch
+
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.ops.navier_stokes import (
+        Coefficients,
+        NavierStokesOperator,
+        TimeWeights,
+    )
+
+    solver = problem.solver
+    ns = solver.navier_stokes
+    _, rho, mu = solver.ops.compute_force(solver.heaviside, solver.solution[1])
+    par = ns.parameters
+    lo, hi = float(rho.min()), float(rho.max())
+    band = float(((rho > lo + 1e-3) & (rho < hi - 1e-3)).double().mean())
+    masks = ns.operator.cells.mask_u
+    per_component = [int(m.sum()) for m in masks]
+    print(
+        f"rising bubble {label} fields: rho {lo:.6f} .. {hi:.6f} ({100 * band:.3f} % of the "
+        f"q-points in the band), mu {float(mu.min()):.6f} .. {float(mu.max()):.6f}, "
+        f"constrained velocity dofs per component {per_component}", flush=True,
+    )
+    checks = {
+        "two_valued": abs(lo - (par.density + par.density_diff)) < 1e-2
+        and abs(hi - par.density) < 1e-2 and 0.0 < band < 0.5,
+        "masks_differ": len(set(per_component)) > 1 and not torch.equal(masks[0], masks[-1]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"flagship fields: {checks}")
+    rng = np.random.default_rng(32)
+    n_u, n_p, dim = ns.u_space.n_dofs_padded, ns.p_space.n_dofs_padded, par.dimension
+    base = dict(
+        u=rng.standard_normal((dim, n_u)), p=rng.standard_normal(n_p),
+        s=rng.standard_normal((dim, n_u)),
+    )
+    tw = TimeWeights(1.5 / 0.02, -2.0 / 0.02, 0.5 / 0.02, 1.0)
+    records = {}
+    for dtype in (torch.float64, torch.float32):
+        op = ns.operator if dtype == torch.float64 else NavierStokesOperator(
+            par, ns.u_space, ns.p_space, ns.constraints_u, ns.constraints_p,
+            dtype=dtype, device=device,
+        )
+        kw = dict(dtype=dtype, device=device)
+        u, p, s = (torch.as_tensor(base[k], **kw) for k in "ups")
+        cco = op._cell_coeffs(Coefficients(rho.to(dtype), mu.to(dtype), None))
+        sc = op._apply_scalars(tw)
+        cells = op.cells
+        dname = str(dtype).split(".")[-1]
+        pairs = {
+            "coupled_apply": (
+                lambda: cm.coupled_apply(u, p, s, cells, sc, coeffs=cco, identity=True),
+                lambda: cm.coupled_apply_plain(u, p, s, cells, sc, coeffs=cco, identity=True),
+            ),
+            "coupled_apply_velocity": (
+                lambda: (cm.coupled_apply_velocity(u, s, cells, sc, coeffs=cco),),
+                lambda: (cm.coupled_apply_plain(
+                    u, None, s, cells, sc, coeffs=cco, velocity_only=True),),
+            ),
+        }
+        for name, (run, plain) in pairs.items():
+            got, ref = list(run()), list(plain())
+            torch.cuda.synchronize()
+            err = rel_err(got, ref)
+            max_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+            t = cuda_ms(run)
+            plain_ms = cuda_ms(plain, warmup=1, reps=5)["ms"]
+            nbytes, flops, bms, by = bound(
+                cells, dname, n_u, n_p, name.endswith("velocity"), True, n_coeffs=2
+            )
+            case = f"{name} {label} {dname} variable, symmetry masks"
+            print(
+                f"kernel {case}: rel err {err:.3e} (max abs {max_abs:.3e}), "
+                f"{t['ms']:.4f} ms/apply (one waited call {t['call_ms']:.4f} ms), "
+                f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)", flush=True,
+            )
+            if not err <= TOL[dname]:
+                raise AssertionError(f"{case}: relative error {err:.3e} > {TOL[dname]}")
+            records[f"{name} {dname}"] = dict(
+                max_abs_err=max_abs, rel_err=err, ms=t["ms"], call_ms=t["call_ms"],
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            )
+    return records
+
+
+def run_rising_bubble_3d(device):
+    """Phase 3, the 3D rising bubble at its flagship size: the prm's physics
+    and solver tolerances on the driver's flagship mesh (32^3 cells, Q2/Q1
+    and a Q1 level set, float64); setup, phase 2's check on its fields, then
+    RB3_STEPS steps with the counts from 0, each step timed apart from its
+    bubble statistics (host diagnostics)."""
+    import torch
+
+    from adaflo_tpu_torch.drivers import rising_bubble as rb
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+
+    par = rb.TwoPhaseParameters.from_file(str(RB3_PRM))
+    par.global_refinements = 0
+    out = Tee()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = rb.MicroFluidicProblem(par, out=out, mesh=rb.flagship_mesh_3d(32))
+    problem.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"rising bubble 32^3: setup {setup_s:.3f} s", flush=True)
+    var_rec = check_flagship_variable(problem, device)
+    solver = problem.solver
+    reset_counts(cm)
+    steps = []
+    for _ in range(RB3_STEPS):
+        before = dict(cm.launches)
+        t0 = time.perf_counter()
+        newton, krylov = solver.advance_time_step()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats = solver.compute_bubble_statistics()
+        stats_s = time.perf_counter() - t0
+        steps.append(dict(
+            seconds=step_s, newton=int(newton), krylov=int(krylov), stats_s=stats_s,
+            stats=[float(x) for x in stats],
+            launches={k: cm.launches[k] - before[k] for k in cm.launches
+                      if cm.launches[k] > before[k]},
+        ))
+        st = steps[-1]
+        print(
+            f"rising bubble 32^3 step {len(steps)}: {step_s:.3f} s, Newton {st['newton']}, "
+            f"Krylov {st['krylov']}, launches {st['launches']}; statistics "
+            f"{stats_s:.3f} s: t, volume, area, velocity (3), centre (3), sphericity "
+            + json.dumps(st["stats"]), flush=True,
+        )
+    launches, plain = dict(cm.launches), dict(cm.plain_calls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ns = solver.navier_stokes
+    sections = {k: [v[0], round(v[1], 3)] for k, v in ns.timer.sections.items()}
+    print(
+        f"rising bubble 32^3 timer sections (calls, s): {sections}, "
+        f"linear solves {round(ns.statistics.counters['lin solver'][1], 3)} s",
+        flush=True,
+    )
+    text = out.getvalue()
+    lines = [ln.strip() for ln in text.splitlines()]
+    v0 = problem.solution_data[0][1]
+    checks = {
+        "cells": RB3_ANCHORS["cells"] in lines,
+        "ns_dofs": RB3_ANCHORS["ns_dofs"] in lines,
+        "ls_dofs": RB3_ANCHORS["ls_dofs"] in lines,
+        "converged": text.count("/conv.]") == RB3_STEPS,
+        "finite": all(np.isfinite(st["stats"]).all() for st in steps),
+        "volume_kept": all(abs(st["stats"][1] - v0) < 0.05 * v0 for st in steps),
+        "rising": all(st["stats"][5] > 0 for st in steps),
+        "k1_k2_every_step": all(st["launches"].get(k, 0) > 0 for st in steps for k in K12),
+        "no_other_entry": all(v == 0 for k, v in launches.items() if k not in K12),
+        "no_plain_calls": all(v == 0 for v in plain.values()),
+    }
+    print(f"rising bubble 32^3: peak device memory {peak_gb:.3f} GB, checks {checks}", flush=True)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"3D rising bubble checks failed: {failed}")
+    return dict(setup_s=setup_s, steps=steps, launches=launches, peak_gb=peak_gb,
+                variable=var_rec)
+
+
+def run_rising_bubble_2d(device):
+    """Phase 3, the 2D golden on the card: the port's driver on
+    rising_bubble_ls_short.prm (20 x 40 cells, 3 steps) held to its golden
+    output with the port's compare_with_golden; after its setup, phase 2's
+    check of K1/K2's variable mode on its fields and symmetry masks."""
+    import torch
+
+    from adaflo_tpu_torch.drivers import rising_bubble as rb
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.testing import compare_with_golden
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    problem = rb.MicroFluidicProblem(rb.TwoPhaseParameters.from_file(str(RB2_PRM)), out=out)
+    problem.setup()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    var_rec = check_flagship_variable(problem, device, label="2D 20 x 40")
+    # the counts from 0 after the check: they hold the time steps only
+    reset_counts(cm)
+    t0 = time.perf_counter()
+    while not problem.solver.get_time_stepping().at_end():
+        problem.step()
+    torch.cuda.synchronize()
+    seconds += time.perf_counter() - t0
+    launches, plain = dict(cm.launches), dict(cm.plain_calls)
+    compare_with_golden(out.getvalue(), RB2_GOLDEN)
+    checks = {
+        "steps": out.getvalue().count("Time step #") == 3,
+        "k1_k2": all(launches[k] > 0 for k in K12),
+        "no_other_entry": all(v == 0 for k, v in launches.items() if k not in K12),
+        "no_plain_calls": all(v == 0 for v in plain.values()),
+    }
+    print(
+        f"rising bubble 2D golden: {seconds:.3f} s, golden passed, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, checks {checks}", flush=True,
+    )
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"2D rising bubble checks failed: {failed}")
+    return dict(seconds=seconds, launches=launches, variable=var_rec)
+
+
 def sf_kernel_entries(sf_probes, sf_rec, resident_graph):
     """The kernels-line entries of K7, K8, K9, K10 and K5: each at its main
     configuration (float32; K7 at 96 aligned statements, K8 at 89 rows, K9
@@ -1428,6 +1676,8 @@ def main() -> int:
     # ---- phase 3: the slice, each path with the counts from 0 ---------------
     slice_rec = run_slice()
     channel_rec = run_channel()
+    rb3_rec = run_rising_bubble_3d(device)
+    rb2_rec = run_rising_bubble_2d(device)
     marks.append(("3", time.perf_counter()))
 
     # ---- phase 4: the probes, their path with the counts from 0 -------------
@@ -1458,6 +1708,17 @@ def main() -> int:
               rec["3D Q2/Q1 48^3 f64 velocity"], "3D Q2/Q1 16^3 f64 velocity",
               slice_rec["launches"]),
     ]
+    for e in kernels:  # the variable mode on the rising bubbles' paths
+        e["rising_bubble_3d"] = dict(
+            launches=rb3_rec["launches"][e["name"]],
+            **{k.split()[1]: v for k, v in rb3_rec["variable"].items()
+               if k.split()[0] == e["name"]},
+        )
+        e["rising_bubble_2d"] = dict(
+            launches=rb2_rec["launches"][e["name"]],
+            **{k.split()[1]: v for k, v in rb2_rec["variable"].items()
+               if k.split()[0] == e["name"]},
+        )
     for name in BLOCK_ENTRIES:
         main = "3D Q2/Q1 16^3 periodic f64"
         kernels.append(entry(
@@ -1533,6 +1794,15 @@ def main() -> int:
             "launches/step "
             + json.dumps({k: v / n for k, v in r["launches"].items() if v})
         )
+    steps = rb3_rec["steps"]
+    print(
+        f"rising bubble 32^3 summary: setup {rb3_rec['setup_s']:.3f} s, "
+        f"{statistics.mean(st['seconds'] for st in steps):.3f} s/step "
+        f"(steps {[round(st['seconds'], 3) for st in steps]}), Newton "
+        f"{[st['newton'] for st in steps]}, Krylov {[st['krylov'] for st in steps]}, "
+        f"statistics {statistics.mean(st['stats_s'] for st in steps):.3f} s/step, peak "
+        f"device memory {rb3_rec['peak_gb']:.3f} GB; 2D golden {rb2_rec['seconds']:.3f} s"
+    )
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

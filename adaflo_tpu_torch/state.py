@@ -1,7 +1,9 @@
 """Solver state carried across between the JAX package and the port.
 
 The two packages keep the same state under the same names: the solution
-vectors (current, old, old-old), the user right-hand side (a body force),
+vectors (current, old, old-old), the last update (the projection scheme
+keeps p^n there between the extrapolation and the solve, and phi^n in
+solution_old's pressure), the user right-hand side (a body force),
 the time stepping's fields, the periodic axes of the mesh, the constrained
 dof sets and the preconditioner bookkeeping. `state_arrays` reads them from
 either package's NavierStokes solver into a flat dict of numpy arrays (it
@@ -13,9 +15,11 @@ A two-phase solver (twophase.LevelSetOKZSolver in either package) passes
 for its NavierStokes solver and adds its level-set state.
 
 Keys: solution_u, solution_p, solution_old_u, solution_old_p,
-solution_old_old_u, solution_old_old_p, user_rhs_u, user_rhs_p;
+solution_old_old_u, solution_old_old_p, solution_update_u,
+solution_update_p, user_rhs_u, user_rhs_p;
 ts:<field> for each field of TimeStepping (the scheme excepted); periodic;
-constrained_u<c>, constrained_p, constrained_schur; the four
+constrained_u<c>, constrained_p, constrained_schur (the open sides'
+pressure dofs and the pressure-fix dof); the four
 preconditioner bookkeeping scalars; coefficients_rho and coefficients_mu
 when the density and viscosity vary per q-point. Two-phase: ls:<vector>_c
 and ls:<vector>_k (concentration and curvature) for solution, solution_old
@@ -33,7 +37,9 @@ import torch
 
 from adaflo_tpu_torch.ops.navier_stokes import Coefficients
 
-_VECTORS = ("solution", "solution_old", "solution_old_old", "user_rhs")
+_VECTORS = (
+    "solution", "solution_old", "solution_old_old", "solution_update", "user_rhs",
+)
 _BOOKKEEPING = (
     "update_preconditioner",
     "update_preconditioner_frequency",
@@ -98,6 +104,7 @@ class SolverState:
     solution: list
     solution_old: list
     solution_old_old: list
+    solution_update: list
     user_rhs: list
     time_stepping: dict
     periodic: np.ndarray
@@ -145,8 +152,9 @@ def from_jax_state(arrays: dict[str, np.ndarray], device) -> SolverState:
         )
     return SolverState(
         vecs["solution"], vecs["solution_old"], vecs["solution_old_old"],
-        vecs["user_rhs"], ts, np.asarray(arrays["periodic"], bool), constrained,
-        bookkeeping, coefficients, level_set,
+        vecs["solution_update"], vecs["user_rhs"], ts,
+        np.asarray(arrays["periodic"], bool), constrained, bookkeeping,
+        coefficients, level_set,
     )
 
 

@@ -87,3 +87,13 @@ def cell_divergence_norm(space: ScalarSpace, u, n_q_1d: int | None = None) -> fl
     div = np.trace(grads, axis1=1, axis2=2)
     cell_div = (div * jxw).sum(axis=1)
     return float(np.sqrt((cell_div**2).sum()))
+
+
+def max_value(space: ScalarSpace, vec: torch.Tensor, n_components: int = 1) -> float:
+    """Largest magnitude over the (degree+1)-point Gauss points of every
+    cell (get_maximal_velocity, two_phase_base.cc:479-545)."""
+    ev, _, _ = _evaluator(space, space.degree + 1, vec)
+    vals = ev.values(_cells(space, vec))  # (E, n_q) or (E, C, n_q)
+    if n_components == 1:
+        return float(vals.abs().max())
+    return float(torch.sqrt((vals * vals).sum(dim=1)).max())

@@ -1,6 +1,6 @@
-"""Profile one time step of the port's Beltrami driver on the CUDA device.
+"""Profile one time step of a driver of the port on the CUDA device.
 
-Runs the first four time steps of a prm file, the fourth under
+Runs the first four time steps of a prm file (`--steps`), the last under
 torch.profiler (steps 1-2 of beltrami_3d build the preconditioner; steps
 3-4 are the Newton and Krylov iterations alone), then prints: the card's
 name and power limit (nvidia-smi); each step's wall time and iteration
@@ -11,7 +11,13 @@ layer's host and device time, from the ranges of utils/timer.profiler_range
 of beltrami_3d (about 500k events) takes minutes of host time after the
 step.
 
-Usage: python -m adaflo_tpu_torch.utils.profile_step [prm]
+The driver is the Beltrami driver, or with `--driver poiseuille` the
+channel of drivers/poiseuille.py, whose `--dimension` and `--refinements`
+override the prm's (the 3D open-boundary channel: tests/prms/poiseuille_ns.prm
+--driver poiseuille --dimension 3 --refinements 4 --steps 3).
+
+Usage: python -m adaflo_tpu_torch.utils.profile_step [prm] [--driver
+beltrami|poiseuille] [--dimension D] [--refinements R] [--steps N]
 """
 
 from __future__ import annotations
@@ -29,13 +35,19 @@ TOP = 15  # kernels listed by device time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("paramfile", nargs="?", default="tests/prms/beltrami_3d.prm")
+    ap.add_argument("--driver", choices=("beltrami", "poiseuille"), default="beltrami")
+    ap.add_argument("--dimension", type=int, default=None)
+    ap.add_argument("--refinements", type=int, default=None)
+    ap.add_argument("--steps", type=int, default=STEPS)
     args = ap.parse_args(argv)
+    steps = args.steps
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from adaflo_tpu_torch.drivers.beltrami import BeltramiProblem
+    from adaflo_tpu_torch.drivers.poiseuille import ChannelProblem
     from adaflo_tpu_torch.parameters import FlowParameters
 
     if not torch.cuda.is_available():
@@ -50,13 +62,21 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     par = FlowParameters.from_file(args.paramfile)
-    problem = BeltramiProblem(par, out=io.StringIO())
-    problem.setup()
-    problem.output_results()
-    for k in range(1, STEPS + 1):
+    if args.dimension is not None:
+        par.dimension = args.dimension
+    if args.refinements is not None:
+        par.global_refinements = args.refinements
+    if args.driver == "beltrami":
+        problem = BeltramiProblem(par, out=io.StringIO())
+        problem.setup()
+        problem.output_results()
+    else:
+        problem = ChannelProblem(par, out=io.StringIO())
+        problem.setup()
+    for k in range(1, steps + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if k < STEPS:
+        if k < steps:
             nl, lin = problem.step()
             torch.cuda.synchronize()
             print(f"step {k}: {time.perf_counter() - t0:.3f} s, Newton {nl}, "
@@ -76,7 +96,7 @@ def main(argv=None) -> int:
     ]
     busy_us = sum(e.self_device_time_total for e in device)
     print(
-        f"profile: step {STEPS} {wall:.3f} s under the profiler, Newton {nl}, "
+        f"profile: step {steps} {wall:.3f} s under the profiler, Newton {nl}, "
         f"Krylov {lin}, device busy {busy_us / 1e6:.4f} s "
         f"({100 * busy_us / 1e6 / wall:.3f} % of the step), "
         f"{sum(e.count for e in device)} device operations", flush=True,

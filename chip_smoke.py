@@ -115,6 +115,27 @@ Phases:
        mode on its fields and symmetry masks, then its steps, held to
        tests/golden/rising_bubble_ls_short.output with the port's
        compare_with_golden; it runs K1 and K2 in variable mode;
+     - the single-phase lattice drivers: after couette's setup, phase 2's
+       check of K1 (identity rows) and K2 in constant mode on its spaces
+       and open-boundary masks (the tangential component only on the open
+       sides; 1e-12 float64, 1e-5 float32); then the seven goldens
+       (couette, poiseuille_ns_small, poiseuille_stokes,
+       poiseuille_stationary, poiseuille_ns_proj_small, flow_1d,
+       flow_1d_damped), each run by its driver and held to its golden with
+       the port's compare_with_golden, and tests/prms/poiseuille_ns.prm to
+       t = 2 held to the reference anchor (||e_u|| = 0.1321 +- 2e-4,
+       ||e_p|| < 1e-8): each in a child process of its own with the counts
+       from 0 (`chip_smoke.py --golden <name>`, all started together, each
+       host-bound on a small lattice); couette, poiseuille_ns_small and the
+       anchor run K1 and K2, the others the operator's plain cell route
+       alone (its applies counted, no K1-K4 launch);
+     - the 3D open-boundary channel at full width (poiseuille_ns.prm with
+       dimension = 3 and global refinements = 4: 64 x 16 x 16 cells,
+       421,443 + 18,785 dofs, float64): setup, phase 2's check of K1/K2 on
+       its open-boundary masks (with their device time in a CUDA graph),
+       then CH3_STEPS steps, each with its seconds, Newton and Krylov
+       counts, launches and plain-route applies; K1 in every step, the peak
+       device memory;
   4. the probes, their path driven with the launch counts set to 0 before it
      and read after it: each probe driver of adaflo_tpu_torch/scripts
      (probe_pr_phases K12, probe_pr_parts K13, probe_pr K6 with K3 and K4
@@ -1553,6 +1574,337 @@ def run_rising_bubble_2d(device):
     return dict(seconds=seconds, launches=launches, variable=var_rec)
 
 
+# the single-phase lattice drivers of the slice and their goldens: (golden,
+# driver module, prm); the coupled Newton ones run K1/K2, the others the
+# operator's plain cell route
+SINGLE_PHASE = (
+    ("couette", "couette", "couette"),
+    ("poiseuille_ns_small", "poiseuille", "poiseuille_ns_small"),
+    ("poiseuille_stokes", "poiseuille", "poiseuille_stokes"),
+    ("poiseuille_stationary", "poiseuille", "poiseuille_stationary"),
+    ("poiseuille_ns_proj_small", "poiseuille", "poiseuille_ns_proj_small"),
+    ("flow_1d", "flow_1d", "flow_1d"),
+    ("flow_1d_damped", "flow_1d", "flow_1d_damped"),
+)
+KERNEL_GOLDENS = ("couette", "poiseuille_ns_small")
+DRIVER_CLASS = {"couette": "CouetteProblem", "poiseuille": "ChannelProblem",
+                "flow_1d": "ChannelFlow"}
+# the reference anchor of poiseuille_ns (tests/test_golden_ns.py): ||e_u|| at
+# t = 2 within 2e-4 of 0.1321, ||e_p|| < 1e-8
+ANCHOR_EU, ANCHOR_EU_TOL, ANCHOR_EP = 0.1321, 2e-4, 1e-8
+# the 3D open-boundary channel: poiseuille_ns.prm with dimension = 3 and
+# global refinements = 4, 64 x 16 x 16 cells, 3 steps
+CH3_STEPS = 3
+CH3_ANCHORS = {
+    "cells": " Number of active cells: 16384.",
+    "dofs": " Number of degrees of freedom (velocity/pressure): 440228 (421443 + 18785).",
+}
+
+
+def reset_single_phase_counts(cm):
+    from adaflo_tpu_torch.ops import navier_stokes as nso
+
+    reset_counts(cm)
+    for k in nso.PLAIN_ROUTE_APPLIES:
+        nso.PLAIN_ROUTE_APPLIES[k] = 0
+
+
+def driver_problem(driver: str, par, out):
+    import importlib
+
+    mod = importlib.import_module(f"adaflo_tpu_torch.drivers.{driver}")
+    return getattr(mod, DRIVER_CLASS[driver])(par, out=out)  # the default device
+
+
+def check_open_masks(ns, device, label: str, graph: bool = False):
+    """Phase 2 on an open-boundary problem's spaces and constraints, after
+    its setup: K1 (identity rows, constant coefficients) and K2 against their
+    plain versions on random u, p and u* (numpy seed), float64 (1e-12) and
+    float32 (1e-5, a float32 operator on the same spaces and constraints).
+    Its velocity masks must be the constraint sets, the tangential
+    components only on the open sides (so the components' masks differ).
+    graph: also the float64 device time of each in a CUDA graph."""
+    import torch
+
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.ops.navier_stokes import NavierStokesOperator, TimeWeights
+
+    par = ns.parameters
+    masks = ns.operator.cells.mask_u
+    per_component = [int(m.sum()) for m in masks]
+    open_dofs = ns.u_space.boundary_dofs(1)
+    checks = {
+        "masks_are_constraints": all(
+            np.array_equal(np.flatnonzero(m.cpu().numpy()), con.constrained_dofs)
+            for m, con in zip(masks, ns.constraints_u)
+        ),
+        "masks_differ": len(set(per_component)) > 1,
+        "open_normal_free": not bool(masks[0][torch.as_tensor(
+            np.setdiff1d(open_dofs, ns.constraints_u[0].constrained_dofs), device=device,
+        )].any()) and len(np.setdiff1d(open_dofs, ns.constraints_u[0].constrained_dofs)) > 0,
+        "open_tangential_fixed": all(bool(m[torch.as_tensor(open_dofs, device=device)].all())
+                                     for m in masks[1:]),
+    }
+    print(f"open boundaries {label}: constrained velocity dofs per component "
+          f"{per_component}, checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"open-boundary masks {label}: {checks}")
+    rng = np.random.default_rng(15)
+    n_u, n_p, dim = ns.u_space.n_dofs_padded, ns.p_space.n_dofs_padded, ns.dim
+    base = dict(u=rng.standard_normal((dim, n_u)), p=rng.standard_normal(n_p),
+                s=rng.standard_normal((dim, n_u)))
+    tw = TimeWeights(1.5 / 0.5, -2.0 / 0.5, 0.5 / 0.5, 1.0)
+    records = {}
+    for dtype in (torch.float64, torch.float32):
+        op = ns.operator if dtype == torch.float64 else NavierStokesOperator(
+            par, ns.u_space, ns.p_space, ns.constraints_u, ns.constraints_p,
+            dtype=dtype, device=device,
+        )
+        kw = dict(dtype=dtype, device=device)
+        u, p, s = (torch.as_tensor(base[k], **kw) for k in "ups")
+        sc = op._apply_scalars(tw)
+        cells = op.cells
+        dname = str(dtype).split(".")[-1]
+        pairs = {
+            "coupled_apply": (
+                lambda: cm.coupled_apply(u, p, s, cells, sc, identity=True),
+                lambda: cm.coupled_apply_plain(u, p, s, cells, sc, identity=True),
+            ),
+            "coupled_apply_velocity": (
+                lambda: (cm.coupled_apply_velocity(u, s, cells, sc),),
+                lambda: (cm.coupled_apply_plain(u, None, s, cells, sc, velocity_only=True),),
+            ),
+        }
+        for name, (run, plain) in pairs.items():
+            got, ref = list(run()), list(plain())
+            torch.cuda.synchronize()
+            err = rel_err(got, ref)
+            max_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+            t = cuda_ms(run)
+            plain_ms = cuda_ms(plain, warmup=1, reps=5)["ms"]
+            g_ms = graph_ms(run) if graph and dname == "float64" else None
+            nbytes, flops, bms, by = bound(
+                cells, dname, n_u, n_p, name.endswith("velocity"), False
+            )
+            case = f"{name} {label} {dname} open-boundary masks"
+            print(
+                f"kernel {case}: rel err {err:.3e} (max abs {max_abs:.3e}), "
+                f"{t['ms']:.4f} ms/apply (one waited call {t['call_ms']:.4f} ms"
+                + (f", graph {g_ms:.4f} ms" if g_ms is not None else "")
+                + f"), plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)", flush=True,
+            )
+            if not err <= TOL[dname]:
+                raise AssertionError(f"{case}: relative error {err:.3e} > {TOL[dname]}")
+            records[f"{name} {dname}"] = dict(
+                max_abs_err=max_abs, rel_err=err, ms=t["ms"], call_ms=t["call_ms"],
+                graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            )
+    return records
+
+
+def route_counts(cm):
+    from adaflo_tpu_torch.ops import navier_stokes as nso
+
+    launches = {k: v for k, v in cm.launches.items() if v}
+    return launches, dict(cm.plain_calls), dict(nso.PLAIN_ROUTE_APPLIES)
+
+
+def check_routes_ran(label, kernel: bool, launches, plain, plain_route):
+    """The path ran K1/K2 (kernel) or the plain cell route (not kernel),
+    nothing else: no other entry, no plain version of a kernel."""
+    checks = {
+        "no_plain_calls": all(v == 0 for v in plain.values()),
+        "no_other_entry": all(k in K12 for k in launches),
+    }
+    if kernel:
+        checks["k1_k2"] = all(launches.get(k, 0) > 0 for k in K12)
+        checks["no_plain_route"] = all(v == 0 for v in plain_route.values())
+    else:
+        # the projection scheme applies the velocity block alone
+        checks["no_k1_k2"] = not launches
+        checks["plain_route"] = plain_route["velocity_vmult"] > 0
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: routes {checks}")
+    return checks
+
+
+def golden_child(name: str) -> int:
+    """One single-phase path in a process of its own (`chip_smoke.py
+    --golden <name>`): a golden of SINGLE_PHASE, run by its driver on the
+    card with the counts from 0 and held to its golden with the port's
+    compare_with_golden, or "anchor", poiseuille_ns.prm to t = 2. Prints
+    one JSON line: seconds, steps, K1-K4 launches, plain-version calls,
+    plain-route applies (and the anchor's errors)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.parameters import FlowParameters
+    from adaflo_tpu_torch.testing import compare_with_golden
+
+    cm.load_library()  # phase 1 built it
+    prms = ROOT / "tests" / "prms"
+    out = io.StringIO()
+    record = {"golden": name}
+    reset_single_phase_counts(cm)
+    t0 = time.perf_counter()
+    if name == "anchor":
+        par = FlowParameters.from_file(str(prms / "poiseuille_ns.prm"))
+        par.end_time = 2.0
+        problem = driver_problem("poiseuille", par, out)
+        problem.run()
+        record["e_p"], record["e_u"] = problem.errors()
+    else:
+        driver, prm = {g: (d, p) for g, d, p in SINGLE_PHASE}[name]
+        problem = driver_problem(driver, FlowParameters.from_file(str(prms / f"{prm}.prm")), out)
+        problem.run()
+    torch.cuda.synchronize()
+    record["seconds"] = time.perf_counter() - t0
+    if name != "anchor":
+        compare_with_golden(out.getvalue(), ROOT / "tests" / "golden" / f"{name}.output")
+        record["golden_passed"] = True
+    record["steps"] = out.getvalue().count("Time step #")
+    record["launches"], record["plain"], record["plain_route"] = route_counts(cm)
+    print(json.dumps(record), flush=True)
+    return 0
+
+
+def run_single_phase(device):
+    """Phase 3, the single-phase lattice drivers: phase 2's open-boundary
+    check on couette's spaces and constraints; then the seven goldens and
+    the poiseuille_ns anchor at t = 2, each in a child process of its own
+    (golden_child, all started together: each is host-bound on a small
+    lattice), waited for and held to its routes: K1/K2 for the coupled
+    Newton paths, the plain cell route alone for the others."""
+    from adaflo_tpu_torch.parameters import FlowParameters
+
+    couette = driver_problem(
+        "couette", FlowParameters.from_file(str(ROOT / "tests" / "prms" / "couette.prm")),
+        io.StringIO(),
+    )
+    couette.setup()
+    masks_rec = check_open_masks(couette.navier_stokes, device, "couette 64 x 16")
+    del couette
+    names = [g for g, _, _ in SINGLE_PHASE] + ["anchor"]
+    t0 = time.perf_counter()
+    procs = {
+        name: subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--golden", name],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        )
+        for name in names
+    }
+    records, failed = {}, {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                failed[name] = stderr.strip().splitlines()[-3:]
+                continue
+            records[name] = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    if failed:
+        raise AssertionError(f"single-phase paths failed: {failed}")
+    for name in names:
+        r = records[name]
+        checks = check_routes_ran(
+            name, name in KERNEL_GOLDENS or name == "anchor",
+            r["launches"], r["plain"], r["plain_route"],
+        )
+        extra = ""
+        if name == "anchor":
+            checks["e_u"] = abs(r["e_u"] - ANCHOR_EU) < ANCHOR_EU_TOL
+            checks["e_p"] = r["e_p"] < ANCHOR_EP
+            extra = f" ||e_u|| = {r['e_u']:.6f}, ||e_p|| = {r['e_p']:.3e} at t = 2,"
+            if not all(checks.values()):
+                raise AssertionError(f"poiseuille_ns anchor: {checks}")
+        else:
+            extra = " golden passed,"
+        print(f"single phase {name}: {r['seconds']:.3f} s, {r['steps']} steps,{extra} "
+              f"launches {r['launches']}, plain-route applies {r['plain_route']}, "
+              f"checks {checks}", flush=True)
+    print(f"single phase: {len(names)} paths in parallel processes, {wall:.3f} s", flush=True)
+    return dict(goldens=records, masks=masks_rec, wall_s=wall)
+
+
+def run_channel_3d(device):
+    """Phase 3, the 3D open-boundary channel at full width: poiseuille_ns.prm
+    with dimension = 3 and global refinements = 4 (64 x 16 x 16 cells,
+    421,443 + 18,785 dofs, float64); setup, phase 2's check on its spaces
+    and constraints, then CH3_STEPS steps with the counts from 0, each with
+    its seconds, Newton and Krylov counts, launches and plain-route
+    applies; the peak device memory."""
+    import torch
+
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.ops import navier_stokes as nso
+    from adaflo_tpu_torch.parameters import FlowParameters
+
+    par = FlowParameters.from_file(str(ROOT / "tests" / "prms" / "poiseuille_ns.prm"))
+    par.dimension = 3
+    par.global_refinements = 4
+    out = Tee()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = driver_problem("poiseuille", par, out)
+    problem.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"channel 3D: setup {setup_s:.3f} s", flush=True)
+    masks_rec = check_open_masks(problem.navier_stokes, device, "channel 3D 64 x 16 x 16",
+                                 graph=True)
+    reset_single_phase_counts(cm)
+    steps = []
+    for _ in range(CH3_STEPS):
+        before, before_route = dict(cm.launches), dict(nso.PLAIN_ROUTE_APPLIES)
+        t0 = time.perf_counter()
+        newton, krylov = problem.step()
+        torch.cuda.synchronize()
+        st = dict(
+            seconds=time.perf_counter() - t0, newton=int(newton), krylov=int(krylov),
+            launches={k: cm.launches[k] - before[k] for k in cm.launches
+                      if cm.launches[k] > before[k]},
+            plain_route={k: nso.PLAIN_ROUTE_APPLIES[k] - before_route[k]
+                         for k in before_route},
+        )
+        steps.append(st)
+        print(f"channel 3D step {len(steps)}: {st['seconds']:.3f} s, Newton {st['newton']}, "
+              f"Krylov {st['krylov']}, launches {st['launches']}, plain-route applies "
+              f"{st['plain_route']}", flush=True)
+    launches, plain, plain_route = route_counts(cm)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ns = problem.navier_stokes
+    ep, eu = problem.errors()
+    text = out.getvalue()
+    checks = check_routes_ran("channel 3D", True, launches, plain, plain_route)
+    checks.update(
+        cells=CH3_ANCHORS["cells"] in text.splitlines(),
+        dofs=CH3_ANCHORS["dofs"] in text.splitlines(),
+        converged=text.count(" converged.") == CH3_STEPS,
+        # K2 runs where the preconditioner is rebuilt, K1 in every solve
+        k1_every_step=all(st["launches"].get("coupled_apply", 0) > 0 for st in steps),
+        finite=bool(torch.isfinite(ns.solution[0]).all())
+        and bool(torch.isfinite(ns.solution[1]).all()),
+    )
+    print(f"channel 3D: peak device memory {peak_gb:.3f} GB, after {len(steps)} steps "
+          f"||e_p|| = {ep:.4e}, ||e_u|| = {eu:.4e} against the 2D profile, checks {checks}",
+          flush=True)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"3D channel checks failed: {failed}")
+    return dict(setup_s=setup_s, steps=steps, launches=launches, peak_gb=peak_gb,
+                masks=masks_rec)
+
+
 def sf_kernel_entries(sf_probes, sf_rec, resident_graph):
     """The kernels-line entries of K7, K8, K9, K10 and K5: each at its main
     configuration (float32; K7 at 96 aligned statements, K8 at 89 rows, K9
@@ -1613,6 +1965,8 @@ def sf_kernel_entries(sf_probes, sf_rec, resident_graph):
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--golden" and torch.cuda.is_available():
+        return golden_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1678,6 +2032,8 @@ def main() -> int:
     channel_rec = run_channel()
     rb3_rec = run_rising_bubble_3d(device)
     rb2_rec = run_rising_bubble_2d(device)
+    sp_rec = run_single_phase(device)
+    ch3_rec = run_channel_3d(device)
     marks.append(("3", time.perf_counter()))
 
     # ---- phase 4: the probes, their path with the counts from 0 -------------
@@ -1719,6 +2075,17 @@ def main() -> int:
             **{k.split()[1]: v for k, v in rb2_rec["variable"].items()
                if k.split()[0] == e["name"]},
         )
+    for e in kernels:  # the open-boundary masks of the single-phase paths
+        name = e["name"]
+        pick = lambda rec: {k.split()[1]: v for k, v in rec.items() if k.split()[0] == name}
+        e["couette"] = dict(launches=sp_rec["goldens"]["couette"]["launches"].get(name, 0),
+                            **pick(sp_rec["masks"]))
+        e["poiseuille_ns_small"] = dict(
+            launches=sp_rec["goldens"]["poiseuille_ns_small"]["launches"].get(name, 0))
+        e["poiseuille_ns_anchor"] = dict(
+            launches=sp_rec["goldens"]["anchor"]["launches"].get(name, 0))
+        e["channel_3d"] = dict(launches=ch3_rec["launches"].get(name, 0),
+                               **pick(ch3_rec["masks"]))
     for name in BLOCK_ENTRIES:
         main = "3D Q2/Q1 16^3 periodic f64"
         kernels.append(entry(
@@ -1802,6 +2169,16 @@ def main() -> int:
         f"{[st['newton'] for st in steps]}, Krylov {[st['krylov'] for st in steps]}, "
         f"statistics {statistics.mean(st['stats_s'] for st in steps):.3f} s/step, peak "
         f"device memory {rb3_rec['peak_gb']:.3f} GB; 2D golden {rb2_rec['seconds']:.3f} s"
+    )
+    steps = ch3_rec["steps"]
+    print(
+        f"channel 3D summary: setup {ch3_rec['setup_s']:.3f} s, "
+        f"{statistics.mean(st['seconds'] for st in steps):.3f} s/step "
+        f"(steps {[round(st['seconds'], 3) for st in steps]}), Newton "
+        f"{[st['newton'] for st in steps]}, Krylov {[st['krylov'] for st in steps]}, peak "
+        f"device memory {ch3_rec['peak_gb']:.3f} GB; goldens "
+        + json.dumps({k: round(v["seconds"], 3) for k, v in sp_rec["goldens"].items()})
+        + f", {sp_rec['wall_s']:.3f} s in parallel processes"
     )
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -127,3 +127,33 @@ def test_lattice_gather_scatter(dim, degree, periodic):
     _close(tl.scatter_add(torch.tensor(r)), js_(jnp.asarray(r)))
     _close(tl.scatter_add_t(torch.tensor(r.T.copy())), jst(jnp.asarray(r.T)))
     np.testing.assert_array_equal(tl.cell_dof_table(), ts.cell_dofs)
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_error_norms_and_max_value(dim):
+    """utils/errors on a lattice of each dimension (dim 1 as the 1D flow
+    driver's): the spaces agree, and l2_error and max_value (the largest
+    magnitude over the (degree+1)-point Gauss points) of a random scalar and
+    vector field equal the JAX package's."""
+    from adaflo_tpu.utils import errors as jerr
+    from adaflo_tpu_torch.utils import errors as terr
+
+    shape = (5, 3, 2)[:dim]
+    jm = JMesh(shape, (0.0,) * dim, (2.5, 1.0, 0.7)[:dim])
+    tm = TMesh(shape, (0.0,) * dim, (2.5, 1.0, 0.7)[:dim])
+    js, ts = JSpace(jm, 2), TSpace(tm, 2)
+    np.testing.assert_array_equal(ts.cell_dofs, js.cell_dofs)
+    rng = np.random.default_rng(30 + dim)
+    scalar = rng.standard_normal(ts.n_dofs)
+    vector = rng.standard_normal((dim, ts.n_dofs))
+    exact = lambda x, t: np.sin(x[:, 0])
+    assert terr.max_value(ts, torch.tensor(scalar)) == pytest.approx(
+        jerr.max_value(js, scalar), rel=1e-14
+    )
+    if dim > 1:  # a one-component field is a scalar one (JAX reads it so)
+        assert terr.max_value(ts, torch.tensor(vector), n_components=dim) == pytest.approx(
+            jerr.max_value(js, vector, n_components=dim), rel=1e-14
+        )
+    assert terr.l2_error(ts, torch.tensor(scalar), exact) == pytest.approx(
+        jerr.l2_error(js, scalar, exact), rel=1e-13
+    )

@@ -1545,6 +1545,7 @@ int with_cells(int mode, int pres, int dim, int degree, F f) {
   if (dim == 3 && degree == 2) return ADAFLO_SET(3, 3, 3, 2);
   if (dim == 2 && degree == 2) return ADAFLO_SET(2, 3, 3, 2);
   if (dim == 3 && degree == 3) return ADAFLO_SET(3, 4, 4, 3);
+  if (dim == 2 && degree == 3) return ADAFLO_SET(2, 4, 4, 3);
 #undef ADAFLO_SET
   return (int)cudaErrorInvalidValue;
 }

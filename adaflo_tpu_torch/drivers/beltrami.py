@@ -1,19 +1,22 @@
-"""3D Beltrami analytic Navier-Stokes benchmark driver.
+"""2D Taylor / 3D Beltrami analytic Navier-Stokes benchmark driver.
 
-PyTorch counterpart of ``adaflo_tpu/drivers/beltrami.py``, 3D lattice branch
-(the reference driver tests/beltrami.cc): the Beltrami flow (Ethier &
-Steinman) on [-1,1]^3, all-Dirichlet time-dependent velocity BCs from the
-exact solution, pressure fixed against the exact pressure at the boundary;
-absolute and relative L2 errors plus cellwise divergence at the output
-cadence. The uniform mesh matches the recorded reference output
-(beltrami_3d.output: 4096 cells, 107811 + 4913 dofs).
+PyTorch counterpart of ``adaflo_tpu/drivers/beltrami.py``, lattice branch
+(the reference driver tests/beltrami.cc): the decaying Taylor vortex (Kim &
+Moin) in 2D and the Beltrami flow (Ethier & Steinman) in 3D on [-1,1]^dim,
+all-Dirichlet time-dependent velocity BCs from the exact solution, pressure
+fixed against the exact pressure at the boundary; absolute and relative L2
+errors plus cellwise divergence at the output cadence. The uniform mesh
+matches the recorded 3D reference output (beltrami_3d.output: 4096 cells,
+107811 + 4913 dofs). Augmented Taylor-Hood elements (FE_Q_DG0 pressure)
+run on the uniform lattice in 2D and 3D, their pressure error with the
+cell constants.
 
-The 2D Taylor vortex runs on a locally refined forest and the augmented
-Taylor-Hood variant needs the DG0 pressure; neither is ported (ROADMAP.md
-queue 1, items 11 and 12).
+The 2D Taylor vortex with plain Taylor-Hood elements runs on a locally
+refined forest, which is not ported (ROADMAP.md queue 1, item 12).
 
 Run: python -m adaflo_tpu_torch.drivers.beltrami tests/prms/beltrami_3d.prm
-[--device cpu]
+[--device cpu] (or beltrami_3d_augp_small.prm, beltrami_2d_augp_small.prm,
+beltrami_2d_augp_proj_small.prm)
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from adaflo_tpu_torch.utils.errors import (
     cell_divergence_norm,
     interpolate,
     l2_error,
+    l2_error_augmented_pressure,
     l2_norm,
 )
 from adaflo_tpu_torch.utils.timer import print_wall_times
@@ -38,9 +42,14 @@ from adaflo_tpu_torch.utils.timer import print_wall_times
 
 def exact_u(nu: float, dim: int):
     a = 0.25 * np.pi
-    d = 2.0 * a
+    d = (2.0 if dim == 3 else np.sqrt(2.0)) * a
 
     def fn(x, t=0.0):
+        if dim == 2:
+            decay = np.exp(-2.0 * nu * a * a * t)
+            u0 = -a * np.cos(a * x[:, 0]) * np.sin(a * x[:, 1]) * decay
+            u1 = a * np.sin(a * x[:, 0]) * np.cos(a * x[:, 1]) * decay
+            return np.stack([u0, u1])
         decay = np.exp(-nu * d * d * t)
         u0 = -a * (
             np.exp(a * x[:, 0]) * np.sin(a * x[:, 1] + d * x[:, 2])
@@ -64,6 +73,14 @@ def exact_p(nu: float, dim: int):
     d = 2.0 * a
 
     def fn(x, t=0.0):
+        if dim == 2:
+            return (
+                -a
+                * a
+                * 0.25
+                * (np.cos(2 * a * x[:, 0]) + np.cos(2 * a * x[:, 1]))
+                * np.exp(-4.0 * nu * a * a * t)
+            )
         return (
             -a
             * a
@@ -96,18 +113,14 @@ class BeltramiProblem:
         self.parameters = parameters
         self.out = out
         dim = parameters.dimension
-        if dim != 3:
+        if dim == 2 and not parameters.augmented_taylor_hood:
             raise NotImplementedError(
                 "the 2D Taylor vortex runs on an adaptive forest, which is not "
                 "ported (ROADMAP.md queue 1, item 12)"
             )
-        if parameters.augmented_taylor_hood:
-            raise NotImplementedError(
-                "augmented Taylor-Hood is not ported (ROADMAP.md queue 1, item 11)"
-            )
-        # the recorded reference output (3 MPI ranks) shows the two local
+        # the recorded 3D reference output (3 MPI ranks) shows the two local
         # refine flags had no effect (4096 uniform cells), so the uniform
-        # lattice applies
+        # lattice applies; augmented Taylor-Hood stays on it in 2D as well
         self.mesh = StructuredMesh.subdivided_hyper_rectangle(
             (4,) * dim, (-1.0,) * dim, (1.0,) * dim
         )
@@ -125,11 +138,19 @@ class BeltramiProblem:
         dim = self.mesh.dim
         u, p = ns.solution[0], ns.solution[1]
         cell_div = cell_divergence_norm(ns.u_space, u)
-        p_err = l2_error(ns.p_space, p, exact_p(self.nu, dim), time, deg + 2)
+        if self.parameters.augmented_taylor_hood:
+            p_err = l2_error_augmented_pressure(
+                ns.operator, p, exact_p(self.nu, dim), time, deg + 2
+            )
+            p_norm = l2_error_augmented_pressure(
+                ns.operator, p, lambda x, t: np.zeros(len(x)), time, deg
+            )
+        else:
+            p_err = l2_error(ns.p_space, p, exact_p(self.nu, dim), time, deg + 2)
+            p_norm = l2_norm(ns.p_space, p, deg)
         u_err = l2_error(
             ns.u_space, u, exact_u(self.nu, dim), time, deg + 2, n_components=dim
         )
-        p_norm = l2_norm(ns.p_space, p, deg)
         u_norm = l2_norm(ns.u_space, u, deg, n_components=dim)
         self._p(
             f"  L2-Errors absolute: ||e_p||_L2 = {fmt4(p_err)},"
@@ -153,7 +174,8 @@ class BeltramiProblem:
         self._p(
             f"Running a {dim}D Beltrami problem using "
             f"{ns.time_stepping.name()}, Q{par.velocity_degree}"
-            f"/Q{par.pressure_degree} elements on 1 processes"
+            f"/Q{par.pressure_degree}{'+' if par.augmented_taylor_hood else ''} "
+            "elements on 1 processes"
         )
         ns.set_velocity_dirichlet_boundary(0, lambda x, t: exact_u(self.nu, dim)(x, t))
         ns.fix_pressure_constant(0, lambda x, t: exact_p(self.nu, dim)(x, t))
@@ -163,9 +185,13 @@ class BeltramiProblem:
         ns.solution[0] = torch.as_tensor(
             interpolate(ns.u_space, exact_u(self.nu, dim)), **kw
         )
-        ns.solution[1] = torch.as_tensor(
-            interpolate(ns.p_space, exact_p(self.nu, dim)), **kw
-        )
+        # the exact pressure in the Q part; the cell constants of augmented
+        # elements start at zero (the reference's interpolate_pressure_field
+        # on the FE_Q subspace)
+        p0 = torch.as_tensor(interpolate(ns.p_space, exact_p(self.nu, dim)), **kw)
+        p = torch.zeros_like(ns.solution[1])
+        p[: len(p0)] = p0
+        ns.solution[1] = p
 
     def step(self):
         """One time step; returns (Newton iterations, Krylov iterations)."""

@@ -279,10 +279,10 @@ class CoupledCells:
         self.dim = ev_u.dim
         self.lattice = lattice
         self.degree = ev_u.n_1d - 1
-        if (self.dim, self.degree) not in ((3, 2), (2, 2), (3, 3)):
+        if (self.dim, self.degree) not in TABLE_SETS:
             raise NotImplementedError(
                 f"coupled apply: no kernel for dim={self.dim}, "
-                f"degree={self.degree} (table sets: 3D Q2/Q1, 2D Q2/Q1, 3D Q3/Q2)"
+                f"degree={self.degree} (table sets: Q2/Q1 and Q3/Q2 in 2D and 3D)"
             )
         if ev_u.n_q_1d != ev_u.n_1d or ev_p.n_q_1d != ev_u.n_q_1d:
             raise ValueError("coupled apply expects (degree+1)-point Gauss rules")
@@ -1006,7 +1006,7 @@ PRODUCTION_ENTRIES = (
     ("coupled_apply_gather", MODE_GATHER, True),
     ("coupled_apply_gather_velocity", MODE_GATHER, False),
 )
-TABLE_SETS = ((3, 2), (2, 2), (3, 3))
+TABLE_SETS = ((3, 2), (2, 2), (3, 3), (2, 3))
 
 
 def cell_geometry(dtype, mode: int, pres: bool, dim: int, degree: int) -> dict:

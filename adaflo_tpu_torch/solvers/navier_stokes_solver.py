@@ -20,8 +20,9 @@ normal flux (the tangential components constrained), periodic axes (the
 lattice wraps, as in the JAX package) and a pressure-fix point; the
 time-dependent incompressible, Stokes and stationary types; the coupled
 implicit Newton and Picard, the coupled velocity semi-implicit and explicit
-and the projection linearizations; constant or per-q-point (two-phase)
-density and viscosity. Forests and mapped meshes raise NotImplementedError
+and the projection linearizations; Taylor-Hood and augmented Taylor-Hood
+(FE_Q_DG0 pressure) elements; constant or per-q-point (two-phase) density
+and viscosity. Forests and mapped meshes raise NotImplementedError
 with the ROADMAP.md queue that brings them.
 """
 
@@ -139,7 +140,7 @@ class NavierStokes(FlowBaseAlgorithm):
 
     def _allocate_vectors(self, initial_velocity_fn=None) -> None:
         n_u = self.u_space.n_dofs_padded
-        n_p = self.p_space.n_dofs_padded
+        n_p = self.operator.n_p_padded
         zu, zp = self._zeros(self.dim, n_u), self._zeros(n_p)
         self.solution = [zu, zp]
         self.solution_old = [zu, zp]
@@ -213,7 +214,9 @@ class NavierStokes(FlowBaseAlgorithm):
     # ------------------------------------------------------------------
     @property
     def n_dofs(self):
-        return (self.dim * self.u_space.n_dofs, self.p_space.n_dofs)
+        """(velocity dofs, pressure dofs with the cell constants of augmented
+        elements)."""
+        return (self.dim * self.u_space.n_dofs, self.operator.n_p_total)
 
     def print_n_dofs(self) -> None:
         nu, npp = self.n_dofs
@@ -272,7 +275,7 @@ class NavierStokes(FlowBaseAlgorithm):
             const_u[c, self.constraints_u[c].constrained_dofs] = 0.0
         self.const_rhs = [
             torch.as_tensor(const_u, dtype=self.dtype, device=self.device),
-            self._zeros(self.p_space.n_dofs_padded),
+            self._zeros(self.operator.n_p_padded),
         ]
 
     def compute_initial_stokes_field(self) -> None:

@@ -12,8 +12,8 @@ on the solver's device and reduced on the host.
 
 Only the lattice branch is ported: forest, mapped, extruded and simplex
 meshes raise NotImplementedError (ROADMAP.md queue 1, items 12 and 15),
-fluid-type (inflow) concentration boundaries item 9a and VTU output item
-17.
+fluid-type (inflow) concentration boundaries item 13 (with the phase field,
+whose Poiseuille driver sets them) and VTU output item 17.
 """
 
 from __future__ import annotations
@@ -126,12 +126,12 @@ class TwoPhaseBaseAlgorithm:
     def _build_ls_constraints(self) -> None:
         """Concentration, normal and curvature constraints
         (two_phase_base.cc:200-224): none on the lattice. Inflow
-        (fluid-type) concentration values come with the open boundaries
-        that carry them, which are not ported."""
+        (fluid-type) concentration values come with the phase field, whose
+        Poiseuille driver is the one that sets them."""
         if self.boundary.fluid_type:
             raise NotImplementedError(
                 "fluid-type (inflow) concentration boundaries are not ported "
-                "(ROADMAP.md queue 1, item 9a)"
+                "(ROADMAP.md queue 1, item 13)"
             )
         n = self.ls_space.n_dofs
         self.constraints_ls, self.constraints_normals, self.constraints_curvature = (

@@ -97,3 +97,23 @@ def max_value(space: ScalarSpace, vec: torch.Tensor, n_components: int = 1) -> f
     if n_components == 1:
         return float(vals.abs().max())
     return float(torch.sqrt((vals * vals).sum(dim=1)).max())
+
+
+def l2_error_augmented_pressure(
+    op, p: torch.Tensor, exact_fn, time: float = 0.0, n_q_1d: int | None = None
+) -> float:
+    """L2 pressure error for augmented Taylor-Hood (FE_Q_DG0): the Q part
+    plus the cell constant of operator `op` at the q points of an n_q_1d
+    Gauss rule (degree+3 by default)."""
+    space = op.p_space
+    mesh = space.mesh
+    if n_q_1d is None:
+        n_q_1d = space.degree + 3
+    ev, qp, jxw = _evaluator(space, n_q_1d, p)
+    vals = ev.values(_cells(space, p)).cpu().numpy()
+    pc = p[op.n_p_q : op.n_p_q + mesh.n_cells].cpu().numpy()
+    vals = vals + pc[:, None]
+    exact = np.asarray(exact_fn(qp.reshape(-1, space.dim), time)).reshape(
+        mesh.n_cells, ev.n_q
+    )
+    return float(np.sqrt((((vals - exact) ** 2) * jxw).sum()))

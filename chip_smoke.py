@@ -9,7 +9,8 @@ Phases:
      one-shot body (each entry at each table set, float64 and float32): its
      registers, stack and spills (ptxas), cells per block, shared memory per
      block and resident blocks per SM (cm.cell_geometry), and its SASS LDS
-     against DFMA/FFMA; none may spill; K13's three schedules of the cell
+     against DFMA/FFMA, at the four table sets (3D Q2/Q1, 2D Q2/Q1, 3D
+     Q3/Q2, 2D Q3/Q2); none may spill; K13's three schedules of the cell
      kernel beside the one-shot full apply: the body each runs (all three
      the one-shot body's stages), its cells per group, registers and spills
      (ptxas), shared memory per block and resident blocks per SM (the
@@ -55,6 +56,13 @@ Phases:
        mode (constant coefficients in float64 and float32, variable
        coefficients, identity rows + scale + norm, velocity-only, 2D Q2/Q1,
        3D Q3/Q2);
+     - K1/K2's 2D Q3/Q2 instance on the 256 x 512-cell box (2,363,906 +
+       525,825 = 2,889,731 dofs, the 2D counterpart of the 48^3 box), with
+       Dirichlet rows and a pinned pressure dof, in every mode (constant
+       with and without identity rows, variable, variable + identity rows +
+       scale + norm, velocity-only constant and variable in float64;
+       constant + identity rows, variable + identity rows + scale + norm and
+       velocity-only in float32), each also timed in a CUDA graph;
      - the cell-block entries (K3 coupled_apply_cells with the u* dof and
        q-field streams, K4 coupled_apply_gather; coupled and velocity-only)
        at the periodic channel's 16^3 lattice and the 48^3 box, 2D Q2/Q1
@@ -94,8 +102,10 @@ Phases:
        to t = 0.2 (4 steps), held to the reference anchors of
        tests/golden/beltrami_3d.output; it runs K1 and K2;
      - the periodic channel application on the uniform 16^3 lattice
-       (4,096 cells, Q2/Q1, float64), 3 coupled-Newton BDF-2 steps of
-       dt = 0.1, held to Newton convergence in every step, exact no-slip
+       (4,096 cells, Q2/Q1, float64), CHANNEL_STEPS = 2 of the prm's 3
+       coupled-Newton BDF-2 steps of dt = 0.1 (about 120 s a step; the
+       third was cut so that the golden paths' children fit), held to
+       Newton convergence in every step, exact no-slip
        walls and a finite, bounded velocity; it runs K3;
      - the 3D rising bubble at its flagship size (the rising bubble
        driver's flagship mesh: 32^3 cells, symmetry on the four side faces,
@@ -115,6 +125,11 @@ Phases:
        mode on its fields and symmetry masks, then its steps, held to
        tests/golden/rising_bubble_ls_short.output with the port's
        compare_with_golden; it runs K1 and K2 in variable mode;
+     - the Q3 bubble (tests/prms/rising_bubble_ls_q3_short.prm, 10 x 20
+       cells, velocity degree 3): setup, then the same check of K1 and K2
+       of the 2D Q3/Q2 instance in variable mode on its fields and symmetry
+       masks, with their device times in a CUDA graph; its steps run as a
+       golden path below;
      - the single-phase lattice drivers: after couette's setup, phase 2's
        check of K1 (identity rows) and K2 in constant mode on its spaces
        and open-boundary masks (the tangential component only on the open
@@ -124,11 +139,17 @@ Phases:
        flow_1d_damped), each run by its driver and held to its golden with
        the port's compare_with_golden, and tests/prms/poiseuille_ns.prm to
        t = 2 held to the reference anchor (||e_u|| = 0.1321 +- 2e-4,
-       ||e_p|| < 1e-8): each in a child process of its own with the counts
-       from 0 (`chip_smoke.py --golden <name>`, all started together, each
-       host-bound on a small lattice); couette, poiseuille_ns_small and the
-       anchor run K1 and K2, the others the operator's plain cell route
-       alone (its applies counted, no K1-K4 launch);
+       ||e_p|| < 1e-8); with them the nine lattice goldens of the rising
+       bubble's variants and of augmented Taylor-Hood (LATTICE_GOLDENS:
+       rising_bubble_ls_{q3,picard,imex,expl,augp}_short,
+       beltrami_2d_augp_small, beltrami_2d_augp_proj_small,
+       beltrami_3d_augp_small, spurious_currents_ls_3d_short): each in a
+       child process of its own with the counts from 0 (`chip_smoke.py
+       --golden <name>`, all started together, each host-bound on a small
+       lattice), which prints its seconds, steps, Newton and Krylov counts,
+       launches and peak device memory; couette, poiseuille_ns_small, the
+       anchor and the Q3 bubble run K1 and K2, the others the operator's
+       plain cell route alone (its applies counted, no K1-K4 launch);
      - the 3D open-boundary channel at full width (poiseuille_ns.prm with
        dimension = 3 and global refinements = 4: 64 x 16 x 16 cells,
        421,443 + 18,785 dofs, float64): setup, phase 2's check of K1/K2 on
@@ -200,6 +221,39 @@ GRAPH_TIMED = (
     "3D Q2/Q1 16^3 f64 const+ids",
     "coupled_apply_cells_velocity 3D Q2/Q1 16^3 periodic f64",
 )
+# K1/K2's 2D Q3/Q2 instance on the 256 x 512-cell box (2,363,906 + 525,825
+# = 2,889,731 dofs, the 2D counterpart of the 48^3 probe box), every mode,
+# each also timed in a CUDA graph
+Q3_2D = (256, 512)
+Q3_2D_CASES = (
+    ("2D Q3/Q2 256x512 f64 const+ids", "float64", "ids"),
+    ("2D Q3/Q2 256x512 f64 const", "float64", "const"),
+    ("2D Q3/Q2 256x512 f64 variable", "float64", "variable"),
+    ("2D Q3/Q2 256x512 f64 variable+ids+scale+norm", "float64", "all"),
+    ("2D Q3/Q2 256x512 f64 velocity", "float64", "velocity"),
+    ("2D Q3/Q2 256x512 f64 velocity variable", "float64", "velocity-variable"),
+    ("2D Q3/Q2 256x512 f32 const+ids", "float32", "ids"),
+    ("2D Q3/Q2 256x512 f32 variable+ids+scale+norm", "float32", "all"),
+    ("2D Q3/Q2 256x512 f32 velocity", "float32", "velocity"),
+)
+# phase 2's cases of the nodal entries K1/K2: (label, dim, degree, cells per
+# axis or lattice shape, dtype, mode)
+NODAL_CASES = (
+    ("3D Q2/Q1 16^3 f64 const+ids", 3, 2, 16, "float64", "ids"),
+    ("3D Q2/Q1 16^3 f64 velocity", 3, 2, 16, "float64", "velocity"),
+    ("3D Q2/Q1 48^3 f64 const+ids", 3, 2, 48, "float64", "ids"),
+    ("3D Q2/Q1 48^3 f64 velocity", 3, 2, 48, "float64", "velocity"),
+    ("3D Q2/Q1 48^3 f64 const", 3, 2, 48, "float64", "const"),
+    ("3D Q2/Q1 48^3 f32 const", 3, 2, 48, "float32", "const"),
+    ("3D Q2/Q1 48^3 f32 const+ids", 3, 2, 48, "float32", "ids"),
+    ("3D Q2/Q1 48^3 f64 variable", 3, 2, 48, "float64", "variable"),
+    ("3D Q2/Q1 48^3 f64 ids+scale+norm", 3, 2, 48, "float64", "norm"),
+    ("2D Q2/Q1 256^2 f64 variable+ids+scale+norm", 2, 2, 256, "float64", "all"),
+    ("2D Q2/Q1 256^2 f64 velocity", 2, 2, 256, "float64", "velocity"),
+    ("3D Q3/Q2 16^3 f64 variable+ids+scale+norm", 3, 3, 16, "float64", "all"),
+    ("3D Q3/Q2 16^3 f32 const+ids", 3, 3, 16, "float32", "ids"),
+    ("3D Q3/Q2 16^3 f64 velocity", 3, 3, 16, "float64", "velocity"),
+) + tuple((label, 2, 3, Q3_2D, dname, mode) for label, dname, mode in Q3_2D_CASES)
 BLOCK_ENTRIES = (
     "coupled_apply_cells",
     "coupled_apply_cells_velocity",
@@ -210,9 +264,11 @@ BLOCK_ENTRIES = (
 )
 # the periodic channel of the slice (adaflo_tpu/applications/periodic_channel.py
 # on the uniform lattice): the JAX package's graded-channel test parameters
-# with the coupled implicit Newton linearization, BDF-2, dt = 0.1 and 3 steps;
-# its tolerances (NL 1e-4, linear 1e-5) let Newton converge, and NL max
-# iterations is 10 instead of 3 so that "converged" is Newton's own verdict
+# with the coupled implicit Newton linearization, BDF-2, dt = 0.1 and 3 steps,
+# of which phase 3 runs CHANNEL_STEPS; its tolerances (NL 1e-4, linear 1e-5)
+# let Newton converge, and NL max iterations is 10 instead of 3 so that
+# "converged" is Newton's own verdict
+CHANNEL_STEPS = 2
 CHANNEL_PRM = """
 subsection Time stepping
   set scheme    = bdf_2
@@ -332,12 +388,13 @@ def bound_block(name: str, cells, dtype: str, n_u: int, n_p: int):
     return nbytes, flops, r["bound_ms"], r["bound_by"]
 
 
-def operator_case(dim: int, degree: int, n: int, dtype, device, periodic: bool, seed: int):
-    """The port's NavierStokesOperator on an n^dim lattice with random nodal
-    u, p, u* (numpy seed) and the linearization at u*: the periodic channel
-    pattern (x and z wrap, Dirichlet walls at y = +-1, anisotropic cells) or
-    the box [-1, 1]^dim with Dirichlet rows on every side and a pinned
-    pressure dof."""
+def operator_case(dim: int, degree: int, n, dtype, device, periodic: bool, seed: int):
+    """The port's NavierStokesOperator on an n^dim lattice (n an int) or an
+    n[0] x n[1] (x n[2]) one (n a tuple) with random nodal u, p, u* (numpy
+    seed) and the linearization at u*: the periodic channel pattern (x and z
+    wrap, Dirichlet walls at y = +-1, anisotropic cells) or the box
+    [-1, 1]^dim with Dirichlet rows on every side and a pinned pressure
+    dof."""
     import torch
 
     from adaflo_tpu_torch.fe.constraints import Constraints
@@ -350,7 +407,7 @@ def operator_case(dim: int, degree: int, n: int, dtype, device, periodic: bool, 
         lo, hi = (0.0, -1.0, 0.0)[:dim], (2 * np.pi, 1.0, 2 * np.pi / 3)[:dim]
     else:
         lo, hi = (-1.0,) * dim, (1.0,) * dim
-    mesh = StructuredMesh((n,) * dim, lo, hi)
+    mesh = StructuredMesh(tuple(n) if isinstance(n, tuple) else (n,) * dim, lo, hi)
     if periodic:
         for axis in (0, 2)[: dim - 1]:
             mesh.set_periodic(axis)
@@ -391,7 +448,9 @@ def rel_err(got, ref) -> float:
 
 def check_kernels(device):
     """Phase 2: every mode against the plain version; returns the timing
-    records of the main-path mode at 16^3 and 48^3."""
+    records of every case (the main-path mode at 16^3 and 48^3, and K1/K2's
+    2D Q3/Q2 instance on the 256 x 512 box, Q3_2D_CASES). Consecutive cases
+    on one lattice and dtype share its operator and inputs."""
     import torch
 
     from adaflo_tpu_torch.ops import coupled_matvec as cm
@@ -399,38 +458,27 @@ def check_kernels(device):
     sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.0, 1.0, 0.0, 0.0)
     sc_var = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
     records = {}
-    cases = [
-        # (label, dim, degree, cells per axis, dtype, mode)
-        ("3D Q2/Q1 16^3 f64 const+ids", 3, 2, 16, torch.float64, "ids"),
-        ("3D Q2/Q1 16^3 f64 velocity", 3, 2, 16, torch.float64, "velocity"),
-        ("3D Q2/Q1 48^3 f64 const+ids", 3, 2, 48, torch.float64, "ids"),
-        ("3D Q2/Q1 48^3 f64 velocity", 3, 2, 48, torch.float64, "velocity"),
-        ("3D Q2/Q1 48^3 f64 const", 3, 2, 48, torch.float64, "const"),
-        ("3D Q2/Q1 48^3 f32 const", 3, 2, 48, torch.float32, "const"),
-        ("3D Q2/Q1 48^3 f32 const+ids", 3, 2, 48, torch.float32, "ids"),
-        ("3D Q2/Q1 48^3 f64 variable", 3, 2, 48, torch.float64, "variable"),
-        ("3D Q2/Q1 48^3 f64 ids+scale+norm", 3, 2, 48, torch.float64, "norm"),
-        ("2D Q2/Q1 256^2 f64 variable+ids+scale+norm", 2, 2, 256, torch.float64, "all"),
-        ("2D Q2/Q1 256^2 f64 velocity", 2, 2, 256, torch.float64, "velocity"),
-        ("3D Q3/Q2 16^3 f64 variable+ids+scale+norm", 3, 3, 16, torch.float64, "all"),
-        ("3D Q3/Q2 16^3 f32 const+ids", 3, 3, 16, torch.float32, "ids"),
-        ("3D Q3/Q2 16^3 f64 velocity", 3, 3, 16, torch.float64, "velocity"),
-    ]
-    for label, dim, degree, n, dtype, mode in cases:
-        op, u, p, s, _, _ = operator_case(dim, degree, n, dtype, device, False, 1000 + n)
+    built = {}  # the last case's operator and inputs, reused by the next on its lattice
+    for label, dim, degree, n, dname, mode in NODAL_CASES:
+        dtype = getattr(torch, dname)
+        key = (dim, degree, n, dtype)
+        if key not in built:
+            built.clear()
+            seed = 1000 + (n if isinstance(n, int) else n[0])
+            built[key] = operator_case(dim, degree, n, dtype, device, False, seed)
+        op, u, p, s, _, _ = built[key]
         cells = op.cells
-        rng = np.random.default_rng(n)
+        rng = np.random.default_rng(n if isinstance(n, int) else n[0])
         coeffs = tuple(
             torch.as_tensor(
                 rng.uniform(0.5, 2.0, (cells.n_cells, cells.n_q)), dtype=dtype, device=device
             )
             for _ in range(3)
         )
-        dname = str(dtype).split(".")[-1]
-        variable = mode in ("variable", "all")
+        variable = mode in ("variable", "all", "velocity-variable")
         scal = sc_var if variable else sc
         kw = dict(coeffs=coeffs if variable else None)
-        if mode == "velocity":
+        if mode.startswith("velocity"):
             run = lambda: cm.coupled_apply_velocity(u, s, cells, scal, **kw)
             plain = lambda: cm.coupled_apply_plain(
                 u, None, s, cells, scal, velocity_only=True, **kw
@@ -450,11 +498,11 @@ def check_kernels(device):
         max_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
         t = cuda_ms(run)
         ms = t["ms"]
-        if label in GRAPH_TIMED:
+        if label in GRAPH_TIMED or label.startswith("2D Q3/Q2"):
             t["graph_ms"] = graph_ms(run)
         plain_ms = cuda_ms(plain, warmup=1, reps=5)["ms"]
         nbytes, flops, bms, by = bound(
-            cells, dname, u.shape[1], p.shape[0], mode == "velocity", variable
+            cells, dname, u.shape[1], p.shape[0], mode.startswith("velocity"), variable
         )
         print(
             f"kernel {label}: rel err {err:.3e} (max abs {max_abs:.3e}), "
@@ -1246,7 +1294,7 @@ def run_steps(problem, n_steps, cm):
 
 
 def run_channel():
-    """Phase 3, the periodic channel at 16^3 for 3 steps."""
+    """Phase 3, the periodic channel at 16^3 for CHANNEL_STEPS steps."""
     import torch
 
     from adaflo_tpu_torch.applications.periodic_channel import PeriodicChannelProblem
@@ -1261,7 +1309,7 @@ def run_channel():
     problem.setup()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    steps = run_steps(problem, 3, cm)
+    steps = run_steps(problem, CHANNEL_STEPS, cm)
     launches, plain = dict(cm.launches), dict(cm.plain_calls)
     ns = problem.navier_stokes
     u = ns.solution[0]
@@ -1272,7 +1320,8 @@ def run_channel():
         "cells": CHANNEL_ANCHORS["cells"] in lines,
         "dofs": CHANNEL_ANCHORS["dofs"] in lines,
         "periodic": list(ns.mesh.periodic) == [True, False, True],
-        "converged": out.getvalue().count(" converged.") == 3 and len(steps) == 3,
+        "converged": out.getvalue().count(" converged.") == CHANNEL_STEPS
+        and len(steps) == CHANNEL_STEPS,
         "walls_zero": len(walls) > 0 and float(u[:, walls].abs().max()) == 0.0,
         "finite": bool(torch.isfinite(u).all()) and bool(torch.isfinite(ns.solution[1]).all()),
         "bounded": float(u.abs().max()) < 3.0,
@@ -1358,15 +1407,16 @@ RB3_ANCHORS = {
 K12 = ("coupled_apply", "coupled_apply_velocity")
 
 
-def check_flagship_variable(problem, device, label="32^3"):
+def check_flagship_variable(problem, device, label="32^3", graph: bool = False):
     """Phase 2 on a rising bubble's fields, after its setup: K1 (identity
     rows) and K2 in their variable-coefficient mode against their plain
     versions on the problem's spaces and constraints (the symmetric side
     faces make the velocity masks differ by component), rho/mu from the
     level set's compute_force on the initial bubble, random u, p and u*
     (numpy seed); float64 (1e-12) and float32 (1e-5, a float32 operator on
-    the same spaces and constraints). Run on the 32^3 box of phase 3 and on
-    the 2D golden's 20 x 40 lattice."""
+    the same spaces and constraints). Run on the 32^3 box of phase 3, on
+    the 2D golden's 20 x 40 lattice and on the Q3 bubble's 10 x 20 (2D
+    Q3/Q2). graph: also the device time of each in a CUDA graph."""
     import torch
 
     from adaflo_tpu_torch.ops import coupled_matvec as cm
@@ -1433,21 +1483,23 @@ def check_flagship_variable(problem, device, label="32^3"):
             max_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
             t = cuda_ms(run)
             plain_ms = cuda_ms(plain, warmup=1, reps=5)["ms"]
+            g_ms = graph_ms(run) if graph else None
             nbytes, flops, bms, by = bound(
                 cells, dname, n_u, n_p, name.endswith("velocity"), True, n_coeffs=2
             )
             case = f"{name} {label} {dname} variable, symmetry masks"
             print(
                 f"kernel {case}: rel err {err:.3e} (max abs {max_abs:.3e}), "
-                f"{t['ms']:.4f} ms/apply (one waited call {t['call_ms']:.4f} ms), "
-                f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+                f"{t['ms']:.4f} ms/apply (one waited call {t['call_ms']:.4f} ms"
+                + (f", graph {g_ms:.4f} ms" if g_ms is not None else "")
+                + f"), plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
                 f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)", flush=True,
             )
             if not err <= TOL[dname]:
                 raise AssertionError(f"{case}: relative error {err:.3e} > {TOL[dname]}")
             records[f"{name} {dname}"] = dict(
                 max_abs_err=max_abs, rel_err=err, ms=t["ms"], call_ms=t["call_ms"],
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, graph_ms=g_ms,
             )
     return records
 
@@ -1574,6 +1626,35 @@ def run_rising_bubble_2d(device):
     return dict(seconds=seconds, launches=launches, variable=var_rec)
 
 
+RBQ3_PRM = ROOT / "tests" / "prms" / "rising_bubble_ls_q3_short.prm"
+
+
+def check_rising_bubble_q3(device):
+    """Phase 2 on the Q3 bubble's fields (rising_bubble_ls_q3_short.prm:
+    10 x 20 cells, velocity degree 3), after its setup: K1 (identity rows)
+    and K2 of the 2D Q3/Q2 instance in their variable mode against their
+    plain versions, with their device times in a CUDA graph. Its steps run
+    in a golden child of phase 3 (LATTICE_GOLDENS)."""
+    import torch
+
+    from adaflo_tpu_torch.drivers import rising_bubble as rb
+
+    t0 = time.perf_counter()
+    problem = rb.MicroFluidicProblem(
+        rb.TwoPhaseParameters.from_file(str(RBQ3_PRM)), out=io.StringIO()
+    )
+    problem.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cells = problem.solver.navier_stokes.operator.cells
+    if (cells.dim, cells.degree, cells.n_cells) != (2, 3, 200):
+        raise AssertionError(f"Q3 bubble: cells {cells.dim}D degree {cells.degree}, "
+                             f"{cells.n_cells} cells")
+    print(f"rising bubble Q3 10 x 20: setup {setup_s:.3f} s", flush=True)
+    return dict(setup_s=setup_s, variable=check_flagship_variable(
+        problem, device, label="2D Q3 10 x 20", graph=True))
+
+
 # the single-phase lattice drivers of the slice and their goldens: (golden,
 # driver module, prm); the coupled Newton ones run K1/K2, the others the
 # operator's plain cell route
@@ -1586,9 +1667,24 @@ SINGLE_PHASE = (
     ("flow_1d", "flow_1d", "flow_1d"),
     ("flow_1d_damped", "flow_1d", "flow_1d_damped"),
 )
-KERNEL_GOLDENS = ("couette", "poiseuille_ns_small")
+# the lattice goldens of the rising bubble's variants and of augmented
+# Taylor-Hood: (golden = prm, driver module); the Q3 bubble runs K1/K2's 2D
+# Q3/Q2 instance in variable mode, the others the plain cell route
+LATTICE_GOLDENS = (
+    ("spurious_currents_ls_3d_short", "spurious_currents"),
+    ("beltrami_3d_augp_small", "beltrami"),
+    ("rising_bubble_ls_q3_short", "rising_bubble"),
+    ("rising_bubble_ls_picard_short", "rising_bubble"),
+    ("rising_bubble_ls_imex_short", "rising_bubble"),
+    ("rising_bubble_ls_expl_short", "rising_bubble"),
+    ("rising_bubble_ls_augp_short", "rising_bubble"),
+    ("beltrami_2d_augp_small", "beltrami"),
+    ("beltrami_2d_augp_proj_small", "beltrami"),
+)
+KERNEL_GOLDENS = ("couette", "poiseuille_ns_small", "rising_bubble_ls_q3_short")
 DRIVER_CLASS = {"couette": "CouetteProblem", "poiseuille": "ChannelProblem",
-                "flow_1d": "ChannelFlow"}
+                "flow_1d": "ChannelFlow", "rising_bubble": "MicroFluidicProblem",
+                "spurious_currents": "MicroFluidicProblem", "beltrami": "BeltramiProblem"}
 # the reference anchor of poiseuille_ns (tests/test_golden_ns.py): ||e_u|| at
 # t = 2 within 2e-4 of 0.1321, ||e_p|| < 1e-8
 ANCHOR_EU, ANCHOR_EU_TOL, ANCHOR_EP = 0.1321, 2e-4, 1e-8
@@ -1730,27 +1826,43 @@ def check_routes_ran(label, kernel: bool, launches, plain, plain_route):
 
 
 def golden_child(name: str) -> int:
-    """One single-phase path in a process of its own (`chip_smoke.py
-    --golden <name>`): a golden of SINGLE_PHASE, run by its driver on the
-    card with the counts from 0 and held to its golden with the port's
-    compare_with_golden, or "anchor", poiseuille_ns.prm to t = 2. Prints
-    one JSON line: seconds, steps, K1-K4 launches, plain-version calls,
-    plain-route applies (and the anchor's errors)."""
+    """One golden path in a process of its own (`chip_smoke.py --golden
+    <name>`): a golden of SINGLE_PHASE or LATTICE_GOLDENS, run by its driver
+    on the card with the counts from 0 and held to its golden with the
+    port's compare_with_golden, or "anchor", poiseuille_ns.prm to t = 2.
+    Prints a line of its seconds, steps, Newton and Krylov counts, launches
+    and peak device memory, then one JSON line of the same (with the
+    plain-version calls, the plain-route applies and the anchor's
+    errors)."""
     import torch
 
     sys.path.insert(0, str(ROOT))
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from adaflo_tpu_torch.drivers.rising_bubble import TwoPhaseParameters
     from adaflo_tpu_torch.ops import coupled_matvec as cm
     from adaflo_tpu_torch.parameters import FlowParameters
+    from adaflo_tpu_torch.solvers.navier_stokes_solver import NavierStokes
     from adaflo_tpu_torch.testing import compare_with_golden
 
     cm.load_library()  # phase 1 built it
     prms = ROOT / "tests" / "prms"
     out = io.StringIO()
     record = {"golden": name}
+    # (Newton, Krylov) of every nonlinear solve: the steps' (and an initial
+    # Stokes solve's)
+    counts = []
+    solve = NavierStokes.solve_nonlinear_system
+
+    def counted(self, initial_residual):
+        c = solve(self, initial_residual)
+        counts.append((int(c[0]), int(c[1])))
+        return c
+
+    NavierStokes.solve_nonlinear_system = counted
     reset_single_phase_counts(cm)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     if name == "anchor":
         par = FlowParameters.from_file(str(prms / "poiseuille_ns.prm"))
@@ -1759,8 +1871,11 @@ def golden_child(name: str) -> int:
         problem.run()
         record["e_p"], record["e_u"] = problem.errors()
     else:
-        driver, prm = {g: (d, p) for g, d, p in SINGLE_PHASE}[name]
-        problem = driver_problem(driver, FlowParameters.from_file(str(prms / f"{prm}.prm")), out)
+        table = {g: (d, p) for g, d, p in SINGLE_PHASE} | {g: (d, g) for g, d in LATTICE_GOLDENS}
+        driver, prm = table[name]
+        Params = TwoPhaseParameters if driver in ("rising_bubble", "spurious_currents") else (
+            FlowParameters)
+        problem = driver_problem(driver, Params.from_file(str(prms / f"{prm}.prm")), out)
         problem.run()
     torch.cuda.synchronize()
     record["seconds"] = time.perf_counter() - t0
@@ -1768,18 +1883,26 @@ def golden_child(name: str) -> int:
         compare_with_golden(out.getvalue(), ROOT / "tests" / "golden" / f"{name}.output")
         record["golden_passed"] = True
     record["steps"] = out.getvalue().count("Time step #")
+    record["newton"] = [c[0] for c in counts]
+    record["krylov"] = [c[1] for c in counts]
+    record["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     record["launches"], record["plain"], record["plain_route"] = route_counts(cm)
+    print(f"golden {name}: {record['seconds']:.3f} s, {record['steps']} steps, Newton "
+          f"{record['newton']}, Krylov {record['krylov']}, launches {record['launches']}, "
+          f"peak device memory {record['peak_gb']:.3f} GB", flush=True)
     print(json.dumps(record), flush=True)
     return 0
 
 
-def run_single_phase(device):
-    """Phase 3, the single-phase lattice drivers: phase 2's open-boundary
-    check on couette's spaces and constraints; then the seven goldens and
-    the poiseuille_ns anchor at t = 2, each in a child process of its own
-    (golden_child, all started together: each is host-bound on a small
-    lattice), waited for and held to its routes: K1/K2 for the coupled
-    Newton paths, the plain cell route alone for the others."""
+def run_goldens(device):
+    """Phase 3, the golden paths: phase 2's open-boundary check on couette's
+    spaces and constraints; then the seven single-phase goldens, the
+    poiseuille_ns anchor at t = 2 and the nine lattice goldens of the
+    rising bubble's variants and of augmented Taylor-Hood, each in a child
+    process of its own (golden_child, all started together: each is
+    host-bound on a small lattice), waited for and held to its routes:
+    K1/K2 for the coupled Newton paths of Taylor-Hood elements, the plain
+    cell route alone for the others."""
     from adaflo_tpu_torch.parameters import FlowParameters
 
     couette = driver_problem(
@@ -1789,7 +1912,7 @@ def run_single_phase(device):
     couette.setup()
     masks_rec = check_open_masks(couette.navier_stokes, device, "couette 64 x 16")
     del couette
-    names = [g for g, _, _ in SINGLE_PHASE] + ["anchor"]
+    names = [g for g, _ in LATTICE_GOLDENS] + [g for g, _, _ in SINGLE_PHASE] + ["anchor"]
     t0 = time.perf_counter()
     procs = {
         name: subprocess.Popen(
@@ -1805,7 +1928,9 @@ def run_single_phase(device):
             if proc.returncode != 0:
                 failed[name] = stderr.strip().splitlines()[-3:]
                 continue
-            records[name] = json.loads(stdout.strip().splitlines()[-1])
+            lines = stdout.strip().splitlines()
+            records[name] = json.loads(lines[-1])
+            print(lines[-2], flush=True)
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -1813,7 +1938,7 @@ def run_single_phase(device):
                 proc.wait()
     wall = time.perf_counter() - t0
     if failed:
-        raise AssertionError(f"single-phase paths failed: {failed}")
+        raise AssertionError(f"golden paths failed: {failed}")
     for name in names:
         r = records[name]
         checks = check_routes_ran(
@@ -1829,10 +1954,10 @@ def run_single_phase(device):
                 raise AssertionError(f"poiseuille_ns anchor: {checks}")
         else:
             extra = " golden passed,"
-        print(f"single phase {name}: {r['seconds']:.3f} s, {r['steps']} steps,{extra} "
+        print(f"golden path {name}: {r['seconds']:.3f} s, {r['steps']} steps,{extra} "
               f"launches {r['launches']}, plain-route applies {r['plain_route']}, "
               f"checks {checks}", flush=True)
-    print(f"single phase: {len(names)} paths in parallel processes, {wall:.3f} s", flush=True)
+    print(f"goldens: {len(names)} paths in parallel processes, {wall:.3f} s", flush=True)
     return dict(goldens=records, masks=masks_rec, wall_s=wall)
 
 
@@ -2032,7 +2157,8 @@ def main() -> int:
     channel_rec = run_channel()
     rb3_rec = run_rising_bubble_3d(device)
     rb2_rec = run_rising_bubble_2d(device)
-    sp_rec = run_single_phase(device)
+    q3_rec = check_rising_bubble_q3(device)
+    sp_rec = run_goldens(device)
     ch3_rec = run_channel_3d(device)
     marks.append(("3", time.perf_counter()))
 
@@ -2075,6 +2201,21 @@ def main() -> int:
             **{k.split()[1]: v for k, v in rb2_rec["variable"].items()
                if k.split()[0] == e["name"]},
         )
+    for e in kernels:  # the 2D Q3/Q2 instance: its box, the Q3 bubble, the golden paths
+        name = e["name"]
+        mine = [lbl for lbl, _, mode in Q3_2D_CASES
+                if mode.startswith("velocity") == name.endswith("velocity")]
+        e["instances"] = ["3D Q2/Q1", "2D Q2/Q1", "3D Q3/Q2", "2D Q3/Q2"]
+        e["q3_2d"] = {lbl.split(" ", 3)[-1]: {k: rec[lbl][k] for k in (
+            "max_abs_err", "rel_err", "ms", "call_ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by")} for lbl in mine}
+        e["q3_2d"]["shape"] = "2D Q3/Q2 256 x 512 box, 2,889,731 dofs"
+        e["rising_bubble_q3"] = dict(
+            launches=sp_rec["goldens"]["rising_bubble_ls_q3_short"]["launches"].get(name, 0),
+            **{k.split()[1]: v for k, v in q3_rec["variable"].items() if k.split()[0] == name},
+        )
+        e["lattice_goldens"] = {g: sp_rec["goldens"][g]["launches"].get(name, 0)
+                                for g, _ in LATTICE_GOLDENS}
     for e in kernels:  # the open-boundary masks of the single-phase paths
         name = e["name"]
         pick = lambda rec: {k.split()[1]: v for k, v in rec.items() if k.split()[0] == name}
@@ -2180,6 +2321,11 @@ def main() -> int:
         + json.dumps({k: round(v["seconds"], 3) for k, v in sp_rec["goldens"].items()})
         + f", {sp_rec['wall_s']:.3f} s in parallel processes"
     )
+    for g, _ in LATTICE_GOLDENS:
+        r = sp_rec["goldens"][g]
+        n = max(r["steps"], 1)
+        print(f"{g} summary: {r['seconds'] / n:.3f} s/step over {r['steps']} steps, Newton "
+              f"{r['newton']}, Krylov {r['krylov']}, peak device memory {r['peak_gb']:.3f} GB")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -89,13 +89,14 @@ def _case(dim, degree, dtype, constrained, periodic=False, shape=None):
     return cells, u, p, s, coeffs
 
 
-SETS = [(3, 2), (2, 2), (3, 3)]
+SETS = [(3, 2), (2, 2), (3, 3), (2, 3)]
+SET_IDS = ["3d-q2", "2d-q2", "3d-q3", "2d-q3"]
 MODES = ["const", "variable", "ids-scale-norm", "velocity"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("dim,degree", SETS, ids=["3d-q2", "2d-q2", "3d-q3"])
+@pytest.mark.parametrize("dim,degree", SETS, ids=SET_IDS)
 def test_emulated_kernel_matches_plain_version(emulated, dim, degree, mode, dtype):
     cells, u, p, s, coeffs = _case(dim, degree, dtype, mode != "const")
     sc = cm.ApplyScalars(0.5, 30.0, 1.0, 1.3, 0.05, -0.2, 0.7)
@@ -128,7 +129,7 @@ ENTRIES = [
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("lattice", ["box", "periodic"])
 @pytest.mark.parametrize("entry", ENTRIES)
-@pytest.mark.parametrize("dim,degree", SETS, ids=["3d-q2", "2d-q2", "3d-q3"])
+@pytest.mark.parametrize("dim,degree", SETS, ids=SET_IDS)
 def test_emulated_block_entries_match_plain_versions(
     emulated, dim, degree, entry, lattice, dtype
 ):
@@ -170,11 +171,13 @@ BLOCK_DIGESTS = {
     (2, 2, torch.float32): "7cfa2388f90fc479acf82fea864fd037",
     (3, 3, torch.float64): "2119250a3633d659717ada3ef0a7043c",
     (3, 3, torch.float32): "73d0d5afa641a200d77a09fca4bf7177",
+    (2, 3, torch.float64): "d658f156ff3e7688aa60da1444c07ce8",
+    (2, 3, torch.float32): "9221ee1f21f717ea989e962a657abc13",
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("dim,degree", SETS, ids=["3d-q2", "2d-q2", "3d-q3"])
+@pytest.mark.parametrize("dim,degree", SETS, ids=SET_IDS)
 def test_emulated_block_entries_keep_their_bits(emulated, dim, degree, dtype):
     """K3 (both streams) and K4, coupled and velocity-only, write the
     (E, n_cols) blocks they wrote before, bit for bit (BLOCK_DIGESTS): each
@@ -395,8 +398,9 @@ def test_emulated_geometry_of_production_instances(emulated):
     5,592 B, 20 float32; velocity only 24 slots, 667 values, 10 cells; the
     q-field stream 13 slots, 379 values, 18 cells; 2D Q2/Q1 (4 items of 3
     slots) 13 x 9 = 117, padded to 137 (= 9 mod 32), 52 cells; 3D Q3/Q2 25 x
-    64 = 1,600 (= 0 mod 32), 4 float64 cells and 8 float32. The emulated card
-    holds one block per SM."""
+    64 = 1,600 (= 0 mod 32), 4 float64 cells and 8 float32; 2D Q3/Q2 13 x 16
+    = 208 (= 16 mod 32), 34 float64 cells of 1,664 B and 68 float32. The
+    emulated card holds one block per SM."""
     by_hand = {
         (torch.float64, cm.MODE_NODAL, True, 3, 2): (10, 10 * 699 * 8),
         (torch.float32, cm.MODE_NODAL, True, 3, 2): (20, 20 * 699 * 4),
@@ -405,6 +409,8 @@ def test_emulated_geometry_of_production_instances(emulated):
         (torch.float64, cm.MODE_GATHER, True, 2, 2): (52, 52 * 137 * 8),
         (torch.float64, cm.MODE_CELLS, True, 3, 3): (4, 4 * 1600 * 8),
         (torch.float32, cm.MODE_CELLS, True, 3, 3): (8, 8 * 1600 * 4),
+        (torch.float64, cm.MODE_NODAL, True, 2, 3): (34, 34 * 208 * 8),
+        (torch.float32, cm.MODE_NODAL, True, 2, 3): (68, 68 * 208 * 4),
     }
     for (dtype, mode, pres, dim, degree), (cpb, smem) in by_hand.items():
         assert cm.cell_geometry(dtype, mode, pres, dim, degree) == {
@@ -426,7 +432,7 @@ TAIL_ENTRIES = [e for e, _, _ in cm.PRODUCTION_ENTRIES]
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("entry", TAIL_ENTRIES)
-@pytest.mark.parametrize("dim,degree", SETS, ids=["3d-q2", "2d-q2", "3d-q3"])
+@pytest.mark.parametrize("dim,degree", SETS, ids=SET_IDS)
 def test_emulated_tail_group_matches_plain_version(emulated, dim, degree, entry, dtype):
     """Every production entry on a lattice of 2 CPB + 2 cells ((CPB + 1) x 2
     [x 1], CPB the instance's cells per block), with Dirichlet rows: two

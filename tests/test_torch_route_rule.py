@@ -4,14 +4,23 @@ vmult and velocity_vmult run an entry of the coupled cell apply (the CUDA
 kernel K1-K4, or its plain version for CPU tensors) where the JAX operator
 builds its Pallas tables for a reason of the model: the coupled implicit
 Newton linearization of the time-dependent incompressible equations in 2D
-and 3D. Every other configuration runs the plain cell route ("einsum"),
-chosen by the configuration alone and counted in PLAIN_ROUTE_APPLIES; it
-is never what runs when the card is missing, which the operator refuses."""
+and 3D, at velocity degree 2 or 3, without augmented Taylor-Hood elements.
+Every other configuration runs the plain cell route ("einsum"), chosen by
+the configuration alone and counted in PLAIN_ROUTE_APPLIES; it is never
+what runs when the card is missing, which the operator refuses. The JAX
+operator's rule is read with ADAFLO_PALLAS_MATVEC=1, which builds its
+tables wherever its eligibility holds (none is built in these tests)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from adaflo_tpu.fe.constraints import Constraints as JConstraints
+from adaflo_tpu.fe.space import ScalarSpace as JSpace
+from adaflo_tpu.mesh.structured import StructuredMesh as JMesh
+from adaflo_tpu.ops import navier_stokes as jns
+from adaflo_tpu.parameters import FlowParameters as JParams
 from adaflo_tpu_torch.fe.constraints import Constraints
 from adaflo_tpu_torch.fe.space import ScalarSpace
 from adaflo_tpu_torch.mesh.structured import StructuredMesh
@@ -26,6 +35,7 @@ subsection Navier-Stokes
   set physical type = {ptype}
   set dimension = {dim}
   set velocity degree = {degree}
+  set augmented Taylor-Hood elements = {augmented}
   subsection Solver
     set linearization scheme = {lin}
   end
@@ -44,23 +54,42 @@ KERNEL_ROUTES = {"nodal", "gather", "cells", "qfields"}
 TW = tops.TimeWeights(15.0, -20.0, 5.0, 1.0)
 
 
-def operator(dim, degree, lin, ptype, periodic=False, device="cpu", layout=None):
-    par = FlowParameters.from_string(PRM.format(dim=dim, degree=degree, lin=lin, ptype=ptype))
-    mesh = StructuredMesh((3, 2, 2)[:dim], (0.0,) * dim, (1.0, 0.7, 0.9)[:dim])
+def operator(dim, degree, lin, ptype, periodic=False, device="cpu", layout=None,
+             augmented=False, package="port"):
+    """The port's operator (or with package="jax" the JAX package's) on a
+    (3, 2[, 2])-cell lattice, Dirichlet rows on boundary 0 for velocity
+    component 0."""
+    Params, Mesh, Space, Cons = (
+        (FlowParameters, StructuredMesh, ScalarSpace, Constraints) if package == "port"
+        else (JParams, JMesh, JSpace, JConstraints)
+    )
+    par = Params.from_string(PRM.format(
+        dim=dim, degree=degree, lin=lin, ptype=ptype, augmented=int(augmented)))
+    mesh = Mesh((3, 2, 2)[:dim], (0.0,) * dim, (1.0, 0.7, 0.9)[:dim])
     if periodic:
         mesh.set_periodic(0)
-    us, ps = ScalarSpace(mesh, degree), ScalarSpace(mesh, degree - 1)
-    cu = [Constraints(us.n_dofs) for _ in range(dim)]
+    us, ps = Space(mesh, degree), Space(mesh, degree - 1)
+    cu = [Cons(us.n_dofs) for _ in range(dim)]
     cu[0].add_dirichlet(us.boundary_dofs(0))
-    cp = Constraints(ps.n_dofs)
+    cp = Cons(ps.n_dofs)
     for c in cu + [cp]:
         c.close()
+    if package == "jax":
+        return jns.NavierStokesOperator(par, us, ps, cu, cp)
     return tops.NavierStokesOperator(par, us, ps, cu, cp, device=device, layout=layout)
+
+
+def jax_has_tables(*args, **kw):
+    """Whether the JAX operator of this configuration builds its Pallas
+    tables where it may (ADAFLO_PALLAS_MATVEC=1)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ADAFLO_PALLAS_MATVEC", "1")
+        return operator(*args, **kw, package="jax")._pallas_tables is not None
 
 
 def state(op, seed):
     rng = np.random.default_rng(seed)
-    n_u, n_p = op.u_space.n_dofs, op.p_space.n_dofs
+    n_u, n_p = op.u_space.n_dofs, op.n_p_padded
     u, uo, uoo, du = (torch.tensor(rng.standard_normal((op.dim, n_u))) for _ in range(4))
     p, dp = (torch.tensor(rng.standard_normal(n_p)) for _ in range(2))
     _, _, lin = op.residual_assemble(u, p, uo, uoo, TW, tops.Coefficients(), (2.0, -1.0))
@@ -71,7 +100,8 @@ def state(op, seed):
     "dim, degree, periodic, layout, route",
     [
         (3, 2, False, None, "nodal"), (2, 2, False, None, "nodal"),
-        (3, 3, False, None, "nodal"), (3, 2, True, None, "cells"),
+        (3, 3, False, None, "nodal"), (2, 3, False, None, "nodal"),
+        (3, 2, True, None, "cells"),
         (2, 2, True, None, "cells"), (3, 2, False, "pi", "gather"),
         (3, 2, False, "t", "cells"), (2, 2, False, "n", "cells"),
     ],
@@ -133,8 +163,69 @@ def test_route_follows_the_configuration_at_each_apply():
 
 
 def test_two_dimensional_q3_newton_has_no_kernel_and_raises():
-    with pytest.raises(NotImplementedError, match="no kernel for dim=2, degree=3"):
-        operator(2, 3, *NEWTON)
+    """Kept under its name: 2D Q3/Q2 coupled Newton used to raise for want
+    of a kernel instance; it now has K1/K2's 2D Q3/Q2 instance, routes
+    "nodal" and on the CPU runs the plain version."""
+    op = operator(2, 3, *NEWTON)
+    assert op.kernel_configuration() and (op.cells.dim, op.cells.degree) == (2, 3)
+    lin, du, dp = state(op, 23)
+    assert op.route(lin) == "nodal"
+    before = dict(tops.PLAIN_ROUTE_APPLIES)
+    plain = cm.plain_calls["coupled_apply_plain"]
+    op.vmult(du, dp, TW, lin)
+    op.velocity_vmult(du, TW, lin)
+    assert cm.plain_calls["coupled_apply_plain"] == plain + 2
+    assert tops.PLAIN_ROUTE_APPLIES == before
+
+
+@pytest.mark.parametrize("dim", [2, 3], ids=["2d", "3d"])
+def test_degree_four_newton_routes_einsum_as_jax_does(dim):
+    """Velocity degree 4 has no Pallas table set in the JAX package: its
+    coupled Newton operator builds and runs the einsum branch, and so does
+    the port's, with the same vmult and velocity_vmult (1e-12 relative)."""
+    assert not jax_has_tables(dim, 4, *NEWTON)
+    op = operator(dim, 4, *NEWTON)
+    assert not op.kernel_configuration() and op.cells is None
+    lin, du, dp = state(op, 40 + dim)
+    assert op.route(lin) == "einsum"
+    before = dict(tops.PLAIN_ROUTE_APPLIES)
+    ru, rp = op.vmult(du, dp, TW, lin)
+    rv = op.velocity_vmult(du, TW, lin)
+    assert tops.PLAIN_ROUTE_APPLIES["vmult"] == before["vmult"] + 1
+    assert tops.PLAIN_ROUTE_APPLIES["velocity_vmult"] == before["velocity_vmult"] + 1
+    jop = operator(dim, 4, *NEWTON, package="jax")
+    rng = np.random.default_rng(40 + dim)
+    n_u, n_p = op.u_space.n_dofs, op.n_p_padded
+    u, uo, uoo, du_np = (rng.standard_normal((dim, n_u)) for _ in range(4))
+    p, dp_np = (rng.standard_normal(n_p) for _ in range(2))
+    jtw = jns.TimeWeights(*(jnp.float64(w) for w in TW))
+    _, _, jlin = jop.residual_assemble(*(jnp.asarray(a) for a in (u, p, uo, uoo)), jtw)
+    jru, jrp = jop.vmult(jnp.asarray(du_np), jnp.asarray(dp_np), jtw, jlin)
+    jrv = jop.velocity_vmult(jnp.asarray(du_np), jtw, jlin)
+    for got, ref in ((ru, jru), (rp, jrp), (rv, jrv)):
+        ref = np.asarray(ref)
+        assert np.abs(got.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("dim", [2, 3], ids=["2d", "3d"])
+def test_augmented_newton_routes_einsum_as_jax_does(dim):
+    """Augmented Taylor-Hood elements have no Pallas table set in the JAX
+    package: coupled Newton on them runs the plain cell route, over the
+    pressure vector [Q dofs | cell constants]."""
+    assert not jax_has_tables(dim, 2, *NEWTON, augmented=True)
+    op = operator(dim, 2, *NEWTON, augmented=True)
+    assert not op.kernel_configuration() and op.cells is None
+    assert op.n_p_padded == op.p_space.n_dofs + op.u_space.mesh.n_cells
+    lin, du, dp = state(op, 50 + dim)
+    assert op.route(lin) == "einsum"
+    before = dict(tops.PLAIN_ROUTE_APPLIES)
+    plain = dict(cm.plain_calls)
+    ru, rp = op.vmult(du, dp, TW, lin)
+    rv = op.velocity_vmult(du, TW, lin)
+    assert tops.PLAIN_ROUTE_APPLIES["vmult"] == before["vmult"] + 1
+    assert tops.PLAIN_ROUTE_APPLIES["velocity_vmult"] == before["velocity_vmult"] + 1
+    assert cm.plain_calls == plain
+    assert rp.shape == dp.shape and torch.isfinite(rp).all() and torch.isfinite(rv).all()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine without CUDA")

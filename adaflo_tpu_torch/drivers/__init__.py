@@ -1,1 +1,1 @@
-"""PyTorch counterparts of adaflo_tpu.drivers (lattice branches)."""
+"""PyTorch counterparts of the JAX package's drivers (adaflo_tpu/drivers/)."""

@@ -1,22 +1,25 @@
 """2D Taylor / 3D Beltrami analytic Navier-Stokes benchmark driver.
 
-PyTorch counterpart of ``adaflo_tpu/drivers/beltrami.py``, lattice branch
-(the reference driver tests/beltrami.cc): the decaying Taylor vortex (Kim &
-Moin) in 2D and the Beltrami flow (Ethier & Steinman) in 3D on [-1,1]^dim,
-all-Dirichlet time-dependent velocity BCs from the exact solution, pressure
-fixed against the exact pressure at the boundary; absolute and relative L2
-errors plus cellwise divergence at the output cadence. The uniform mesh
-matches the recorded 3D reference output (beltrami_3d.output: 4096 cells,
-107811 + 4913 dofs). Augmented Taylor-Hood elements (FE_Q_DG0 pressure)
-run on the uniform lattice in 2D and 3D, their pressure error with the
-cell constants.
+PyTorch counterpart of ``adaflo_tpu/drivers/beltrami.py`` (the reference
+driver tests/beltrami.cc): the decaying Taylor vortex (Kim & Moin) in 2D and
+the Beltrami flow (Ethier & Steinman) in 3D on [-1,1]^dim, all-Dirichlet
+time-dependent velocity BCs from the exact solution, pressure fixed against
+the exact pressure at the boundary; absolute and relative L2 errors plus
+cellwise divergence at the output cadence.
 
-The 2D Taylor vortex with plain Taylor-Hood elements runs on a locally
-refined forest, which is not ported (ROADMAP.md queue 1, item 12).
+2D runs the reference's locally refined mesh (beltrami.cc:392-412): 4 x 4
+roots, global refinements - 2 global steps, the active cells 2 and 3
+refined, one more global step, an adaptive forest with hanging nodes
+(1048 cells, 34158 + 9663 dofs at global refinements = 4, velocity degree
+4, beltrami_2d.output). 3D keeps the uniform mesh of the recorded
+reference output (beltrami_3d.output: 4096 cells, 107811 + 4913 dofs).
+Augmented Taylor-Hood elements (FE_Q_DG0 pressure) run on the uniform
+lattice in 2D and 3D, their pressure error with the cell constants.
 
 Run: python -m adaflo_tpu_torch.drivers.beltrami tests/prms/beltrami_3d.prm
-[--device cpu] (or beltrami_3d_augp_small.prm, beltrami_2d_augp_small.prm,
-beltrami_2d_augp_proj_small.prm)
+[--device cpu] (or beltrami_2d_small.prm, beltrami_2d_proj_small.prm on the
+forest; beltrami_3d_augp_small.prm, beltrami_2d_augp_small.prm,
+beltrami_2d_augp_proj_small.prm on the lattice)
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import sys
 import numpy as np
 import torch
 
+from adaflo_tpu_torch.mesh.forest import ForestMesh
 from adaflo_tpu_torch.mesh.structured import StructuredMesh
 from adaflo_tpu_torch.parameters import FlowParameters
 from adaflo_tpu_torch.solvers.navier_stokes_solver import NavierStokes
@@ -114,17 +118,27 @@ class BeltramiProblem:
         self.out = out
         dim = parameters.dimension
         if dim == 2 and not parameters.augmented_taylor_hood:
-            raise NotImplementedError(
-                "the 2D Taylor vortex runs on an adaptive forest, which is not "
-                "ported (ROADMAP.md queue 1, item 12)"
+            # the reference's serial mesh: the forest's Morton order matches
+            # deal.II's active cell order for the first sibling group, so
+            # cells 2 and 3 are the reference's
+            self.mesh = ForestMesh((4,) * dim, (-1.0,) * dim, (2.0,) * dim)
+            g = parameters.global_refinements
+            if g >= 2:
+                self.mesh.refine_global(g - 2)
+            flags = np.zeros(self.mesh.n_cells, dtype=np.int8)
+            flags[2:4] = 1
+            self.mesh.adapt(flags)
+            self.mesh.refine_global(1)
+            parameters.global_refinements = 0
+        else:
+            # the recorded 3D reference output (3 MPI ranks) shows the two
+            # local refine flags had no effect (4096 uniform cells), so the
+            # uniform lattice applies; augmented Taylor-Hood stays on it in
+            # 2D as well
+            self.mesh = StructuredMesh.subdivided_hyper_rectangle(
+                (4,) * dim, (-1.0,) * dim, (1.0,) * dim
             )
-        # the recorded 3D reference output (3 MPI ranks) shows the two local
-        # refine flags had no effect (4096 uniform cells), so the uniform
-        # lattice applies; augmented Taylor-Hood stays on it in 2D as well
-        self.mesh = StructuredMesh.subdivided_hyper_rectangle(
-            (4,) * dim, (-1.0,) * dim, (1.0,) * dim
-        )
-        parameters.global_refinements = max(parameters.global_refinements - 1, 0)
+            parameters.global_refinements = max(parameters.global_refinements - 1, 0)
         self.navier_stokes = NavierStokes(parameters, self.mesh, out=out, device=device)
         self.nu = parameters.viscosity
 

@@ -14,7 +14,7 @@ set to 0, 859,812 Navier-Stokes and 35,937 level-set dofs).
 
 The other two-phase methods and the adaptive forest are not ported:
 'level set okz matrix' (ROADMAP.md queue 1, item 14), 'phase field' (item
-13), the sharp-interface methods (item 16), adaptive refinements (item 12).
+13), the sharp-interface methods (item 16), adaptive refinements (item 12b).
 
 Run: python -m adaflo_tpu_torch.drivers.rising_bubble
 tests/prms/rising_bubble_ls_short.prm [--device cpu]
@@ -132,7 +132,8 @@ class MicroFluidicProblem:
         dim = parameters.dimension
         if parameters.adaptive_refinements > 0:
             raise NotImplementedError(
-                "the adaptive forest is not ported (ROADMAP.md queue 1, item 12)"
+                "the two-phase flow on the adaptive forest is not ported "
+                "(ROADMAP.md queue 1, item 12b)"
             )
         if mesh is None:
             mesh = StructuredMesh.subdivided_hyper_rectangle(

@@ -6,7 +6,8 @@ branch (the reference driver tests/spurious_currents.cc): a bubble of radius
 [-2.5, 2.5]^dim (the `global refinements` parameter is the number of
 subdivisions per direction, not a refinement count); after each step, the
 maximum spurious velocity and the relative error of the Laplace pressure
-jump. The adaptive forest is not ported (ROADMAP.md queue 1, item 12).
+jump. The two-phase flow on the adaptive forest is not ported (ROADMAP.md
+queue 1, item 12b).
 
 Run: python -m adaflo_tpu_torch.drivers.spurious_currents
 tests/prms/spurious_currents_ls_short.prm [--device cpu]
@@ -42,7 +43,8 @@ class MicroFluidicProblem:
         dim = parameters.dimension
         if parameters.adaptive_refinements > 0:
             raise NotImplementedError(
-                "the adaptive forest is not ported (ROADMAP.md queue 1, item 12)"
+                "the two-phase flow on the adaptive forest is not ported "
+                "(ROADMAP.md queue 1, item 12b)"
             )
         n = parameters.global_refinements
         self.mesh = StructuredMesh((n,) * dim, (-2.5,) * dim, (5.0,) * dim)

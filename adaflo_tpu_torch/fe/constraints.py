@@ -17,13 +17,16 @@ Semantics mirror deal.II matrix-free exactly:
   Dirichlet rows zeroed, slaves = weighted masters).
 
 Every device-side method returns a new tensor and leaves its arguments
-untouched, like the functional updates of the JAX package.
+untouched, like the functional updates of the JAX package; it acts on the
+last axis, so a batch of vectors (..., n_dofs) takes one call.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from adaflo_tpu_torch.ops.lattice import segment_sum, segment_table
 
 
 class Constraints:
@@ -94,11 +97,17 @@ class Constraints:
         is_constrained[self.vslave] = True
         self.constrained_dofs = np.flatnonzero(is_constrained)
         self.is_constrained = is_constrained
-        self.slave_unique, self._seg = np.unique(self.slave, return_inverse=True)
+        self.slave_unique, seg = np.unique(self.slave, return_inverse=True)
         self._multi_master = len(self.slave_unique) != len(self.slave)
-        self.vslave_unique, self._vseg = np.unique(
-            self.vslave, return_inverse=True
-        )
+        self.vslave_unique, vseg = np.unique(self.vslave, return_inverse=True)
+        # the affine rows' sums as segment sums in a fixed order (an atomic
+        # index_add_ on the card sums in the order its updates land): the
+        # terms of each slave row (resolve, distribute_values) and the
+        # slave terms that reach each master (condense)
+        self._seg_table = segment_table(seg, len(self.slave_unique))
+        self._vseg_table = segment_table(vseg, len(self.vslave_unique))
+        self.master_unique, mseg = np.unique(self.master, return_inverse=True)
+        self._master_table = segment_table(mseg, len(self.master_unique))
         self._closed = True
 
     def _dedup_first(self) -> None:
@@ -174,15 +183,12 @@ class Constraints:
             self._dev[key] = t
         return t
 
-    def _expand(self, u, slave, master, weight, seg, slave_unique, multi):
-        vals = self._t(weight, u) * u[self._t(master, u)]
+    def _expand(self, u, slave, master, weight, table, slave_unique, multi):
+        vals = self._t(weight, u) * u[..., self._t(master, u)]
         if multi:
-            rows = self._t(slave_unique, u)
-            out = torch.zeros(len(rows), dtype=u.dtype, device=u.device)
-            out.index_add_(0, self._t(seg, u), vals)
-            u[rows] = out
+            u[..., self._t(slave_unique, u)] = segment_sum(vals, self._t(table, u))
         else:
-            u[self._t(slave, u)] = vals
+            u[..., self._t(slave, u)] = vals
 
     # -- device-side application ---------------------------------------------
     def resolve(self, u):
@@ -193,11 +199,11 @@ class Constraints:
         u = u.clone()
         if len(self.slave):
             self._expand(
-                u, "slave", "master", "weight", "_seg", "slave_unique",
+                u, "slave", "master", "weight", "_seg_table", "slave_unique",
                 self._multi_master,
             )
         if len(self.dirichlet_dofs):
-            u[self._t("dirichlet_dofs", u)] = 0.0
+            u[..., self._t("dirichlet_dofs", u)] = 0.0
         return u
 
     def condense(self, r):
@@ -208,9 +214,11 @@ class Constraints:
             return r
         r = r.clone()
         if len(self.slave):
-            add = self._t("weight", r) * r[self._t("slave", r)]
-            r.index_add_(0, self._t("master", r), add)
-        r[self._t("constrained_dofs", r)] = 0.0
+            add = self._t("weight", r) * r[..., self._t("slave", r)]
+            r[..., self._t("master_unique", r)] += segment_sum(
+                add, self._t("_master_table", r)
+            )
+        r[..., self._t("constrained_dofs", r)] = 0.0
         return r
 
     def distribute(self, u):
@@ -226,7 +234,7 @@ class Constraints:
             return u
         u = u.clone()
         self._expand(
-            u, "vslave", "vmaster", "vweight", "_vseg", "vslave_unique", True
+            u, "vslave", "vmaster", "vweight", "_vseg_table", "vslave_unique", True
         )
         return u
 
@@ -237,5 +245,5 @@ class Constraints:
             return dst
         idx = self._t("constrained_dofs", dst)
         dst = dst.clone()
-        dst[idx] = src[idx]
+        dst[..., idx] = src[..., idx]
         return dst

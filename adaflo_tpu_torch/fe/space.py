@@ -23,6 +23,9 @@ from adaflo_tpu_torch.mesh.structured import StructuredMesh
 
 
 class ScalarSpace:
+    # the uniform lattice; ForestSpace sets it for the index-map path
+    is_forest = False
+
     def __init__(
         self,
         mesh: StructuredMesh,

@@ -1,4 +1,4 @@
-"""Structured-lattice gather/scatter.
+"""Structured-lattice and index-map gather/scatter.
 
 PyTorch counterpart of ``adaflo_tpu/ops/lattice.py``: on a structured mesh
 the cell-local dof gather of a continuous Q_k space is strided slicing of the
@@ -10,6 +10,13 @@ Periodic axes wrap by padding one node on the high side and folding its
 contributions back. The parity-packed layouts of the JAX package answer the
 TPU's memory system and are not ported; the CUDA kernel of
 ops/coupled_matvec.py reads the nodal vectors through `cell_dof_table`.
+
+On adaptive forests (mixed levels) `IndexMapOps` gathers through the cell
+dof table and scatters through its transpose: for each dof, the flat
+(cell, local) slots that touch it, padded with a slot that reads zero,
+gathered and summed along the padded axis (`segment_table`,
+`segment_sum`). Unlike an atomic `index_add_` on the card, that sum runs in
+the same order in every run.
 """
 
 from __future__ import annotations
@@ -150,3 +157,59 @@ class LatticeOps:
             space.mesh.periodic,
             space.n_dofs_padded,
         )
+
+
+def segment_table(ids, n_segments: int) -> np.ndarray:
+    """(n_segments, width) table of the positions of `ids` that hold each
+    segment number, in increasing position, padded with len(ids) (the slot
+    `segment_sum` appends as zero); width is the largest segment, at
+    least 1."""
+    ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+    counts = np.bincount(ids, minlength=n_segments)
+    width = max(int(counts.max(initial=0)), 1)
+    order = np.argsort(ids, kind="stable")
+    starts = np.cumsum(counts) - counts
+    rank = np.arange(len(ids)) - np.repeat(starts, counts)
+    table = np.full((n_segments, width), len(ids), dtype=np.int64)
+    table[ids[order], rank] = order
+    return table
+
+
+def segment_sum(vals, table):
+    """Sums of the last axis of `vals` (..., L) over the segments of a
+    segment_table of L positions on vals' device: (..., n_segments). A
+    gather and a sum along the padded axis, the same order in every run."""
+    pad = torch.cat([vals, vals.new_zeros(vals.shape[:-1] + (1,))], dim=-1)
+    return pad[..., table].sum(-1)
+
+
+class IndexMapOps:
+    """General gather/scatter through the explicit cell dof table, the port
+    of the JAX package's IndexMapOps (adaflo_tpu/ops/lattice.py:325-363):
+    the drop-in for LatticeOps where the strided-lattice path does not apply
+    (adaptive forests with mixed levels). The gather is u[cell_dofs], the
+    scatter the transpose table's segment_sum (deterministic, where the JAX
+    package's `.at[].add` and a float64 index_add_ on the card sum in the
+    order their updates land). Tables live on `device`."""
+
+    def __init__(self, cell_dofs, n_dofs_padded: int, device) -> None:
+        cd = np.asarray(cell_dofs, dtype=np.int64)
+        self.n_cells, self.n_loc = cd.shape
+        self.n_dofs_padded = int(n_dofs_padded)
+        self.cd = torch.as_tensor(cd, device=device)
+        self.table = torch.as_tensor(
+            segment_table(cd.reshape(-1), self.n_dofs_padded), device=device
+        )
+
+    @classmethod
+    def for_space(cls, space, device) -> "IndexMapOps":
+        return cls(space.cell_dofs, space.n_dofs_padded, device)
+
+    def gather(self, u):
+        """(..., n_dofs_padded) -> (..., E, n_loc)"""
+        return u[..., self.cd]
+
+    def scatter_add(self, r_cells):
+        """(..., E, n_loc) -> (..., n_dofs_padded)"""
+        flat = r_cells.reshape(r_cells.shape[:-2] + (-1,))
+        return segment_sum(flat, self.table)

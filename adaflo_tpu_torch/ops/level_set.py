@@ -22,7 +22,7 @@ lattice) at the QIterated(Gauss 2, subdivisions) rule; everything runs as
 sum-factorized contractions and lattice gathers/scatters on the solver's
 device. Only the uniform-lattice branch of the JAX class is ported: forest,
 simplex, extruded and mapped spaces raise NotImplementedError (ROADMAP.md
-queue 1, items 12 and 15).
+queue 1, items 12b and 15).
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ class LevelSetOperators:
             if getattr(ls_space, flag, False):
                 raise NotImplementedError(
                     "the level-set operators are ported for the uniform "
-                    "lattice only (ROADMAP.md queue 1, items 12 and 15)"
+                    "lattice only (ROADMAP.md queue 1, items 12b and 15)"
                 )
         self.parameters = parameters
         self.ls_space = ls_space

@@ -54,9 +54,15 @@ the Schur complement's Poisson operator couples them by an interior-penalty
 graph Laplacian (ns_prec.cc:1636-1684, 2248-2342). The JAX operator builds
 no Pallas tables for them, so they take the plain cell route.
 
-Only the lattice branch of the JAX operator is ported: adaptive forests and
-graded and mapped meshes raise NotImplementedError (ROADMAP.md queue 1,
-items 12 and 15).
+On adaptive forests (ForestSpace) the operator takes the JAX operator's
+forest branch (adaflo_tpu/ops/navier_stokes.py:102-128): per-cell geometry
+through VariableCellEvaluator (ops/forest_ops.evaluator_for), the index-map
+gather and scatter of ops/lattice.IndexMapOps, and the hanging nodes'
+affine rows in resolve and condense. The JAX package builds no Pallas
+tables there (its eligibility starts with `not self.is_forest`), so every
+apply takes the plain cell route. Augmented Taylor-Hood on a forest is not
+ported (ROADMAP.md queue 1, item 12b); graded and mapped meshes raise
+NotImplementedError (item 15).
 """
 
 from __future__ import annotations
@@ -77,7 +83,8 @@ from adaflo_tpu_torch.ops.coupled_matvec import (
     coupled_apply_gather,
     coupled_apply_velocity,
 )
-from adaflo_tpu_torch.ops.lattice import LatticeOps
+from adaflo_tpu_torch.ops.forest_ops import evaluator_for
+from adaflo_tpu_torch.ops.lattice import IndexMapOps, LatticeOps
 from adaflo_tpu_torch.ops.tensor import CellEvaluator
 from adaflo_tpu_torch.parameters import FlowParameters, Linearization, PhysicalType
 from adaflo_tpu_torch.utils.timer import profiler_range
@@ -175,26 +182,39 @@ class NavierStokesOperator:
         self.dtype = dtype
         self.device = resolve_device(device)
         mesh = u_space.mesh
-        if getattr(u_space, "is_forest", False) or getattr(u_space, "is_mapped", False):
+        if getattr(u_space, "is_mapped", False):
             raise NotImplementedError(
-                "forest and mapped meshes are not ported (ROADMAP.md queue 1, "
-                "items 12 and 15)"
+                "mapped meshes are not ported (ROADMAP.md queue 1, item 15)"
             )
         if getattr(mesh, "is_graded", False):
             raise NotImplementedError(
                 "graded lattices are not ported (ROADMAP.md queue 1, item 15)"
             )
+        # the general index-map path of adaptive forests: per-cell geometry,
+        # cells leading in every cell array
+        if u_space.is_forest and parameters.augmented_taylor_hood:
+            raise NotImplementedError(
+                "augmented Taylor-Hood on adaptive forests is not ported "
+                "(ROADMAP.md queue 1, item 12b)"
+            )
         deg_p = p_space.degree
         # quadrature with p+2 points (FEEvaluation<dim, degree_p+1, degree_p+2>)
         kw = dict(dtype=dtype, device=self.device)
-        self.ev_u = CellEvaluator(self.dim, u_space.basis, deg_p + 2, mesh.h, **kw)
-        self.ev_p = CellEvaluator(self.dim, p_space.basis, deg_p + 2, mesh.h, **kw)
-        # reduced quadrature (p+1 points) for pressure-only operators
-        self.ev_p_low = CellEvaluator(
-            self.dim, p_space.basis, deg_p + 1, mesh.h, **kw
-        )
-        self.lat_u = LatticeOps.for_space(u_space)
-        self.lat_p = LatticeOps.for_space(p_space)
+        if u_space.is_forest:
+            self.ev_u = evaluator_for(u_space, deg_p + 2, **kw)
+            self.ev_p = evaluator_for(p_space, deg_p + 2, **kw)
+            self.ev_p_low = evaluator_for(p_space, deg_p + 1, **kw)
+            self.lat_u = IndexMapOps.for_space(u_space, self.device)
+            self.lat_p = IndexMapOps.for_space(p_space, self.device)
+        else:
+            self.ev_u = CellEvaluator(self.dim, u_space.basis, deg_p + 2, mesh.h, **kw)
+            self.ev_p = CellEvaluator(self.dim, p_space.basis, deg_p + 2, mesh.h, **kw)
+            # reduced quadrature (p+1 points) for pressure-only operators
+            self.ev_p_low = CellEvaluator(
+                self.dim, p_space.basis, deg_p + 1, mesh.h, **kw
+            )
+            self.lat_u = LatticeOps.for_space(u_space)
+            self.lat_p = LatticeOps.for_space(p_space)
         self.n_q = self.ev_u.n_q
         # augmented Taylor-Hood: [Q dofs | cell constants | padding]
         self.augmented = parameters.augmented_taylor_hood
@@ -209,7 +229,7 @@ class NavierStokesOperator:
         # treats constrained dofs as masks: Dirichlet rows only (the lattice
         # has no hanging nodes)
         for c in list(constraints_u) + [constraints_p]:
-            if len(c.slave):
+            if len(c.slave) and not u_space.is_forest:
                 raise NotImplementedError(
                     "affine constraints on the lattice are not ported"
                 )
@@ -242,13 +262,15 @@ class NavierStokesOperator:
         """True where the coupled cell apply serves vmult and velocity_vmult:
         the coupled implicit Newton linearization of the time-dependent
         incompressible equations in 2D or 3D at velocity degree 2 or 3,
-        without augmented Taylor-Hood elements (the JAX operator's Pallas
-        eligibility, adaflo_tpu/ops/navier_stokes.py:197-206, without its
-        TPU size and dtype gate). Read at every apply: the initial Stokes
-        solve switches the physical type for its duration."""
+        without augmented Taylor-Hood elements, on a lattice (the JAX
+        operator's Pallas eligibility, adaflo_tpu/ops/navier_stokes.py:197-206,
+        without its TPU size and dtype gate: adaptive forests never).
+        Read at every apply: the initial Stokes solve switches the physical
+        type for its duration."""
         par = self.parameters
         return (
-            par.linearization == Linearization.coupled_implicit_newton
+            not self.u_space.is_forest
+            and par.linearization == Linearization.coupled_implicit_newton
             and par.physical_type == PhysicalType.incompressible
             and self.dim in (2, 3)
             and par.velocity_degree in (2, 3)
@@ -805,13 +827,22 @@ class NavierStokesOperator:
         units = torch.eye(n_units, dtype=self.dtype, device=self.device)
         units = units.reshape(n_units, dim, n_loc)
         diag_loc = self._zeros(E, dim, n_loc)
+        # cells lead and the units follow them, (cell, unit, comp, local), as
+        # the per-cell evaluators of a forest need; the per-cell fields gain
+        # the unit axis
+        def per_cell(f):
+            return None if f is None else f[:, None]
+
+        if lin is not None:
+            lin = Linearized(per_cell(lin.val), per_cell(lin.grad), per_cell(lin.div))
+        coeffs = Coefficients(*(per_cell(f) for f in coeffs))
         for b0 in range(0, n_units, batch):
             b1 = min(b0 + batch, n_units)
-            uc = units[b0:b1, None].expand(b1 - b0, E, dim, n_loc)
+            uc = units[b0:b1].expand(E, b1 - b0, dim, n_loc)
             out = self.local_velocity_apply(uc, tw, lin, coeffs)
             for k in range(b0, b1):
                 c, i = divmod(k, n_loc)
-                diag_loc[:, c, i] = out[k - b0, :, c, i]
+                diag_loc[:, c, i] = out[:, k - b0, c, i]
         rows = []
         for c in range(dim):
             d = self.lat_u.scatter_add(diag_loc[:, c, :])
@@ -918,15 +949,12 @@ class NavierStokesOperator:
         E = self.u_space.mesh.n_cells
         n_loc = self.p_space.n_local
         units = torch.eye(n_loc, dtype=self.dtype, device=self.device)
-        pc = units[:, None, :].expand(n_loc, E, n_loc)
-        g = ev.gradients(pc)
+        g = ev.gradients(units.expand(E, n_loc, n_loc))  # (cell, unit, local)
         if coeffs.rho is not None:
-            g = g * (inv_rho_weight / coeffs.rho)[:, None, :]
+            g = g * (inv_rho_weight / coeffs.rho)[:, None, None, :]
         else:
             g = g * inv_rho_weight
-        out = ev.integrate_gradients(g)  # (n_loc, E, n_loc)
-        idx = torch.arange(n_loc, device=self.device)
-        diag_loc = out[idx, :, idx].transpose(0, 1)  # (E, n_loc)
+        diag_loc = torch.diagonal(ev.integrate_gradients(g), dim1=1, dim2=2)
         d = self.lat_p.scatter_add(diag_loc)
         if self.augmented:
             d = self._join_p(d, self.dg0_diagonal() * inv_rho_weight)

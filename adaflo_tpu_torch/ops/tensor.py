@@ -76,6 +76,15 @@ class CellEvaluator:
     def _to_lattice(self, u):
         return u.reshape(u.shape[:-1] + (self.n_1d,) * self.dim)
 
+    # -- geometry factors (per cell in VariableCellEvaluator) ---------------
+    def _scale(self, arr, axis: int):
+        """arr times 1/h along `axis`."""
+        return arr * self.inv_h[axis]
+
+    def _times_jxw(self, f):
+        """(..., n_q) times the quadrature weights jxw."""
+        return f * self.jxw
+
     def _to_qlattice(self, f):
         return f.reshape(f.shape[:-1] + (self.n_q_1d,) * self.dim)
 
@@ -104,23 +113,23 @@ class CellEvaluator:
     def gradients(self, u):
         """(..., n_local) -> (..., dim, n_q); axis -2 indexes d/dx_0..d/dx_{dim-1}."""
         ul = self._to_lattice(u)
-        V, D, c, ih = self.V, self.D, self._c, self.inv_h
+        V, D, c, s = self.V, self.D, self._c, self._scale
         if self.dim == 1:
-            outs = [c(ul, D, 1) * ih[0]]
+            outs = [s(c(ul, D, 1), 0)]
         elif self.dim == 2:
             a0, a1 = c(ul, V, 1), c(ul, D, 1)
-            outs = [c(a1, V, 2) * ih[0], c(a0, D, 2) * ih[1]]
+            outs = [s(c(a1, V, 2), 0), s(c(a0, D, 2), 1)]
         else:
             a0, a1 = c(ul, V, 1), c(ul, D, 1)
             b00, b01, b10 = c(a0, V, 2), c(a0, D, 2), c(a1, V, 2)
-            outs = [c(b10, V, 3) * ih[0], c(b01, V, 3) * ih[1], c(b00, D, 3) * ih[2]]
+            outs = [s(c(b10, V, 3), 0), s(c(b01, V, 3), 1), s(c(b00, D, 3), 2)]
         out = torch.stack(outs, dim=-1 - self.dim)
         return out.reshape(u.shape[:-1] + (self.dim, self.n_q))
 
     # -- integration (transpose ops, both include jxw) ----------------------
     def integrate_values(self, f):
         """sum_q f_q phi_i(q) jxw_q : (..., n_q) -> (..., n_local)"""
-        out = self._to_qlattice(f * self.jxw)
+        out = self._to_qlattice(self._times_jxw(f))
         Vt = self.V.T
         for k in range(1, self.dim + 1):
             out = self._c(out, Vt, k)
@@ -128,18 +137,18 @@ class CellEvaluator:
 
     def integrate_gradients(self, g):
         """sum_q g_q . grad(phi_i)(q) jxw_q : (..., dim, n_q) -> (..., n_local)"""
-        Vt, Dt, c, ih = self.V.T, self.D.T, self._c, self.inv_h
-        gl = self._to_qlattice(g * self.jxw)
+        Vt, Dt, c, s = self.V.T, self.D.T, self._c, self._scale
+        gl = self._to_qlattice(self._times_jxw(g))
         if self.dim == 1:
-            out = c(gl[..., 0, :] * ih[0], Dt, 1)
+            out = c(s(gl[..., 0, :], 0), Dt, 1)
         elif self.dim == 2:
-            gx = gl[..., 0, :, :] * ih[0]
-            gy = gl[..., 1, :, :] * ih[1]
+            gx = s(gl[..., 0, :, :], 0)
+            gy = s(gl[..., 1, :, :], 1)
             out = c(c(gx, Dt, 1), Vt, 2) + c(c(gy, Vt, 1), Dt, 2)
         else:
-            gx = gl[..., 0, :, :, :] * ih[0]
-            gy = gl[..., 1, :, :, :] * ih[1]
-            gz = gl[..., 2, :, :, :] * ih[2]
+            gx = s(gl[..., 0, :, :, :], 0)
+            gy = s(gl[..., 1, :, :, :], 1)
+            gz = s(gl[..., 2, :, :, :], 2)
             e = c(c(gx, Dt, 1), Vt, 2) + c(c(gy, Vt, 1), Dt, 2)
             f = c(c(gz, Vt, 1), Vt, 2)
             out = c(e, Vt, 3) + c(f, Dt, 3)
@@ -174,3 +183,63 @@ class CellEvaluator:
             [X.reshape(-1, self.n_q), Y.reshape(-1, self.n_q), Z.reshape(-1, self.n_q)],
             axis=-1,
         )
+
+
+class VariableCellEvaluator(CellEvaluator):
+    """CellEvaluator with per-cell Cartesian extents (mixed-level AMR), the
+    port of the JAX package's VariableCellEvaluator
+    (adaflo_tpu/ops/tensor.py:205-323).
+
+    Arrays carry cells as the LEADING axis, shaped (E, ..., n_local) /
+    (E, ..., n_q); the per-cell 1/h and JxW factors broadcast from axis 0
+    (deal.II's per-cell Jacobians in MatrixFree, which the reference relies
+    on in every adaptive run). The geometry stays diagonal: forest cells
+    are axis-aligned boxes."""
+
+    def __init__(
+        self,
+        dim: int,
+        basis: LagrangeBasis1D,
+        quad_points_1d,
+        h_cells,
+        dtype: torch.dtype = torch.float64,
+        device=None,
+    ) -> None:
+        h_cells = np.asarray(h_cells, dtype=np.float64)
+        assert h_cells.ndim == 2 and h_cells.shape[1] == dim
+        super().__init__(dim, basis, quad_points_1d, h_cells[0], dtype=dtype, device=device)
+        h = self.h_cells = h_cells
+        kw = dict(dtype=self.dtype, device=self.device)
+        self.inv_h_cells = torch.as_tensor(1.0 / h, **kw)  # (E, dim)
+        w = self.w1
+        if self.dim == 1:
+            jw = w[None, :] * h[:, :1]
+        elif self.dim == 2:
+            jw = np.einsum("a,b->ab", w, w).reshape(1, -1) * (
+                h[:, 0] * h[:, 1]
+            ).reshape(-1, 1)
+        else:
+            jw = np.einsum("a,b,c->abc", w, w, w).reshape(1, -1) * (
+                h[:, 0] * h[:, 1] * h[:, 2]
+            ).reshape(-1, 1)
+        self.jxw_cells_np = jw
+        self.jxw_cells = torch.as_tensor(jw, **kw)  # (E, n_q)
+
+    def _scale(self, arr, axis: int):
+        s = self.inv_h_cells[:, axis]
+        return arr * s.reshape(s.shape + (1,) * (arr.ndim - 1))
+
+    def _times_jxw(self, f):
+        j = self.jxw_cells
+        return f * j.reshape(j.shape[:1] + (1,) * (f.ndim - 2) + j.shape[1:])
+
+    def quad_coords(self, space) -> np.ndarray:
+        """(E, n_q, dim) physical quadrature points of a space exposing
+        cell_origin (E, dim) (a ForestSpace)."""
+        q = self.q_points_1d
+        if self.dim == 1:
+            ref = q[:, None]
+        else:
+            grids = np.meshgrid(*([q] * self.dim), indexing="ij")[::-1]
+            ref = np.stack(grids, axis=-1).reshape(-1, self.dim)
+        return space.cell_origin[:, None, :] + ref[None, :, :] * self.h_cells[:, None, :]

@@ -22,8 +22,13 @@ time-dependent incompressible, Stokes and stationary types; the coupled
 implicit Newton and Picard, the coupled velocity semi-implicit and explicit
 and the projection linearizations; Taylor-Hood and augmented Taylor-Hood
 (FE_Q_DG0 pressure) elements; constant or per-q-point (two-phase) density
-and viscosity. Forests and mapped meshes raise NotImplementedError
-with the ROADMAP.md queue that brings them.
+and viscosity. On adaptive forests (ForestMesh): Q_k spaces with hanging
+nodes (ForestSpace), Dirichlet, no-slip and symmetry sides with a
+pressure-fix point, the operator's index-map path and the forest GMG, and
+`adapt_mesh` with nodal solution transfer, driven by
+`refine_grid_pressure_based`'s Kelly pressure indicators. Mapped meshes
+and augmented elements on a forest raise NotImplementedError with the
+ROADMAP.md queue item that brings them.
 """
 
 from __future__ import annotations
@@ -37,8 +42,15 @@ import torch
 
 from adaflo_tpu_torch.device import resolve_device
 from adaflo_tpu_torch.fe.constraints import Constraints
+from adaflo_tpu_torch.fe.forest_estimate import (
+    kelly_indicator,
+    refine_and_coarsen_fixed_number,
+)
+from adaflo_tpu_torch.fe.forest_space import ForestSpace
+from adaflo_tpu_torch.fe.forest_transfer import ForestFunction
 from adaflo_tpu_torch.fe.space import ScalarSpace
 from adaflo_tpu_torch.flow_base import FlowBaseAlgorithm
+from adaflo_tpu_torch.mesh.forest import ForestMesh
 from adaflo_tpu_torch.mesh.structured import StructuredMesh
 from adaflo_tpu_torch.ops.navier_stokes import (
     Coefficients,
@@ -65,7 +77,7 @@ class NavierStokes(FlowBaseAlgorithm):
     def __init__(
         self,
         parameters: FlowParameters,
-        mesh: StructuredMesh,
+        mesh,
         out=None,
         device=None,
         dtype: torch.dtype = torch.float64,
@@ -75,10 +87,10 @@ class NavierStokes(FlowBaseAlgorithm):
         self.dtype = dtype
         self.parameters = parameters
         self.mesh = mesh
-        if not isinstance(mesh, StructuredMesh):
+        if not isinstance(mesh, (StructuredMesh, ForestMesh)):
             raise NotImplementedError(
-                "only structured lattices are ported (ROADMAP.md queue 1, "
-                "items 12 and 15)"
+                "only structured lattices and adaptive forests are ported "
+                "(ROADMAP.md queue 1, item 15)"
             )
         self.time_stepping = TimeStepping(parameters)
         self.out = out
@@ -98,6 +110,10 @@ class NavierStokes(FlowBaseAlgorithm):
     def _p(self, *args, **kw):
         print(*args, **kw, file=self.out or sys.stdout)
 
+    @property
+    def is_forest(self) -> bool:
+        return isinstance(self.mesh, ForestMesh)
+
     # ------------------------------------------------------------------
     def setup_problem(self, initial_velocity_fn=None) -> None:
         """Refine, make the periodic axes wrap, build spaces, constraints,
@@ -116,9 +132,21 @@ class NavierStokes(FlowBaseAlgorithm):
         self._last_lin = None
 
     def _setup_discretization(self) -> None:
+        """Spaces, constraints, operator and preconditioner of the current
+        mesh (entered again after a forest's adaptation)."""
         par = self.parameters
-        self.u_space = ScalarSpace(self.mesh, par.velocity_degree)
-        self.p_space = ScalarSpace(self.mesh, par.pressure_degree)
+        if self.is_forest:
+            bd = self.boundary
+            if bd.normal_flux or bd.open_conditions_p or bd.periodic_axes:
+                raise NotImplementedError(
+                    "adaptive forest NS supports Dirichlet/no-slip/symmetry "
+                    "boundaries with pressure fix only"
+                )
+            self.u_space = ForestSpace(self.mesh, par.velocity_degree)
+            self.p_space = ForestSpace(self.mesh, par.pressure_degree)
+        else:
+            self.u_space = ScalarSpace(self.mesh, par.velocity_degree)
+            self.p_space = ScalarSpace(self.mesh, par.pressure_degree)
         self._build_constraints()
         self.operator = NavierStokesOperator(
             par,
@@ -175,16 +203,30 @@ class NavierStokes(FlowBaseAlgorithm):
             dofs = u_space.boundary_dofs(bid)
             for c in range(self.dim):
                 cu[c].add_dirichlet(dofs)
-        for bid in sorted(bd.symmetry | bd.normal_flux):
-            for axis, _, face_dofs in u_space.boundary_faces(bid):
-                dofs = np.unique(face_dofs)
-                if bid in bd.symmetry:
-                    cu[axis].add_dirichlet(dofs)
-                if bid in bd.normal_flux:
-                    for c in range(self.dim):
-                        if c != axis:
-                            cu[c].add_dirichlet(dofs)
+        if self.is_forest:
+            # whole sides carry one boundary id; a symmetry side constrains
+            # the normal component
+            for axis in range(self.dim):
+                for end in (0, 1):
+                    if int(self.mesh.boundary_ids(axis, end)[0]) in bd.symmetry:
+                        cu[axis].add_dirichlet(u_space.side_dofs(axis, end))
+        else:
+            for bid in sorted(bd.symmetry | bd.normal_flux):
+                for axis, _, face_dofs in u_space.boundary_faces(bid):
+                    dofs = np.unique(face_dofs)
+                    if bid in bd.symmetry:
+                        cu[axis].add_dirichlet(dofs)
+                    if bid in bd.normal_flux:
+                        for c in range(self.dim):
+                            if c != axis:
+                                cu[c].add_dirichlet(dofs)
+        # the hanging nodes' rows of a forest (every component and the
+        # pressure, the Schur complement's set too)
+        hang_u = self._hanging(u_space)
+        hang_p = self._hanging(p_space)
         for c in cu:
+            if hang_u:
+                c.add_affine(*hang_u)
             c.close()
         self.constraints_u = cu
         # symmetry and normal-flux dofs that no Dirichlet function covers:
@@ -199,6 +241,8 @@ class NavierStokes(FlowBaseAlgorithm):
             np.setdiff1d(con.dirichlet_dofs, covered) for con in cu
         ]
         cp = Constraints(p_space.n_dofs)
+        if hang_p:
+            cp.add_affine(*hang_p)
         cp.close()
         self.constraints_p = cp
         cs = Constraints(p_space.n_dofs)
@@ -206,10 +250,24 @@ class NavierStokes(FlowBaseAlgorithm):
             cs.add_dirichlet(p_space.boundary_dofs(bid))
         for bid in bd.pressure_fix:
             dofs = p_space.boundary_dofs(bid)
+            if hang_p:
+                # never pin a hanging slave: its row is already constrained
+                dofs = np.setdiff1d(dofs, np.unique(hang_p[0]))
             if len(dofs):
                 cs.add_dirichlet(dofs[:1])
+        if hang_p:
+            cs.add_affine(*hang_p)
         cs.close()
         self.constraints_schur = cs
+
+    @staticmethod
+    def _hanging(space):
+        """(slaves, masters, weights) of a forest space's hanging nodes, or
+        None where it has none."""
+        slaves = getattr(space, "hanging_slave", None)
+        if slaves is None or not len(slaves):
+            return None
+        return slaves, space.hanging_master, space.hanging_weight
 
     # ------------------------------------------------------------------
     @property
@@ -253,7 +311,15 @@ class NavierStokes(FlowBaseAlgorithm):
         for c, dofs in enumerate(self._zero_dofs_u):
             if len(dofs):
                 u[c, torch.as_tensor(dofs, device=self.device)] = 0.0
+        # hanging nodes: the solution conforming again (their masters may be
+        # Dirichlet dofs that were just written)
+        if len(self.constraints_u[0].vslave):
+            u = torch.stack(
+                [con.distribute_values(u[c]) for c, con in enumerate(self.constraints_u)]
+            )
         self.solution[0] = u
+        if len(self.constraints_p.vslave):
+            self.solution[1] = self.constraints_p.distribute_values(self.solution[1])
 
         # open-boundary face integrals into const_rhs (cc:1260-1317): the
         # natural traction condition sigma.n = -pbar n gives -(pbar, v.n)
@@ -670,10 +736,89 @@ class NavierStokes(FlowBaseAlgorithm):
                 else 0.0
             )
             shift = target - float(self.solution[1][dof])
-            self.solution[1] = self.operator.apply_pressure_shift(
-                shift, self.solution[1]
-            )
+            p = self.operator.apply_pressure_shift(shift, self.solution[1])
+            if len(self.constraints_p.vslave):
+                # the hanging slaves follow: the shift mode excludes the
+                # constrained rows
+                p = self.constraints_p.distribute_values(p)
+            self.solution[1] = p
             return
+
+    # ------------------------------------------------------------------
+    def adapt_mesh(self, flags: np.ndarray) -> bool:
+        """Adapt the forest (+1 refine / -1 coarsen / 0 keep per cell),
+        build the discretization anew and carry the solution vectors over by
+        nodal interpolation, the reference's refine_grid + SolutionTransfer
+        round trip (navier_stokes.cc refine_grid). The user right-hand side
+        starts at zero on the new mesh. Returns False if the flags change
+        nothing."""
+        if not self.is_forest:
+            raise ValueError("adapt_mesh requires a ForestMesh")
+        flags = np.asarray(flags, dtype=np.int8)
+        if not flags.any():
+            return False
+        snap_u, snap_p = ForestFunction(self.u_space), ForestFunction(self.p_space)
+        old = []
+        for block in (self.solution, self.solution_old, self.solution_old_old):
+            u = torch.stack(
+                [con.distribute_values(block[0][c]) for c, con in enumerate(self.constraints_u)]
+            )
+            p = self.constraints_p.distribute_values(block[1])
+            old.append((u.cpu().numpy(), p.cpu().numpy()))
+        self.mesh.adapt(flags)
+        self._setup_discretization()
+        self._allocate_vectors()
+        kw = dict(dtype=self.dtype, device=self.device)
+        n_u, n_p = self.u_space.n_dofs, self.p_space.n_dofs
+        for (u_old, p_old), dst in zip(
+            old, (self.solution, self.solution_old, self.solution_old_old)
+        ):
+            u, p = dst[0].clone(), dst[1].clone()
+            u[:, :n_u] = torch.as_tensor(snap_u.evaluate(u_old, self.u_space.node_coords), **kw)
+            p[:n_p] = torch.as_tensor(snap_p.evaluate(p_old, self.p_space.node_coords), **kw)
+            dst[0], dst[1] = u, p
+        self._prec_state = None
+        self._last_lin = None
+        self.update_preconditioner = True
+        return True
+
+    def refine_grid_pressure_based(
+        self,
+        max_grid_level: int,
+        refine_fraction_of_cells: float,
+        coarsen_fraction_of_cells: float,
+    ) -> np.ndarray:
+        """Kelly pressure-gradient-jump indicators (navier_stokes.cc:
+        1322-1369) on the forest: marks cells with
+        refine_and_coarsen_fixed_number and adapts the mesh, carrying the
+        solution over. Returns the indicators. The JAX package's lattice
+        branch, which records indicators and changes nothing, is not
+        ported."""
+        if not self.is_forest:
+            raise NotImplementedError(
+                "pressure-based refinement runs on adaptive forests only"
+            )
+        p_con = self.constraints_p.distribute_values(self.solution[1])
+        eta2 = kelly_indicator(
+            self.p_space, p_con.cpu().numpy(), self.parameters.velocity_degree + 2
+        )
+        self.last_error_indicators = np.sqrt(eta2)
+        flags = refine_and_coarsen_fixed_number(
+            self.p_space, eta2, refine_fraction_of_cells,
+            coarsen_fraction_of_cells, max_grid_level,
+        )
+        self.adapt_mesh(flags)
+        return self.last_error_indicators
+
+    def output_solution(self, filename: str, n_subdivisions: int = 0) -> None:
+        """VTU output of velocity and pressure (flow_base_algorithm.cc:
+        222-279); an empty file name or `output vtk files = 0` writes
+        nothing."""
+        if not filename or not self.parameters.print_solution_fields:
+            return
+        raise NotImplementedError(
+            "VTU output is not ported (ROADMAP.md queue 1, item 17)"
+        )
 
 
 def fmt_g(x: float) -> str:

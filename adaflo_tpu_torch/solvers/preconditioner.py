@@ -24,9 +24,15 @@ complement takes per-q 1/rho in the pressure Poisson operator and per-cell
 stationary type), and the GMG levels per-subcell coefficients. The cell
 constants of augmented Taylor-Hood take Jacobi beside the pressure V-cycle
 and their mode is projected out of the mass solve. State lives
-in a NamedTuple (`PrecState`) rebuilt by `compute`. Forest and mapped
-meshes and the graded lattice are not ported (ROADMAP.md queue 1, items 12
-and 15).
+in a NamedTuple (`PrecState`) rebuilt by `compute`.
+
+On adaptive forests the multigrid is the forest hierarchy's ForestGMG
+(solvers/forest_multigrid.py): one per velocity component on its fully
+constrained sides, and the pressure Poisson's with the Schur complement's
+pinned dof; its levels keep the mesh cells, so per-cell coefficients pass
+to them directly (the JAX package's per_cell_levels,
+adaflo_tpu/solvers/preconditioner.py:258-292, 407-409, 528-534). Mapped
+meshes and the graded lattice are not ported (ROADMAP.md queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from adaflo_tpu_torch.parameters import (
     PressurePreconditioner,
     VelocityPreconditioner,
 )
+from adaflo_tpu_torch.solvers.forest_multigrid import ForestGMG
 from adaflo_tpu_torch.solvers.krylov import bicgstab, cg, gmres
 from adaflo_tpu_torch.solvers.multigrid import LatticeGMG
 from adaflo_tpu_torch.utils.timer import profiler_range
@@ -168,8 +175,11 @@ class NavierStokesPreconditioner:
             VelocityPreconditioner.u_amg,
             VelocityPreconditioner.u_amg_linear,
         )
-        mesh = op.u_space.mesh
         kw = dict(dtype=op.dtype, device=op.device)
+        if op.u_space.is_forest:
+            self._forest_gmg(op, constraints_schur, **kw)
+            return
+        mesh = op.u_space.mesh
         h_u = mesh.h / parameters.velocity_degree
         h_p = mesh.h / max(parameters.pressure_degree, 1)
         self.u_gmg_geom = [
@@ -189,6 +199,40 @@ class NavierStokesPreconditioner:
             op.p_space.n_dofs_padded,
             **kw,
         ) if parameters.pressure_degree >= 1 else None
+
+    def _forest_gmg(self, op, constraints_schur, **kw) -> None:
+        """ForestGMG per velocity component on the sides whose dofs its
+        constraints hold all (forest NS: Dirichlet and no-slip sides, a
+        symmetry side in its normal component), and the pressure Poisson's
+        with the first Schur-constrained dof as the pin."""
+        u_space, p_space = op.u_space, op.p_space
+        sides = [(a, s) for a in range(op.dim) for s in (0, 1)]
+        self.u_gmg_geom = [
+            ForestGMG(
+                u_space,
+                [
+                    (a, s) for a, s in sides
+                    if len(d := u_space.side_dofs(a, s)) and con.is_constrained[d].all()
+                ],
+                u_space.n_dofs_padded,
+                **kw,
+            )
+            for con in op.constraints_u
+        ] if self.use_gmg else None
+        pin = None
+        if len(constraints_schur.dirichlet_dofs):
+            pin = p_space.node_coords[int(constraints_schur.dirichlet_dofs[0])]
+        self.p_gmg_geom = ForestGMG(
+            p_space, [], p_space.n_dofs_padded, pin_position=pin, **kw
+        ) if self.parameters.pressure_degree >= 1 else None
+
+    def _to_levels(self, x_cells, deg: int):
+        """A per-cell coefficient on the GMG's finest level: as it is on a
+        forest, whose levels keep the mesh cells, on the deg^dim Q1 subcells
+        of each cell on a lattice."""
+        if self.op.u_space.is_forest:
+            return x_cells
+        return _cells_to_subcells(x_cells, self.op.u_space.mesh.n_cells_axis, deg)
 
     # -- build ----------------------------------------------------------
     def compute(self, tw: TimeWeights, lin, coeffs: Coefficients) -> PrecState:
@@ -251,37 +295,34 @@ class NavierStokesPreconditioner:
             mass_diag_w = mass_diag * mass_coefficient
 
         # the velocity V-cycle serves constant coefficients in the coupled
-        # solve (see _u_approx_inverse) and any in the projection scheme's
-        # momentum solve; the GMG levels smooth on Q1 subcells, with
-        # per-cell rho, mu and 1/rho upsampled to the deg^dim subcells of
-        # each cell
-        n_cells_axis = op.u_space.mesh.n_cells_axis
+        # solve on a lattice (see _u_approx_inverse), any on a forest, and
+        # any in the projection scheme's momentum solve; the lattice's GMG
+        # levels smooth on Q1 subcells, with per-cell rho, mu and 1/rho
+        # upsampled to the deg^dim subcells of each cell
         u_gmg = p_gmg = None
         constant = coeffs.rho is None and coeffs.mu is None
         if self.use_gmg and self.u_gmg_geom is not None and (
-            constant or par.linearization == Linearization.projection
+            constant
+            or self.op.u_space.is_forest
+            or par.linearization == Linearization.projection
         ):
             deg = par.velocity_degree
             if coeffs.rho is not None:
-                alpha_u = tw.weight * _cells_to_subcells(
-                    torch.mean(coeffs.rho, dim=1), n_cells_axis, deg
-                )
+                alpha_u = tw.weight * self._to_levels(torch.mean(coeffs.rho, dim=1), deg)
             else:
                 alpha_u = tw.weight * par.density
             if par.physical_type != PhysicalType.incompressible:
                 alpha_u = 0.0 * alpha_u  # no mass term (stationary / Stokes)
             if coeffs.mu is not None:
-                beta_u = tw.tau1 * _cells_to_subcells(
-                    torch.mean(coeffs.mu, dim=1), n_cells_axis, deg
-                )
+                beta_u = tw.tau1 * self._to_levels(torch.mean(coeffs.mu, dim=1), deg)
             else:
                 beta_u = tw.tau1 * par.viscosity
             u_gmg = tuple(g.compute(alpha_u, beta_u) for g in self.u_gmg_geom)
         if self.p_gmg_geom is not None:
             if pcoeffs.rho is not None:
                 inv_rho_cell = torch.mean(1.0 / pcoeffs.rho, dim=1)
-                beta_p = pscale * _cells_to_subcells(
-                    inv_rho_cell, n_cells_axis, max(par.pressure_degree, 1)
+                beta_p = pscale * self._to_levels(
+                    inv_rho_cell, max(par.pressure_degree, 1)
                 )
             else:
                 beta_p = pscale
@@ -342,12 +383,13 @@ class NavierStokesPreconditioner:
         # 'amg linear': one GMG V-cycle per component (ns_prec.cc velocity
         # AMG); the Q1-subcell model of a two-phase (variable-coefficient)
         # block underperforms the Chebyshev of the true operator, and so does
-        # the mass-free model of the stationary block, so the V-cycle serves
-        # transient constant-coefficient blocks only, as in the JAX package
+        # the mass-free model of the stationary block, so on a lattice the
+        # V-cycle serves transient constant-coefficient blocks only, as in
+        # the JAX package; forest levels carry the true per-cell rho and mu
         if (
             st.u_gmg is not None
             and self.parameters.physical_type != PhysicalType.incompressible_stationary
-            and st.coeffs.rho is None
+            and (st.coeffs.rho is None or self.op.u_space.is_forest)
         ):
             M = lambda r: torch.stack(
                 [

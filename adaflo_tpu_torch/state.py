@@ -4,8 +4,9 @@ The two packages keep the same state under the same names: the solution
 vectors (current, old, old-old), the last update (the projection scheme
 keeps p^n there between the extrapolation and the solve, and phi^n in
 solution_old's pressure), the user right-hand side (a body force),
-the time stepping's fields, the periodic axes of the mesh, the constrained
-dof sets and the preconditioner bookkeeping. `state_arrays` reads them from
+the time stepping's fields, the periodic axes of the mesh, the active cells
+of an adaptive forest, the constrained dof sets and the preconditioner
+bookkeeping. `state_arrays` reads them from
 either package's NavierStokes solver into a flat dict of numpy arrays (it
 imports neither JAX nor the JAX package: it only calls `np.asarray`);
 `from_jax_state` turns such a dict into the port's tensors, and
@@ -18,7 +19,8 @@ Keys: solution_u, solution_p, solution_old_u, solution_old_p,
 solution_old_old_u, solution_old_old_p, solution_update_u,
 solution_update_p, user_rhs_u, user_rhs_p;
 ts:<field> for each field of TimeStepping (the scheme excepted); periodic;
-constrained_u<c>, constrained_p, constrained_schur (the open sides'
+on a forest forest_roots, forest_levels and forest_anchors (its active
+cells in Morton order, ForestMesh.cells); constrained_u<c>, constrained_p, constrained_schur (the open sides'
 pressure dofs and the pressure-fix dof); the four
 preconditioner bookkeeping scalars; coefficients_rho and coefficients_mu
 when the density and viscosity vary per q-point. Two-phase: ls:<vector>_c
@@ -48,6 +50,7 @@ _BOOKKEEPING = (
 )
 
 
+_FOREST = ("forest_roots", "forest_levels", "forest_anchors")
 _LS_VECTORS = ("solution", "solution_old", "solution_old_old")
 _LS_FIELDS = ("heaviside", "normal_vector_field", "evaluated_normal_q")
 _LS_SCALARS = ("last_smoothing_step", "old_residual", "first_advance")
@@ -71,7 +74,10 @@ def state_arrays(solver) -> dict[str, np.ndarray]:
     for key, val in vars(ns.time_stepping).items():
         if isinstance(val, (bool, int, float, np.floating, np.integer)):
             out[f"ts:{key}"] = np.asarray(val)
-    out["periodic"] = np.asarray(ns.mesh.periodic, bool)
+    out["periodic"] = np.asarray(getattr(ns.mesh, "periodic", [False] * ns.dim), bool)
+    if ns.is_forest:
+        for key, arr in zip(_FOREST, ns.mesh.cells()):
+            out[key] = np.asarray(arr, np.int64)
     for c, con in enumerate(ns.constraints_u):
         out[f"constrained_u{c}"] = np.asarray(con.constrained_dofs, np.int64)
     out["constrained_p"] = np.asarray(ns.constraints_p.constrained_dofs, np.int64)
@@ -112,6 +118,7 @@ class SolverState:
     bookkeeping: dict
     coefficients: tuple = (None, None)  # (rho, mu) per q-point, or None
     level_set: dict = field(default_factory=dict)  # two-phase state
+    forest: dict = field(default_factory=dict)  # a forest's active cells
 
 
 def from_jax_state(arrays: dict[str, np.ndarray], device) -> SolverState:
@@ -150,21 +157,28 @@ def from_jax_state(arrays: dict[str, np.ndarray], device) -> SolverState:
         level_set["last_concentration_range"] = tuple(
             float(x) for x in np.asarray(arrays["ls:last_concentration_range"])
         )
+    forest = {k: np.asarray(arrays[k], np.int64) for k in _FOREST if k in arrays}
     return SolverState(
         vecs["solution"], vecs["solution_old"], vecs["solution_old_old"],
         vecs["solution_update"], vecs["user_rhs"], ts,
         np.asarray(arrays["periodic"], bool), constrained, bookkeeping,
-        coefficients, level_set,
+        coefficients, level_set, forest,
     )
 
 
 def load_state(solver, state: SolverState) -> None:
     """Install `state` into a port NavierStokes or two-phase solver that is
-    set up; its constraints must be the ones the state was taken with."""
+    set up; its mesh (the periodic axes, a forest's active cells) and its
+    constraints must be the ones the state was taken with."""
     ns = getattr(solver, "navier_stokes", solver)
     mine = state_arrays(ns)
     if not np.array_equal(mine["periodic"], state.periodic):
         raise ValueError("state mismatch: the periodic axes differ from this solver's")
+    for key in _FOREST:
+        if (key in mine) != (key in state.forest) or (
+            key in mine and not np.array_equal(mine[key], state.forest[key])
+        ):
+            raise ValueError("state mismatch: the forest's active cells differ from this solver's")
     for key, dofs in state.constrained.items():
         if key not in mine or not np.array_equal(mine[key], dofs):
             raise ValueError(f"state mismatch: {key} differs from this solver's")

@@ -11,7 +11,7 @@ contour (cc:621-968), in 3D with the smeared heaviside/delta form
 on the solver's device and reduced on the host.
 
 Only the lattice branch is ported: forest, mapped, extruded and simplex
-meshes raise NotImplementedError (ROADMAP.md queue 1, items 12 and 15),
+meshes raise NotImplementedError (ROADMAP.md queue 1, items 12b and 15),
 fluid-type (inflow) concentration boundaries item 13 (with the phase field,
 whose Poiseuille driver sets them) and VTU output item 17.
 """

@@ -5,7 +5,8 @@ integrate_difference / interpolate as used by the reference drivers, e.g.
 tests/poiseuille.cc:154-195): cellwise L2 errors against an analytic
 solution with a high-order quadrature, combined as the l2 norm of the cell
 values. The field is evaluated on its own device; the sums run on the host
-in float64.
+in float64. Adaptive-forest spaces evaluate with per-cell geometry
+(VariableCellEvaluator).
 """
 
 from __future__ import annotations
@@ -14,15 +15,18 @@ import numpy as np
 import torch
 
 from adaflo_tpu_torch.fe.space import ScalarSpace
-from adaflo_tpu_torch.ops.tensor import CellEvaluator
+from adaflo_tpu_torch.ops.tensor import CellEvaluator, VariableCellEvaluator
 
 
 def _evaluator(space: ScalarSpace, n_q_1d: int, vec: torch.Tensor):
-    """(evaluator on vec's device, quad coords (E, n_q, dim), jxw (E, n_q))."""
+    """(evaluator on vec's device, quad coords (E, n_q, dim), jxw (E, n_q))
+    for lattice or adaptive-forest spaces."""
+    kw = dict(dtype=vec.dtype, device=vec.device)
+    if space.is_forest:
+        ev = VariableCellEvaluator(space.dim, space.basis, n_q_1d, space.h_cells, **kw)
+        return ev, ev.quad_coords(space), ev.jxw_cells_np
     mesh = space.mesh
-    ev = CellEvaluator(
-        space.dim, space.basis, n_q_1d, mesh.h, dtype=vec.dtype, device=vec.device
-    )
+    ev = CellEvaluator(space.dim, space.basis, n_q_1d, mesh.h, **kw)
     jxw = np.broadcast_to(ev.jxw_np, (mesh.n_cells, ev.n_q))
     return ev, ev.quad_coords(mesh), jxw
 

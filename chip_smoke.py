@@ -143,13 +143,32 @@ Phases:
        bubble's variants and of augmented Taylor-Hood (LATTICE_GOLDENS:
        rising_bubble_ls_{q3,picard,imex,expl,augp}_short,
        beltrami_2d_augp_small, beltrami_2d_augp_proj_small,
-       beltrami_3d_augp_small, spurious_currents_ls_3d_short): each in a
-       child process of its own with the counts from 0 (`chip_smoke.py
-       --golden <name>`, all started together, each host-bound on a small
-       lattice), which prints its seconds, steps, Newton and Krylov counts,
-       launches and peak device memory; couette, poiseuille_ns_small, the
-       anchor and the Q3 bubble run K1 and K2, the others the operator's
-       plain cell route alone (its applies counted, no K1-K4 launch);
+       beltrami_3d_augp_small, spurious_currents_ls_3d_short) and the
+       adaptive forest's paths (FOREST_GOLDENS: beltrami_2d_small and
+       beltrami_2d_proj_small, the 2D Taylor vortex on the reference's
+       locally refined mesh, held to their goldens; "drivencavity", the
+       driven cavity's adaptive round of tests/test_forest_navier_stokes.py,
+       held to its checks: two converged solves, cells 64, 82, 106, hanging
+       rows, the finest cells near the lid): each in a child process of its
+       own with the counts from 0 (`chip_smoke.py --golden <name>`, all
+       started together, each host-bound on a small mesh), which prints its
+       seconds, steps, Newton and Krylov counts, launches and peak device
+       memory; couette, poiseuille_ns_small, the anchor and the Q3 bubble
+       run K1 and K2, the others the operator's plain cell route alone (its
+       applies counted, no K1-K4 launch); the forest paths' counts must be
+       the CPU's (FOREST_COUNTS);
+     - before the goldens, the full-width forest path: the Beltrami driver
+       on the reference's 2D AMR mesh (global refinements = 4, velocity
+       degree 4: 1048 cells, Q4/Q3, 34,158 + 9,663 dofs, float64) with
+       beltrami_2d_small.prm's step size and tolerances: the build of the
+       native forest library (g++), then setup (the forest and the
+       ForestGMG hierarchies timed apart), the t = 0 anchors of
+       tests/test_golden_ns.py (9.507e-09 / 8.461e-12, relative 2.291e-08 /
+       9.877e-12, divergence below 1e-14), then FOREST_STEPS = 2 steps, each
+       with its seconds, Newton and Krylov counts and plain-route applies,
+       the counts held to the CPU's (FOREST_COUNTS); no K1-K4 launch
+       (forests run the plain cell route, as JAX's eligibility rules), the
+       peak device memory;
      - the 3D open-boundary channel at full width (poiseuille_ns.prm with
        dimension = 3 and global refinements = 4: 64 x 16 x 16 cells,
        421,443 + 18,785 dofs, float64): setup, phase 2's check of K1/K2 on
@@ -1695,6 +1714,70 @@ CH3_ANCHORS = {
     "cells": " Number of active cells: 16384.",
     "dofs": " Number of degrees of freedom (velocity/pressure): 440228 (421443 + 18785).",
 }
+# the adaptive forest: the forest goldens (the 2D Taylor vortex on the
+# reference's locally refined mesh, 280 cells, Q3/Q2) and the driven cavity's
+# adaptive round (tests/test_forest_navier_stokes.py's configuration), each a
+# golden child, and their (Newton, Krylov) counts per nonlinear solve as the
+# port's CPU runs give them, with those of the full-width forest path's
+# steps (beltrami_2d_1048, held on the CPU by tests/test_torch_forest_beltrami.py)
+FOREST_GOLDENS = (
+    ("beltrami_2d_small", "beltrami"),
+    ("beltrami_2d_proj_small", "beltrami"),
+)
+FOREST_COUNTS = {
+    "beltrami_2d_small": [(2, 38), (2, 38), (2, 27)],
+    "beltrami_2d_proj_small": [(1, 13), (1, 13), (1, 10)],
+    "drivencavity": [(3, 68), (2, 42)],
+    "beltrami_2d_1048": [(2, 34), (2, 36)],
+}
+CAVITY_PRM = """
+subsection Time stepping
+  set end time = 1
+  set step size = 1
+end
+subsection Navier-Stokes
+  set physical type      = incompressible stationary
+  set dimension          = 2
+  set global refinements = 8
+  set adaptive refinements = 1
+  set velocity degree    = 2
+  set viscosity          = 0.05
+  subsection Solver
+    set NL max iterations  = 15
+    set NL tolerance       = 1.e-8
+    set lin max iterations = 150
+    set lin tolerance      = 1.e-4
+  end
+end
+subsection Output options
+  set output verbosity = 1
+end
+"""
+CAVITY_CELLS = [64, 82, 106]  # before each solve, and after the last adaptation
+# the full-width forest path: the reference's 2D AMR Beltrami mesh (global
+# refinements 4, velocity degree 4: 1048 cells, Q4/Q3), its t = 0 anchors
+# (tests/test_golden_ns.py:229-289), then FOREST_STEPS coupled-Newton BDF-2
+# steps at beltrami_2d_small.prm's step size and tolerances
+FOREST_STEPS = 2
+
+
+def forest_parameters():
+    """The full-width forest path's parameters: beltrami_2d_small.prm at
+    global refinements = 4 and velocity degree 4, to FOREST_STEPS steps."""
+    from adaflo_tpu_torch.parameters import FlowParameters
+
+    par = FlowParameters.from_file(str(ROOT / "tests" / "prms" / "beltrami_2d_small.prm"))
+    par.global_refinements = 4
+    par.velocity_degree = 4  # Q4/Q3
+    par.end_time = par.start_time + FOREST_STEPS * par.time_step_size_start
+    return par
+
+FOREST_ANCHORS = {
+    "cells": " Number of active cells: 1048.",
+    "dofs": " Number of degrees of freedom (velocity/pressure): 43821 (34158 + 9663).",
+    "err_t0": ("9.507e-09", "8.461e-12"),
+    "rel_t0": ("2.291e-08", "9.877e-12"),
+}
 
 
 def reset_single_phase_counts(cm):
@@ -1870,8 +1953,11 @@ def golden_child(name: str) -> int:
         problem = driver_problem("poiseuille", par, out)
         problem.run()
         record["e_p"], record["e_u"] = problem.errors()
+    elif name == "drivencavity":
+        record["cavity"] = run_cavity(out)
     else:
-        table = {g: (d, p) for g, d, p in SINGLE_PHASE} | {g: (d, g) for g, d in LATTICE_GOLDENS}
+        table = {g: (d, p) for g, d, p in SINGLE_PHASE} | {
+            g: (d, g) for g, d in LATTICE_GOLDENS + FOREST_GOLDENS}
         driver, prm = table[name]
         Params = TwoPhaseParameters if driver in ("rising_bubble", "spurious_currents") else (
             FlowParameters)
@@ -1879,7 +1965,7 @@ def golden_child(name: str) -> int:
         problem.run()
     torch.cuda.synchronize()
     record["seconds"] = time.perf_counter() - t0
-    if name != "anchor":
+    if name not in ("anchor", "drivencavity"):
         compare_with_golden(out.getvalue(), ROOT / "tests" / "golden" / f"{name}.output")
         record["golden_passed"] = True
     record["steps"] = out.getvalue().count("Time step #")
@@ -1892,6 +1978,149 @@ def golden_child(name: str) -> int:
           f"peak device memory {record['peak_gb']:.3f} GB", flush=True)
     print(json.dumps(record), flush=True)
     return 0
+
+
+def run_cavity(out) -> dict:
+    """The driven cavity's adaptive round on the card (golden child
+    "drivencavity"): a stationary solve on 8 x 8 cells, the Kelly pressure
+    indicators, refine_and_coarsen_fixed_number, adapt_mesh with the
+    solution carried over, a solve on the new mesh and one more
+    adaptation. Returns its cells before each solve and at the end, the
+    cells flagged for refinement in each adaptation, its hanging rows and
+    the finest cells' median y (tests/test_forest_navier_stokes.py's
+    checks)."""
+    import torch
+
+    from adaflo_tpu_torch.applications.drivencavity import DrivenCavityProblem
+    from adaflo_tpu_torch.parameters import FlowParameters
+
+    par = FlowParameters.from_string(CAVITY_PRM)
+    par.output_filename = ""
+    problem = DrivenCavityProblem(par, out=out)  # the default device
+    ns = problem.navier_stokes
+    refined = []
+    adapt = ns.adapt_mesh
+
+    def recorded(flags):
+        refined.append(int((np.asarray(flags) == 1).sum()))
+        return adapt(flags)
+
+    ns.adapt_mesh = recorded
+    problem.run()
+    cells = [int(ln.split(":")[1].strip(" .")) for ln in out.getvalue().splitlines()
+             if "active cells" in ln] + [problem.mesh.n_cells]
+    levels = ns.u_space.levels
+    fine = problem.mesh.cell_geometry()[0][levels == levels.max()]
+    return dict(
+        cells=cells, refined=refined, hanging=int(len(ns.u_space.hanging_slave)),
+        median_y_finest=float(np.median(fine[:, 1])),
+        converged=out.getvalue().count("conv.]"),
+        finite=bool(torch.isfinite(ns.solution[0]).all()),
+    )
+
+
+def run_forest_beltrami(device):
+    """Phase 3, the full-width forest path: the port's Beltrami driver on the
+    reference's 2D AMR mesh (4 x 4 roots, global refinements = 4, cells 2
+    and 3 refined before the last global refinement: 1048 cells, Q4/Q3,
+    43,821 dofs, float64), beltrami_2d_small.prm's step size and solver
+    tolerances: the native forest library's build timed apart, the setup
+    timed in parts (the forest, then the spaces, constraints, operator and
+    preconditioner, the ForestGMG hierarchies apart), the t = 0 anchors,
+    then FOREST_STEPS steps with the counts from 0, each with its seconds,
+    Newton and Krylov counts (held to the CPU's) and plain-route applies;
+    K1-K4 never launch (the forest runs the plain cell route); the peak
+    device memory."""
+    import torch
+
+    from adaflo_tpu_torch.drivers.beltrami import BeltramiProblem
+    from adaflo_tpu_torch.mesh import forest as fm
+    from adaflo_tpu_torch.ops import coupled_matvec as cm
+    from adaflo_tpu_torch.ops import navier_stokes as nso
+    from adaflo_tpu_torch.solvers import forest_multigrid as fmg
+
+    t0 = time.perf_counter()
+    fm.library_path()  # g++ of native/forest.cc, where no library of its hash is built
+    build_s = time.perf_counter() - t0
+    par = forest_parameters()
+    out = Tee()
+    gmg_s = []
+    init = fmg.ForestGMG.__init__
+
+    def timed(self, *a, **kw):
+        t = time.perf_counter()
+        init(self, *a, **kw)
+        gmg_s.append(time.perf_counter() - t)
+
+    fmg.ForestGMG.__init__ = timed
+    reset_single_phase_counts(cm)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        problem = BeltramiProblem(par, out=out)  # the default device
+        forest_s = time.perf_counter() - t0
+        problem.setup()
+        problem.output_results()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    finally:
+        fmg.ForestGMG.__init__ = init
+    levels = [len(g.levels) for g in problem.navier_stokes.preconditioner.u_gmg_geom]
+    print(f"forest 1048: library build {build_s:.3f} s, setup {setup_s:.3f} s (forest "
+          f"{forest_s:.3f} s, ForestGMG "
+          f"hierarchies {sum(gmg_s):.3f} s: {len(gmg_s)} of {levels} + "
+          f"{len(problem.navier_stokes.preconditioner.p_gmg_geom.levels)} levels)", flush=True)
+    steps = []
+    for _ in range(FOREST_STEPS):
+        before, before_route = dict(cm.launches), dict(nso.PLAIN_ROUTE_APPLIES)
+        t0 = time.perf_counter()
+        newton, krylov = problem.step()
+        torch.cuda.synchronize()
+        st = dict(
+            seconds=time.perf_counter() - t0, newton=int(newton), krylov=int(krylov),
+            launches={k: cm.launches[k] - before[k] for k in cm.launches
+                      if cm.launches[k] > before[k]},
+            plain_route={k: nso.PLAIN_ROUTE_APPLIES[k] - before_route[k]
+                         for k in before_route},
+        )
+        steps.append(st)
+        print(f"forest 1048 step {len(steps)}: {st['seconds']:.3f} s, Newton {st['newton']}, "
+              f"Krylov {st['krylov']}, launches {st['launches']}, plain-route applies "
+              f"{st['plain_route']}", flush=True)
+    launches, plain, plain_route = route_counts(cm)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ns = problem.navier_stokes
+    text = out.getvalue()
+    lines = text.splitlines()
+
+    def pair(prefix):
+        ln = next(ln for ln in lines if ln.startswith(prefix))
+        parts = ln.split("=")
+        return parts[1].split(",")[0].strip(), parts[2].strip()
+
+    div0 = float(next(ln for ln in lines if "Cell divergence" in ln).split("=")[1])
+    checks = check_routes_ran("forest 1048", False, launches, plain, plain_route)
+    checks.update(
+        cells=FOREST_ANCHORS["cells"] in lines,
+        dofs=FOREST_ANCHORS["dofs"] in lines,
+        err_t0=pair("  L2-Errors absolute") == FOREST_ANCHORS["err_t0"],
+        rel_t0=pair("  L2-Errors relative") == FOREST_ANCHORS["rel_t0"],
+        div_t0=div0 < 1e-14,
+        hanging=len(ns.u_space.hanging_slave) > 0 and len(ns.p_space.hanging_slave) > 0,
+        converged=text.count(" converged.") == FOREST_STEPS and len(steps) == FOREST_STEPS,
+        cpu_counts=[(st["newton"], st["krylov"]) for st in steps]
+        == FOREST_COUNTS["beltrami_2d_1048"],
+        finite=bool(torch.isfinite(ns.solution[0]).all())
+        and bool(torch.isfinite(ns.solution[1]).all()),
+    )
+    print(f"forest 1048: peak device memory {peak_gb:.3f} GB, t = 0 ||e_p|| ||e_u|| "
+          f"{pair('  L2-Errors absolute')}, relative {pair('  L2-Errors relative')}, "
+          f"divergence {div0:.3e}, checks {checks}", flush=True)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"forest 1048 checks failed: {failed}")
+    return dict(build_s=build_s, setup_s=setup_s, forest_s=forest_s, gmg_s=sum(gmg_s),
+                steps=steps, launches=launches, peak_gb=peak_gb)
 
 
 def run_goldens(device):
@@ -1912,7 +2141,8 @@ def run_goldens(device):
     couette.setup()
     masks_rec = check_open_masks(couette.navier_stokes, device, "couette 64 x 16")
     del couette
-    names = [g for g, _ in LATTICE_GOLDENS] + [g for g, _, _ in SINGLE_PHASE] + ["anchor"]
+    names = ([g for g, _ in LATTICE_GOLDENS] + [g for g, _ in FOREST_GOLDENS]
+             + ["drivencavity"] + [g for g, _, _ in SINGLE_PHASE] + ["anchor"])
     t0 = time.perf_counter()
     procs = {
         name: subprocess.Popen(
@@ -1946,13 +2176,30 @@ def run_goldens(device):
             r["launches"], r["plain"], r["plain_route"],
         )
         extra = ""
+        if name in FOREST_COUNTS:
+            # the forest paths: the plain cell route, the CPU's counts
+            checks["cpu_counts"] = list(zip(r["newton"], r["krylov"])) == [
+                tuple(c) for c in FOREST_COUNTS[name]]
+        if name == "drivencavity":
+            cav = r["cavity"]
+            checks.update(
+                converged=cav["converged"] == 2,
+                cells=cav["cells"] == CAVITY_CELLS,
+                more_cells=cav["cells"][1] > cav["cells"][0],
+                hanging=cav["hanging"] > 0,
+                finest_near_lid=cav["median_y_finest"] > 0.5,
+                finite=cav["finite"],
+            )
+            extra = f" cells {cav['cells']}, refined {cav['refined']},"
+        if not all(checks.values()):
+            raise AssertionError(f"golden path {name}: {checks}")
         if name == "anchor":
             checks["e_u"] = abs(r["e_u"] - ANCHOR_EU) < ANCHOR_EU_TOL
             checks["e_p"] = r["e_p"] < ANCHOR_EP
             extra = f" ||e_u|| = {r['e_u']:.6f}, ||e_p|| = {r['e_p']:.3e} at t = 2,"
             if not all(checks.values()):
                 raise AssertionError(f"poiseuille_ns anchor: {checks}")
-        else:
+        elif name != "drivencavity":
             extra = " golden passed,"
         print(f"golden path {name}: {r['seconds']:.3f} s, {r['steps']} steps,{extra} "
               f"launches {r['launches']}, plain-route applies {r['plain_route']}, "
@@ -2158,6 +2405,7 @@ def main() -> int:
     rb3_rec = run_rising_bubble_3d(device)
     rb2_rec = run_rising_bubble_2d(device)
     q3_rec = check_rising_bubble_q3(device)
+    forest_rec = run_forest_beltrami(device)
     sp_rec = run_goldens(device)
     ch3_rec = run_channel_3d(device)
     marks.append(("3", time.perf_counter()))
@@ -2227,6 +2475,10 @@ def main() -> int:
             launches=sp_rec["goldens"]["anchor"]["launches"].get(name, 0))
         e["channel_3d"] = dict(launches=ch3_rec["launches"].get(name, 0),
                                **pick(ch3_rec["masks"]))
+        # the forest paths run the plain cell route: no launch
+        e["forest"] = {"beltrami_2d_1048": forest_rec["launches"].get(name, 0)} | {
+            g: sp_rec["goldens"][g]["launches"].get(name, 0)
+            for g in [g for g, _ in FOREST_GOLDENS] + ["drivencavity"]}
     for name in BLOCK_ENTRIES:
         main = "3D Q2/Q1 16^3 periodic f64"
         kernels.append(entry(
@@ -2321,7 +2573,18 @@ def main() -> int:
         + json.dumps({k: round(v["seconds"], 3) for k, v in sp_rec["goldens"].items()})
         + f", {sp_rec['wall_s']:.3f} s in parallel processes"
     )
-    for g, _ in LATTICE_GOLDENS:
+    steps = forest_rec["steps"]
+    print(
+        f"forest 1048 summary: library build {forest_rec['build_s']:.3f} s, setup "
+        f"{forest_rec['setup_s']:.3f} s (forest "
+        f"{forest_rec['forest_s']:.3f} s, ForestGMG hierarchies {forest_rec['gmg_s']:.3f} s), "
+        f"{statistics.mean(st['seconds'] for st in steps):.3f} s/step "
+        f"(steps {[round(st['seconds'], 3) for st in steps]}), Newton "
+        f"{[st['newton'] for st in steps]}, Krylov {[st['krylov'] for st in steps]}, "
+        f"plain-route applies {[st['plain_route'] for st in steps]}, K1-K4 launches "
+        f"{forest_rec['launches']}, peak device memory {forest_rec['peak_gb']:.3f} GB"
+    )
+    for g, _ in LATTICE_GOLDENS + FOREST_GOLDENS + (("drivencavity", None),):
         r = sp_rec["goldens"][g]
         n = max(r["steps"], 1)
         print(f"{g} summary: {r['seconds'] / n:.3f} s/step over {r['steps']} steps, Newton "

@@ -235,3 +235,51 @@ def test_the_card_is_refused_without_cuda(config):
         operator(2, 2, *config, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA device"):
         operator(2, 2, *config, device=None)
+
+
+def forest_operator(dim, package, augmented=False):
+    """Coupled Newton Q2/Q1 on a hanging-node forest (torch_forest_cases),
+    Dirichlet rows on every side and the hanging rows, in the port (on the
+    CPU) or the JAX package."""
+    from adaflo_tpu.fe.forest_space import ForestSpace as JForestSpace
+    from adaflo_tpu_torch.fe.forest_space import ForestSpace
+    from torch_forest_cases import hanging_pair
+
+    j, t = hanging_pair(dim)
+    Params, mesh, Space = (
+        (FlowParameters, t, ForestSpace) if package == "port" else (JParams, j, JForestSpace)
+    )
+    par = Params.from_string(PRM.format(
+        dim=dim, degree=2, lin=NEWTON[0], ptype=NEWTON[1], augmented=int(augmented)))
+    us, ps = Space(mesh, 2), Space(mesh, 1)
+    cu = [us.make_constraints(us.all_boundary_dofs()) for _ in range(dim)]
+    cp = ps.make_constraints()
+    if package == "jax":
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("ADAFLO_PALLAS_MATVEC", "1")
+            return jns.NavierStokesOperator(par, us, ps, cu, cp)
+    return tops.NavierStokesOperator(par, us, ps, cu, cp, device="cpu")
+
+
+@pytest.mark.parametrize("dim", [2, 3], ids=["2d", "3d"])
+def test_forest_newton_routes_einsum_as_jax_does(dim):
+    """Adaptive forests have no Pallas table set in the JAX package (its
+    eligibility starts with `not self.is_forest`, even where
+    ADAFLO_PALLAS_MATVEC=1 forces it elsewhere): coupled Newton Q2/Q1 on a
+    hanging-node forest runs the plain cell route in the port, counted in
+    PLAIN_ROUTE_APPLIES, and no kernel entry; augmented Taylor-Hood on a
+    forest is not ported and raises, naming its queue item."""
+    assert forest_operator(dim, "jax")._pallas_tables is None
+    op = forest_operator(dim, "port")
+    assert op.u_space.is_forest and not op.kernel_configuration() and op.cells is None
+    lin, du, dp = state(op, 60 + dim)
+    assert op.route(lin) == "einsum"
+    before, plain = dict(tops.PLAIN_ROUTE_APPLIES), dict(cm.plain_calls)
+    ru, rp = op.vmult(du, dp, TW, lin)
+    rv = op.velocity_vmult(du, TW, lin)
+    assert tops.PLAIN_ROUTE_APPLIES["vmult"] == before["vmult"] + 1
+    assert tops.PLAIN_ROUTE_APPLIES["velocity_vmult"] == before["velocity_vmult"] + 1
+    assert cm.plain_calls == plain
+    assert torch.isfinite(ru).all() and torch.isfinite(rp).all() and torch.isfinite(rv).all()
+    with pytest.raises(NotImplementedError, match="12b"):
+        forest_operator(dim, "port", augmented=True)
